@@ -1,0 +1,145 @@
+"""Serving launcher: random-weight greedy serving of a paper-zoo model.
+
+Counterpart of ``repro.launch.serve``'s default (executed) mode. Builds
+the model, draws its weights from a seeded ``torch.Generator`` on the
+device, quantizes them under ``--fmt``, and serves ``--n`` requests
+(random prompts from ``--seed``, all arriving at t=0) through
+:class:`~repro_torch.serving.engine.ServeEngine`.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --fmt int8
+
+Without ``--full`` the config is the reduced variant, as in the JAX
+launcher. The arrival patterns other than ``burst``, ``--sim`` and
+``--dry`` wait for ROADMAP A5/A7.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.paper_zoo import PAPER_MODELS
+from repro_torch.models.api import Model, build_model
+from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.requests import Request
+
+
+@dataclasses.dataclass
+class ServeResult:
+    requests: List[Request]
+    engine: ServeEngine
+    model: Model
+    params: Dict[str, Any]
+    wall_s: float               # host wall time of engine.run
+
+
+def make_requests(vocab_size: int, n: int, seed: int,
+                  prompt_len: Tuple[int, int] = (8, 24),
+                  new_tokens: Tuple[int, int] = (4, 12)) -> List[Request]:
+    """``n`` requests with prompt lengths and output lengths drawn
+    uniformly from the inclusive ranges, tokens uniform over the
+    vocabulary, all arriving at t=0."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+        reqs.append(Request(
+            req_id=i,
+            prompt=rng.integers(0, vocab_size, plen).astype(np.int64),
+            prompt_len=plen,
+            max_new_tokens=int(rng.integers(new_tokens[0],
+                                            new_tokens[1] + 1)),
+            arrival_time=0.0))
+    return reqs
+
+
+def build_params(model: Model, seed: int) -> Dict[str, Any]:
+    """Random master weights from ``seed`` on the model's device, then
+    post-training quantization under the model's format."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    params = model.init(gen)
+    return model.quantize(params)
+
+
+def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
+          max_batch: int = 8, mode: str = "continuous",
+          kv_quant: bool = False, device="cuda", seed: int = 0,
+          reduced: bool = True, *, max_prefill_batch: int = 8,
+          buf_len: int = 64, prompt_len: Tuple[int, int] = (8, 24),
+          new_tokens: Tuple[int, int] = (4, 12),
+          record_logits: bool = False,
+          model: Optional[Model] = None,
+          params: Optional[Dict[str, Any]] = None) -> ServeResult:
+    """Serve ``n`` random requests on ``arch`` under ``fmt``.
+
+    Pass ``model`` and ``params`` from an earlier result to serve again
+    on the same weights (for example the same requests in the other
+    mode); otherwise they are built from ``seed``."""
+    if model is None:
+        cfg = PAPER_MODELS[arch]
+        model = build_model(cfg.reduced() if reduced else cfg, fmt=fmt,
+                            kv_quant=kv_quant, device=device)
+        params = build_params(model, seed)
+    elif params is None:
+        raise ValueError("model= needs params=")
+    reqs = make_requests(model.cfg.vocab_size, n, seed, prompt_len,
+                         new_tokens)
+    eng = ServeEngine(model, params, mode=mode, max_batch=max_batch,
+                      max_prefill_batch=max_prefill_batch, buf_len=buf_len,
+                      record_logits=record_logits)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    return ServeResult(requests=reqs, engine=eng, model=model,
+                       params=params, wall_s=time.perf_counter() - t0)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama-3.1-8b",
+                    choices=sorted(PAPER_MODELS))
+    ap.add_argument("--n", type=int, default=24)
+    ap.add_argument("--pattern", default="burst", choices=["burst"],
+                    help="arrival pattern; all requests arrive at t=0")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--fmt", default="bfloat16")
+    ap.add_argument("--mode", default="continuous",
+                    choices=["continuous", "sequential"])
+    ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full", action="store_true",
+                    help="serve the full-width config (on the card)")
+    args = ap.parse_args()
+
+    res = serve(args.arch, args.fmt, n=args.n, max_batch=args.max_batch,
+                mode=args.mode, kv_quant=args.kv_quant, device=args.device,
+                seed=args.seed, reduced=not args.full,
+                buf_len=512 if args.full else 64)
+    tokens = sum(len(r.generated) for r in res.requests)
+    phases = res.engine.phases
+    pre = [p.latency_s for p in phases if p.phase == "prefill"]
+    dec = [p.latency_s for p in phases if p.phase == "decode"]
+    print(f"model                  {res.model.cfg.name}")
+    print(f"format                 {args.fmt}")
+    print(f"device                 {res.model.device}")
+    print(f"requests               {len(res.requests)}")
+    print(f"generated_tokens       {tokens}")
+    print(f"wall_s                 {res.wall_s:.6g}")
+    print(f"tokens_per_s           {tokens / res.wall_s:.6g}")
+    if pre:
+        print(f"prefill_phases         {len(pre)}")
+        print(f"mean_prefill_ms        {1e3 * np.mean(pre):.6g}")
+    if dec:
+        print(f"decode_steps           {len(dec)}")
+        print(f"mean_decode_step_ms    {1e3 * np.mean(dec):.6g}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,223 @@
+"""Shared primitives: norms, RoPE, GQA attention (direct and chunked
+online-softmax), the ring-buffer KV cache, the gated MLP.
+
+Counterpart of ``repro.models.layers``, with the same layouts at every
+public function: q (B, S, H, hd), k/v (B, T, Kv, hd), caches
+(L, B, W, Kv, hd). Attention is plain PyTorch, as the reference computes
+it outside any Pallas kernel. Scores, softmax and sums are f32.
+
+Where the reference builds new arrays, the cache functions here write
+into the cache tensors in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.quant.apply import linear_apply
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# norms & embeddings
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          dtype=torch.bfloat16) -> torch.Tensor:
+    return table[tokens.long()].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (halves, not interleaved)
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs        # (..., s, half)
+    cos = torch.cos(angles)[..., :, None, :]                # (..., s, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B,S,Kv,G,hd)  k: (B,T,Kv,hd) -> (B,Kv,G,S,T), f32."""
+    return torch.matmul(q.float().permute(0, 2, 3, 1, 4),
+                        k.float().permute(0, 2, 3, 1)[:, :, None])
+
+
+def _gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: (B,Kv,G,S,T)  v: (B,T,Kv,hd) -> (B,S,Kv,G,hd), f32 sums of p
+    rounded to v's dtype."""
+    out = torch.matmul(p.to(v.dtype).float(),
+                       v.float().permute(0, 2, 1, 3)[:, :, None])
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              mask: Optional[torch.Tensor] = None,
+              causal: bool = False,
+              window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """Direct GQA attention.
+
+    q: (B, S, H, hd); k/v: (B, T, Kv, hd). H must be a multiple of Kv.
+    ``mask``: optional (B, S, T) boolean of *allowed* positions.
+    ``q_offset``: absolute position of q[0].
+    Returns (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scores = _gqa_scores(q.reshape(B, S, Kv, G, hd), k) / math.sqrt(hd)
+    qpos = torch.arange(S, device=q.device) + q_offset
+    kpos = torch.arange(T, device=q.device)
+    allow = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        allow &= kpos[None, :] > qpos[:, None] - window
+    full = allow[None, None, None]                    # (1,1,1,S,T)
+    if mask is not None:
+        full = full & mask[:, None, None]
+    scores = torch.where(full, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = _gqa_values(p, v)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True,
+                      window: Optional[int] = None,
+                      chunk_q: int = 512,
+                      chunk_k: int = 512) -> torch.Tensor:
+    """Flash-style online-softmax attention over (chunk_q, chunk_k)
+    tiles, so memory grows with chunk_q * chunk_k instead of S^2.
+    Shapes as :func:`attention`; odd shapes fall back to it, as in the
+    reference."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    if S % chunk_q or T % chunk_k:
+        return attention(q, k, v, causal=causal, window=window)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, Kv, G, hd)
+    outs = []
+    for qi in range(S // chunk_q):
+        q_chunk = qg[:, qi * chunk_q:(qi + 1) * chunk_q]
+        qpos = qi * chunk_q + torch.arange(chunk_q, device=q.device)
+        m = torch.full((B, Kv, G, chunk_q), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Kv, G, chunk_q), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Kv, G, chunk_q, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(T // chunk_k):
+            k_chunk = k[:, ki * chunk_k:(ki + 1) * chunk_k]
+            v_chunk = v[:, ki * chunk_k:(ki + 1) * chunk_k]
+            kpos = ki * chunk_k + torch.arange(chunk_k, device=q.device)
+            s = _gqa_scores(q_chunk, k_chunk) * scale
+            allow = torch.ones((chunk_q, chunk_k), dtype=torch.bool,
+                               device=q.device)
+            if causal:
+                allow &= kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                allow &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(allow[None, None, None], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] \
+                + _gqa_values(p, v_chunk).permute(0, 2, 3, 1, 4)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-20)[..., None]   # (B,Kv,G,cq,hd)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, chunk_q, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (ring buffer when windowed)
+# ---------------------------------------------------------------------------
+def init_kv_cache(n_layers: int, batch: int, buf_len: int, n_kv: int,
+                  head_dim: int, dtype=torch.bfloat16,
+                  device="cuda") -> Dict[str, Any]:
+    """Per-row positions: every slot (batch row) holds its own sequence,
+    so ``pos`` is (B,) and ``slot_pos`` is (B, W)."""
+    return {
+        "k": torch.zeros((n_layers, batch, buf_len, n_kv, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((n_layers, batch, buf_len, n_kv, head_dim),
+                         dtype=dtype, device=device),
+        # absolute position held in each slot (-1 = empty)
+        "slot_pos": torch.full((batch, buf_len), -1, dtype=torch.int32,
+                               device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def cache_write_decode(cache_layer_k: torch.Tensor,
+                       cache_layer_v: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor,
+                       pos: torch.Tensor) -> None:
+    """Write one token's K/V at per-row ring slot pos % W, in place.
+
+    cache_layer_k/v: (B, W, Kv, hd); k/v: (B, 1, Kv, hd); pos: (B,)."""
+    B, W = cache_layer_k.shape[0], cache_layer_k.shape[1]
+    slot = pos.long() % W
+    rows = torch.arange(B, device=pos.device)
+    cache_layer_k[rows, slot] = k[:, 0].to(cache_layer_k.dtype)
+    cache_layer_v[rows, slot] = v[:, 0].to(cache_layer_v.dtype)
+
+
+def decode_attention_mask(slot_pos: torch.Tensor, pos: torch.Tensor,
+                          window: Optional[int]) -> torch.Tensor:
+    """(B, W) bool: which cache slots each row's current token may see."""
+    ok = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window is not None:
+        ok &= slot_pos > (pos[:, None] - window)
+    return ok
+
+
+def slot_positions_after_prefill(buf_len: int, lengths: torch.Tensor,
+                                 padded_len: int) -> torch.Tensor:
+    """(B, buf) slot_pos after a (possibly padded) prefill: slot i of row
+    b holds absolute position start+i (start > 0 only when the padded
+    prompt exceeded the buffer); pad slots (>= lengths[b]) are -1."""
+    idx = torch.arange(buf_len, device=lengths.device)[None, :]
+    pos = max(padded_len - buf_len, 0) + idx
+    return torch.where(pos < lengths[:, None], pos,
+                       torch.full_like(pos, -1)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def gated_mlp(p: Dict[str, Any], x: torch.Tensor,
+              policy: PrecisionPolicy) -> torch.Tensor:
+    g = linear_apply(p["w_gate"], x, policy)
+    u = linear_apply(p["w_up"], x, policy)
+    return linear_apply(p["w_down"], F.silu(g) * u, policy)
