@@ -7,17 +7,25 @@ Phases, each printing JSON lines; any failure ends the script with a
 non-zero exit code:
 
 1. card: the GPU's name and power limit (``nvidia-smi``); TF32 off.
-2. build: both dequant-matmul kernels from ``src/repro_torch/kernels/
-   quant_matmul/csrc``, timed.
-3. kernels: each kernel against its plain PyTorch version at the
-   llama-3.1-8b projection shapes (M in {1, 4, 8, 512}, four (K, N)) in
-   bf16, with the kernel, plain and library times and the card's bound.
+2. build: the four kernels (``src/repro_torch/kernels/*/csrc``), one
+   ``nvcc`` each, all started together, timed.
+3. kernels: each kernel against its plain PyTorch version, with the
+   kernel, plain and library times and the card's bound: the two
+   dequant-matmul kernels at the llama-3.1-8b projection shapes (M in
+   {1, 4, 8, 512}, four (K, N)) in bf16; flash attention at llama-3.1-8b's
+   heads (B, S) in {(1, 81), (2, 256), (1, 2048)} causal, one windowed
+   cell and one at qwen2.5-0.5b's heads; paged attention at llama-3.1-8b's
+   heads for B in {1, 4, 8} and ring lengths W in {261, 512, 4096}, with
+   ragged lengths and an unassigned page; the attention cells in bf16 and
+   f32, each checked row by row and beside a control (the plain version
+   with its mask edge moved by one key) that the check must see.
 4. serve: llama-3.1-8b at full width (random weights from
    ``torch.Generator(device="cuda").manual_seed(0)``) under each of the
    five formats: a continuous run of 8 requests through
    ``repro_torch.launch.serve.serve``, the launch counts of the kernels
-   in that run, and each request's prefill logits against its own
-   sequential run.
+   in that run (one flash launch per layer and prefill phase, one paged
+   launch per layer and decode step), and each request's prefill logits
+   against its own sequential run.
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -37,9 +45,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet (dense): HBM3 bytes/s and bf16 tensor-core FLOP/s
+# H100 SXM data sheet (dense): HBM3 bytes/s, bf16 tensor-core FLOP/s and
+# f32 FLOP/s outside the tensor cores (TF32 is off)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 L2_BYTES = 50 * 2**20
 
 SHAPES_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
@@ -60,6 +70,36 @@ PREFILL_LOGIT_TOL = {"float32": 1e-3, "float16": 5e-2, "bfloat16": 5e-2,
 REPLACES = {
     "int8_matmul": "src/repro/kernels/quant_matmul/kernel.py:55",
     "nf4_matmul": "src/repro/kernels/quant_matmul/kernel.py:112",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:67",
+    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:71",
+}
+# attention kernel vs plain, row by row (one query token and head): the
+# worst row's max |kernel - plain| over its max |plain|. f32 is the same
+# arithmetic with sums in other orders. In bf16 p and the output are each
+# rounded once to bf16: an output that lands across a rounding boundary
+# is one ulp away, at most 2^-7 (0.0078) of its row's largest value, and
+# p rounded against other running maxima moves a row by about 1e-3. Each
+# cell also reads a control, the plain version with the mask edge moved
+# by one key (the diagonal key of flash's second half of the rows, the
+# last key of every paged row), which must read above the tolerance.
+ATTN_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+ATTN_DTYPES = ("bfloat16", "float32")
+LLAMA_HEADS = (32, 8, 128)          # H, Kv, head_dim
+QWEN_HEADS = (14, 2, 64)            # qwen2.5-0.5b
+# (B, S, heads, window)
+FLASH_CELLS = [(1, 81, LLAMA_HEADS, None), (2, 256, LLAMA_HEADS, None),
+               (1, 2048, LLAMA_HEADS, None), (1, 2048, LLAMA_HEADS, 512),
+               (2, 256, QWEN_HEADS, None)]
+PAGED_B = (1, 4, 8)
+# 261: the sequential path's ring for a 228-token prompt (one page);
+# 512: the serve phase's buf_len; 4096: a long context
+PAGED_W = (261, 512, 4096)
+# the cells the kernels line reports: the serve phase's prefill of two
+# prompts and its decode batch over its 512-slot ring
+HEADLINE_ATTN = {
+    "flash_attention": {"dtype": "bfloat16", "B": 2, "S": 256, "H": 32,
+                        "window": None},
+    "paged_attention": {"dtype": "bfloat16", "B": 4, "W": 512},
 }
 
 
@@ -169,7 +209,197 @@ def kernel_phase(torch, K):
     return rows
 
 
-def serve_phase(torch, K, cfg):
+def _bound(nbytes: int, flops: int, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _copies(nbytes: int) -> int:
+    """Input sets to cycle through so that the timed calls read more than
+    the L2 holds."""
+    return max(1, min(32, math.ceil(2 * L2_BYTES / nbytes)))
+
+
+def row_rel_err(got, ref) -> float:
+    """Worst row, over the last axis: max |got - ref| / max |ref|."""
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    return (diff / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _attn_row(torch, name, dtype, got, ref, control, lib, times, nbytes,
+              flops, **shape):
+    rel = row_rel_err(got, ref)
+    bound, by = _bound(nbytes, flops, dtype)
+    tol = ATTN_REL_TOL[dtype]
+    row = {"phase": "kernel", "name": name, "dtype": dtype, **shape,
+           "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+           "max_rel_err": rel, "rel_tol": tol, "control_rel_err": control,
+           "library_max_abs_err": (lib.float() - ref.float()).abs().max()
+           .item(),
+           "kernel_ms": times[0], "plain_ms": times[1],
+           "library_ms": times[2], "bytes": nbytes, "flops": flops,
+           "bound_ms": bound, "bound_by": by}
+    emit(row)
+    row["fault"] = (
+        f"{name} disagrees with its plain version at {dtype} {shape}: "
+        f"rel {rel} > {tol}" if not rel <= tol else
+        f"{name} at {dtype} {shape}: the control reads {control} <= {tol}, "
+        f"so the check cannot see a one-key error" if not control > tol
+        else None)
+    return row
+
+
+def _raise_faults(rows) -> None:
+    faults = [r.pop("fault") for r in rows]
+    if any(faults):
+        raise SystemExit("\n".join(f for f in faults if f))
+
+
+def flash_phase(torch, FK):
+    """Flash attention against its plain version; the library time is
+    scaled_dot_product_attention on the same q, k, v laid out (B, H, S, d)
+    beforehand, causal (and with the window as a boolean mask)."""
+    from repro_torch.models.layers import attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for dtype in ATTN_DTYPES:
+        td = getattr(torch, dtype)
+        es = torch.finfo(td).bits // 8
+        for B, S, (H, Kv, d), window in FLASH_CELLS:
+            nbytes = es * (2 * B * S * H * d + 2 * B * S * Kv * d)
+            sets = [tuple(torch.randn(shape, generator=gen,
+                                      device="cuda").to(td)
+                          for shape in ((B, S, H, d), (B, S, Kv, d),
+                                        (B, S, Kv, d)))
+                    for _ in range(_copies(nbytes))]
+            q, k, v = sets[0]
+            got = FK.flash_attention(q, k, v, causal=True, window=window)
+            ref = FK.flash_attention_plain(q, k, v, causal=True,
+                                           window=window)
+            qpos = torch.arange(S, device="cuda")
+            allow = qpos[None, :] <= qpos[:, None]
+            if window is not None:
+                allow &= qpos[None, :] > qpos[:, None] - window
+            pairs = int(allow.sum())
+            # control: the plain attention without each row's diagonal key
+            strict = qpos[None, :] < qpos[:, None]
+            ctrl = attention(q, k, v, causal=True, window=window,
+                             mask=strict[None])
+            control = row_rel_err(ctrl[:, S // 2:], ref[:, S // 2:])
+            del ctrl, strict
+            lsets = [tuple(t.transpose(1, 2).contiguous() for t in st)
+                     for st in sets]
+            lkw = (dict(is_causal=True) if window is None
+                   else dict(attn_mask=allow))
+
+            def lib_fn(q_, k_, v_):
+                return sdpa(q_, k_, v_, enable_gqa=True, **lkw)
+
+            lib = lib_fn(*lsets[0]).transpose(1, 2)
+            torch.cuda.synchronize()
+            times = (
+                timed_ms(torch, lambda *a: FK.flash_attention(
+                    *a, causal=True, window=window), sets),
+                timed_ms(torch, lambda *a: FK.flash_attention_plain(
+                    *a, causal=True, window=window), sets[:1], reps=3,
+                    graph=False),
+                timed_ms(torch, lib_fn, lsets))
+            rows.append(_attn_row(
+                torch, "flash_attention", dtype, got, ref, control, lib,
+                times, nbytes, 4 * B * H * d * pairs, B=B, S=S, H=H, Kv=Kv,
+                d=d, window=window))
+            del sets, lsets, got, ref, lib
+            torch.cuda.empty_cache()
+    _raise_faults(rows)
+    return rows
+
+
+def paged_phase(torch, PK):
+    """Paged attention against its plain version over a ring cache viewed
+    as pages, as the decode step does, with ragged lengths and (where a
+    row has more than one page) an unassigned page in the last row. The
+    library time is scaled_dot_product_attention over the same cache laid
+    out (B, Kv, W, d) beforehand, with the valid slots as a boolean
+    mask."""
+    import numpy as np
+    from repro_torch.models.layers import ring_cache_pages
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    H, Kv, d = LLAMA_HEADS
+    rows = []
+    for dtype in ATTN_DTYPES:
+        td = getattr(torch, dtype)
+        es = torch.finfo(td).bits // 8
+        for B in PAGED_B:
+            for W in PAGED_W:
+                lens = rng.integers(W // 2, W + 1, B)
+                lens[0] = W
+                cache_bytes = 2 * B * W * Kv * d * es
+                caches = [tuple(torch.randn((B, W, Kv, d), generator=gen,
+                                            device="cuda").to(td)
+                                for _ in range(2))
+                          for _ in range(_copies(cache_bytes))]
+                q = torch.randn((B, H, d), generator=gen,
+                                device="cuda").to(td)
+                pos = torch.as_tensor(lens - 1, dtype=torch.int32,
+                                      device="cuda")
+                views = [ring_cache_pages(kc, vc, pos) for kc, vc in caches]
+                _, _, table, sl = views[0]
+                page, n = views[0][0].shape[1], table.shape[1]
+                if n > 1:
+                    table[B - 1, n // 2] = -1
+                sets = [(q, kp, vp, table, sl) for kp, vp, _, _ in views]
+                slot = torch.arange(W, device="cuda")
+                valid = (slot[None, :] < sl[:, None].long()) \
+                    & (table.repeat_interleave(page, dim=1) >= 0)
+                n_valid = int(valid.sum())
+                got = PK.paged_attention(*sets[0])
+                ref = PK.paged_attention_plain(*sets[0])
+                # control: the plain version without each row's last key
+                control = row_rel_err(PK.paged_attention_plain(
+                    q, *sets[0][1:4], (sl - 1).clamp(min=0)), ref)
+                lsets = [(q[:, :, None], kc.transpose(1, 2).contiguous(),
+                          vc.transpose(1, 2).contiguous())
+                         for kc, vc in caches]
+                mask = valid[:, None, None, :]
+
+                def lib_fn(q_, k_, v_):
+                    return sdpa(q_, k_, v_, attn_mask=mask, enable_gqa=True)
+
+                lib = lib_fn(*lsets[0])[:, :, 0]
+                torch.cuda.synchronize()
+                times = (timed_ms(torch, PK.paged_attention, sets),
+                         timed_ms(torch, PK.paged_attention_plain, sets[:1],
+                                  reps=3, graph=False),
+                         timed_ms(torch, lib_fn, lsets))
+                nbytes = es * (2 * B * H * d + 2 * n_valid * Kv * d) \
+                    + 4 * (table.numel() + B)
+                rows.append(_attn_row(
+                    torch, "paged_attention", dtype, got, ref, control, lib,
+                    times, nbytes, 4 * H * d * n_valid, B=B, W=W, page=page,
+                    seq_lens=[int(x) for x in lens],
+                    unassigned_page=n > 1))
+                del caches, views, sets, lsets, got, ref, lib
+        torch.cuda.empty_cache()
+    _raise_faults(rows)
+    return rows
+
+
+def reset_launches(mods) -> None:
+    for m in mods:
+        m.reset_launches()
+
+
+def read_launches(mods) -> dict:
+    return {name: n for m in mods for name, n in m.LAUNCHES.items()}
+
+
+def serve_phase(torch, mods, cfg):
     from repro_torch.launch.serve import build_params, serve
     from repro_torch.models.api import build_model
     kw = dict(n=8, max_batch=4, max_prefill_batch=2, buf_len=512,
@@ -183,9 +413,9 @@ def serve_phase(torch, K, cfg):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
+        reset_launches(mods)
         con = serve(model=model, params=params, mode="continuous", **kw)
-        counts = dict(K.LAUNCHES)
+        counts = read_launches(mods)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches[fmt] = counts
         for r in con.requests:
@@ -199,6 +429,14 @@ def serve_phase(torch, K, cfg):
             if (counts[name] > 0) != (fmt == fmt_of):
                 raise SystemExit(f"{fmt}: {name} launched "
                                  f"{counts[name]} times")
+        phases = [p.phase for p in con.engine.phases]
+        for name, phase in (("flash_attention", "prefill"),
+                            ("paged_attention", "decode")):
+            want = cfg.num_layers * phases.count(phase)
+            if counts[name] != want:
+                raise SystemExit(f"{fmt}: {name} launched {counts[name]} "
+                                 f"times, not {cfg.num_layers} per {phase} "
+                                 f"({want})")
         seq = serve(model=model, params=params, mode="sequential", **kw)
         worst = 0.0
         for rc, rs in zip(con.requests, seq.requests):
@@ -247,7 +485,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.quant_matmul import kernel as K
+    mods = (K, FK, PK)
 
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
@@ -256,13 +498,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = K.build()
+    libs = cuda_build.build(src for m in mods for src in m.SOURCES.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs]})
 
     rows = kernel_phase(torch, K)
+    rows["flash_attention"] = flash_phase(torch, FK)
+    rows["paged_attention"] = paged_phase(torch, PK)
     from repro_torch.configs.paper_zoo import PAPER_MODELS
-    launches = serve_phase(torch, K, PAPER_MODELS["llama-3.1-8b"])
+    launches = serve_phase(torch, mods, PAPER_MODELS["llama-3.1-8b"])
 
     kernels = []
     for name in K.KERNELS:
@@ -283,6 +527,24 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "library_is": "torch.matmul on the weight already "
                           "dequantized to bf16 (does less work)",
+        })
+    for name, shape in HEADLINE_ATTN.items():
+        head = next(r for r in rows[name]
+                    if all(r[k] == v for k, v in shape.items()))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": max(c[name] for c in launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "max_rel_err": max(r["max_rel_err"] for r in rows[name]),
+            "shape": shape,
+            "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "bytes": head["bytes"],
+            "library_ms": head["library_ms"],
+            "library_is": "torch.nn.functional.scaled_dot_product_attention"
+                          " (enable_gqa) on the same inputs",
         })
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import PREFILL_PAST_RING
+
 #: batch-axis position of each cache leaf: attention K/V stack layers on
 #: axis 0, so the request batch is axis 1; per-slot position counters are
 #: batch-major. Unlike the reference's table, the int8-KV scales
@@ -24,11 +26,16 @@ CACHE_BATCH_AXIS = {"k": 1, "v": 1, "ssm_state": 1, "conv": 1,
 def insert_cache_slot(cache: dict, pcache: dict, row: int,
                       slot: int) -> dict:
     """Copy batch row ``row`` of a prefill cache into decode-cache slot
-    ``slot``, in place. Returns ``cache``."""
+    ``slot``, in place; a prefill padded past the ring marks the decode
+    cache with :data:`PREFILL_PAST_RING`. Returns ``cache``."""
     for key, val in cache.items():
+        if not torch.is_tensor(val):
+            continue
         ax = CACHE_BATCH_AXIS.get(key, 0)
         src = torch.select(pcache[key], ax, row)
         torch.select(val, ax, slot).copy_(src)
+    if pcache.get(PREFILL_PAST_RING):
+        cache[PREFILL_PAST_RING] = True
     return cache
 
 
@@ -38,5 +45,6 @@ def evict_cache_slot(cache: dict, slot: int) -> dict:
     the serving path skips it, as the reference does. Returns
     ``cache``."""
     for key, val in cache.items():
-        torch.select(val, CACHE_BATCH_AXIS.get(key, 0), slot).zero_()
+        if torch.is_tensor(val):
+            torch.select(val, CACHE_BATCH_AXIS.get(key, 0), slot).zero_()
     return cache

@@ -1,0 +1,146 @@
+"""Flash attention (prefill): a CUDA C++ kernel for Hopper, bound with
+ctypes, and its plain PyTorch version.
+
+Counterpart of ``repro.kernels.flash_attention.kernel`` (the Pallas
+``flash_attention_pallas``). The source is ``csrc/flash_attention.cu``,
+built at first use by :mod:`repro_torch.kernels.cuda_build`.
+
+:func:`flash_attention` takes q (B, S, H, d) and k, v (B, T, Kv, d) with
+H a multiple of Kv, a causal flag and an optional sliding window, at any
+S, T >= 1. For a tensor on the CPU it returns :func:`flash_attention_plain`.
+For a CUDA tensor it checks device, dtype (f32 or bf16, one for all
+three), shape, contiguity and alignment, raises on anything the kernel
+does not take (head_dim other than 64 or 128, more than 64 query heads
+per KV head), allocates the output, launches on the current stream,
+raises if the launch reports an error, and adds one to
+``LAUNCHES["flash_attention"]``. Nothing falls back from the kernel to
+the plain version.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import F, I, P, check
+
+NAME = "flash_attention"
+CSRC = Path(__file__).resolve().parent / "csrc"
+# q, k, v, out, B, S, T, H, Kv, D, causal, window, scale, is_bf16
+SOURCES = {NAME: cuda_build.Source(
+    NAME, CSRC, (P, P, P, P, I, I, I, I, I, I, I, I, F, I))}
+
+#: launches of the CUDA kernel since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {NAME: 0}
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 64          # query heads per KV head: the kernel's 64 rows
+PLAIN_TILE = 128        # query and key tile of the plain version
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    LAUNCHES[NAME] = 0
+
+
+def _key_range(q0: int, q1: int, T: int, causal: bool,
+               window: Optional[int]):
+    """Keys [begin, end) that queries q0..q1-1 may see."""
+    if not causal:
+        return 0, T
+    begin = max(0, q0 - window + 1) if window is not None else 0
+    return begin, min(T, q1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          tile: int = PLAIN_TILE) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: an online softmax over
+    (tile x tile) blocks, ragged tails included. f32 scores times
+    1/sqrt(d); masked entries -1e30; f32 running max and sum; the
+    unnormalised p rounded to v's dtype before an f32 PV product;
+    acc / max(l, 1e-20) cast once to q's dtype. Key blocks that no query
+    of the block may see are skipped, which changes nothing: every query
+    sees its own position, and the first real score wipes what a wholly
+    masked block added (corr = exp(-1e30 - m) = 0)."""
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = 1.0 / d ** 0.5
+    qg = q.reshape(B, S, Kv, G, d).permute(0, 2, 3, 1, 4).float()
+    kt = k.permute(0, 2, 1, 3).float()[:, :, None]        # (B,Kv,1,T,d)
+    vt = v.permute(0, 2, 1, 3)[:, :, None]
+    out = torch.empty((B, Kv, G, S, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, tile):
+        q1 = min(S, q0 + tile)
+        qc = qg[:, :, :, q0:q1]
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        m = torch.full((B, Kv, G, q1 - q0), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Kv, G, q1 - q0, d), dtype=torch.float32,
+                          device=q.device)
+        begin, end = _key_range(q0, q1, T, causal, window)
+        for k0 in range(begin // tile * tile, end, tile):
+            k1 = min(T, k0 + tile)
+            s = torch.matmul(qc, kt[..., k0:k1, :].transpose(-1, -2)) * scale
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            allow = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                               device=q.device)
+            if causal:
+                allow &= kpos <= qpos
+            if window is not None:
+                allow &= kpos > qpos - window
+            s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(
+                p.to(v.dtype).float(), vt[..., k0:k1, :].float())
+            m = m_new
+        out[:, :, :, q0:q1] = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, S, H, d), k/v (B, T, Kv, d) -> (B, S, H, d) in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"no kernel for dtype {q.dtype}; expected one of "
+                        f"{DTYPES}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"no kernel for head_dim {d}; expected {HEAD_DIMS}")
+    if Kv == 0 or H % Kv or H // Kv > MAX_GROUP:
+        raise ValueError(f"H={H} must be a multiple of Kv={Kv}, at most "
+                         f"{MAX_GROUP} times it")
+    check("q", q, q.dtype, (B, S, H, d), q.device)
+    check("k", k, q.dtype, (B, T, Kv, d), q.device)
+    check("v", v, q.dtype, (B, T, Kv, d), q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    if T == 0 and S:
+        raise ValueError("no keys to attend to (T = 0)")
+    out = torch.empty_like(q)
+    if B and S:
+        cuda_build.launch(
+            SOURCES[NAME], LAUNCHES, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, S, T, H, Kv, d, int(causal),
+            window or 0, 1.0 / d ** 0.5, int(q.dtype == torch.bfloat16))
+    return out

@@ -18,36 +18,33 @@ version.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
+import shutil  # noqa: F401  (the build finds nvcc with shutil.which)
 from pathlib import Path
 from typing import Dict, List
 
 import torch
 
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import I, P, check as _check
 from repro_torch.quant.nf4 import codebook, unpack_codes
 
 KERNELS = ("int8_matmul", "nf4_matmul")
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+BUILD_DIR = cuda_build.BUILD_DIR
+SOURCES = {
+    # x, codes, scale, out, M, N, K, is_bf16
+    "int8_matmul": cuda_build.Source("int8_matmul", CSRC,
+                                     (P, P, P, P, I, I, I, I),
+                                     ("quant_matmul.cuh",)),
+    # x, packed, absmax, out, M, N, K, block, is_bf16
+    "nf4_matmul": cuda_build.Source("nf4_matmul", CSRC,
+                                    (P, P, P, P, I, I, I, I, I),
+                                    ("quant_matmul.cuh",)),
+}
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = {
-    # x, codes, scale, out, M, N, K, is_bf16, stream
-    "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, packed, absmax, out, M, N, K, block, is_bf16, stream
-    "nf4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-}
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -56,67 +53,15 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-# ---------------------------------------------------------------------------
-# build
-# ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
-    return str(path)
-
-
 def _library_path(name: str) -> Path:
-    """Output path keyed by the hash of the kernel's sources, so an edit
-    to a source is never served by a stale library."""
-    h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "quant_matmul.cuh"):
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    return cuda_build.library_path(SOURCES[name], BUILD_DIR)
 
 
 def build(names=KERNELS) -> List[Path]:
-    """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together. Raises with the compiler's output if
-    one fails. Returns the library paths."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    outs = [_library_path(n) for n in names]
-    procs = []
-    for name, out in zip(names, outs):
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            errors.append(f"{name}: nvcc exit {proc.returncode}\n"
-                          f"{log.decode(errors='replace')}")
-        else:
-            os.replace(tmp, out)
-    if errors:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    return outs
-
-
-def _library(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = build((name,))[0]
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    """Compile the kernels whose libraries are missing, all in parallel
+    (:func:`repro_torch.kernels.cuda_build.build`). Returns the library
+    paths."""
+    return cuda_build.build([SOURCES[n] for n in names], BUILD_DIR)
 
 
 # ---------------------------------------------------------------------------
@@ -150,18 +95,6 @@ def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_x(x: torch.Tensor, compute_dtype) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -173,11 +106,7 @@ def _check_x(x: torch.Tensor, compute_dtype) -> None:
 
 
 def _launch(name: str, *args) -> None:
-    fn = getattr(_library(name), f"{name}_launch")
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    cuda_build.launch(SOURCES[name], LAUNCHES, *args)
 
 
 def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

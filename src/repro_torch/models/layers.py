@@ -3,8 +3,11 @@ online-softmax), the ring-buffer KV cache, the gated MLP.
 
 Counterpart of ``repro.models.layers``, with the same layouts at every
 public function: q (B, S, H, hd), k/v (B, T, Kv, hd), caches
-(L, B, W, Kv, hd). Attention is plain PyTorch, as the reference computes
-it outside any Pallas kernel. Scores, softmax and sums are f32.
+(L, B, W, Kv, hd). :func:`attention` and :func:`chunked_attention` are
+plain PyTorch, as the reference computes them outside any Pallas kernel;
+the model's prefill and decode call the attention kernels instead
+(``repro_torch.kernels.flash_attention``, ``paged_attention``, the latter
+over :func:`ring_cache_pages`). Scores, softmax and sums are f32.
 
 Where the reference builds new arrays, the cache functions here write
 into the cache tensors in place.
@@ -211,6 +214,52 @@ def slot_positions_after_prefill(buf_len: int, lengths: torch.Tensor,
     pos = max(padded_len - buf_len, 0) + idx
     return torch.where(pos < lengths[:, None], pos,
                        torch.full_like(pos, -1)).to(torch.int32)
+
+
+#: page sizes the ring cache is cut into for paged decode attention,
+#: largest first
+RING_PAGE_SIZES = (64, 32, 16, 8)
+
+#: cache key, present (True) once a row of the cache came from a prefill
+#: padded past the ring (S > W): that prefill keeps the last W padded
+#: positions, so a shorter row keeps -1 pad slots inside the first
+#: min(pos + 1, W) slots, and the page view no longer equals the decode
+#: mask. Set on the host from shapes alone; such a cache decodes through
+#: the masked attention for the rest of its life.
+PREFILL_PAST_RING = "prefill_past_ring"
+
+
+def ring_page_size(buf_len: int) -> int:
+    """The largest of :data:`RING_PAGE_SIZES` that divides the ring's
+    length, else the length itself (one page per row)."""
+    return next((p for p in RING_PAGE_SIZES if buf_len % p == 0), buf_len)
+
+
+def ring_cache_pages(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
+    """The ring cache (..., B, W, Kv, hd) as a page pool
+    (..., B*W/page, page, Kv, hd), a view without a copy, with the page
+    table (B, W/page) int32 in which row b owns pages b*W/page + j, and
+    seq_lens = min(pos + 1, W) int32, for
+    :func:`repro_torch.kernels.paged_attention.ops.paged_attention`.
+
+    After this step's K/V is written, the first seq_lens[b] slots of row
+    b are exactly the slots :func:`decode_attention_mask` allows when the
+    model has no sliding window and every row came from a prefill of
+    padded length <= W (the serving backend caps it at the buffer; a
+    cache built otherwise carries :data:`PREFILL_PAST_RING`): before the
+    ring wraps, slots 0..pos hold positions 0..pos, and pad slots of a
+    prefill (slot_pos -1) lie at or past pos + 1 until decode overwrites
+    them; after it wraps, every slot holds a position <= pos. A released
+    lane keeps decoding in place and follows the same rule."""
+    *lead, B, W, Kv, hd = k.shape
+    page = ring_page_size(W)
+    n = W // page
+    k_pages = k.view(*lead, B * n, page, Kv, hd)
+    v_pages = v.view(*lead, B * n, page, Kv, hd)
+    page_table = torch.arange(B * n, dtype=torch.int32,
+                              device=k.device).view(B, n)
+    seq_lens = torch.clamp(pos + 1, max=W).to(torch.int32)
+    return k_pages, v_pages, page_table, seq_lens
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,12 @@ forward (prefill) and one-token decode against a ring-buffer KV cache.
 Counterpart of the dense parts of ``repro.models.transformer``. The
 reference scans over layers stacked on a leading axis; here the layers
 are a list of per-layer parameter dicts and a Python loop walks them.
-Decode writes the cache in place. Sequences of ``CHUNKED_ATTN_THRESHOLD``
-tokens or more go through :func:`~repro_torch.models.layers.
-chunked_attention`. MoE and cross-attention raise NotImplementedError
-(ROADMAP A4).
+Decode writes the cache in place. Prefill attention, at every length,
+is the flash attention kernel, which computes what the reference's
+``attention``/``chunked_attention`` compute; decode attention is the
+paged attention kernel over the ring cache viewed as pages, except for
+windowed and int8-KV models (see :func:`decoder_decode_step`). MoE and
+cross-attention raise NotImplementedError (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -17,13 +19,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.layers import (apply_rope, attention,
-                                       cache_write_decode, chunked_attention,
+                                       cache_write_decode,
                                        decode_attention_mask, gated_mlp,
+                                       PREFILL_PAST_RING, ring_cache_pages,
                                        rms_norm)
 from repro_torch.quant.apply import linear_apply
-
-CHUNKED_ATTN_THRESHOLD = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -115,10 +118,7 @@ def attn_block_seq(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if S >= CHUNKED_ATTN_THRESHOLD:
-        o = chunked_attention(q, k, v, causal=causal, window=window)
-    else:
-        o = attention(q, k, v, causal=causal, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     o = linear_apply(p["attn"]["wo"], o.reshape(B, S, -1), policy)
     return x + o, k, v
 
@@ -182,9 +182,24 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
     rows = torch.arange(B, device=x.device)
     slot = pos.long() % W
     cache["slot_pos"][rows, slot] = pos
-    allow = decode_attention_mask(cache["slot_pos"], pos, window)  # (B, W)
-    mask = allow[:, None, :]                                   # (B, 1, W)
     quant = "k_scale" in cache
+    # The paged kernel sees the first min(pos + 1, W) slots of each row,
+    # which are exactly the slots the decode mask allows while every row
+    # came from a prefill no longer than the ring (ring_cache_pages); a
+    # cache marked PREFILL_PAST_RING keeps -1 pad slots among them. The
+    # kernel reads no int8 codes, so int8-KV models keep the masked
+    # attention. So do windowed models: their ring is at most the window
+    # long and their prompts routinely run past it, which marks most of
+    # their caches anyway, and one decode path per model is simpler to
+    # hold against the reference.
+    paged = (window is None and not quant
+             and not cache.get(PREFILL_PAST_RING, False))
+    if paged:
+        k_pages, v_pages, page_table, seq_lens = ring_cache_pages(
+            cache["k"], cache["v"], pos)
+    else:
+        allow = decode_attention_mask(cache["slot_pos"], pos, window)
+        mask = allow[:, None, :]                               # (B, 1, W)
     pos1 = pos[:, None]
     for i, lp in enumerate(layers):
         ck, cv = cache["k"][i], cache["v"][i]
@@ -201,10 +216,14 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
             vs[rows, slot] = vsc[:, 0]
             kf = dequantize_kv(ck, ks, policy.activation_dtype)
             vf = dequantize_kv(cv, vs, policy.activation_dtype)
+            o = attention(q, kf, vf, mask=mask)
         else:
             cache_write_decode(ck, cv, k, v, pos)
-            kf, vf = ck, cv
-        o = attention(q, kf, vf, mask=mask)
+            if paged:
+                o = paged_attention(q[:, 0], k_pages[i], v_pages[i],
+                                    page_table, seq_lens)[:, None]
+            else:
+                o = attention(q, ck, cv, mask=mask)
         x = x + linear_apply(lp["attn"]["wo"], o.reshape(B, 1, -1), policy)
         x = ffn_block(lp, x, cfg, policy)
     cache["pos"] = pos + 1
