@@ -12,7 +12,8 @@ non-zero exit code:
 3. kernels: each kernel against its plain PyTorch version, with the
    kernel, plain and library times and the card's bound: the two
    dequant-matmul kernels at the llama-3.1-8b projection shapes (M in
-   {1, 4, 8, 512}, four (K, N)) in bf16; flash attention at llama-3.1-8b's
+   {1, 4, 8, 464, 512}, four (K, N)) in bf16, each row naming the loop
+   that ran (decode, wgmma); flash attention at llama-3.1-8b's
    heads (B, S) in {(1, 81), (2, 256), (1, 2048)} causal, one windowed
    cell and one at qwen2.5-0.5b's heads; paged attention at llama-3.1-8b's
    heads for B in {1, 4, 8} and ring lengths W in {261, 512, 4096}, with
@@ -24,7 +25,10 @@ non-zero exit code:
    five formats: a continuous run of 8 requests through
    ``repro_torch.launch.serve.serve``, the launch counts of the kernels
    in that run (one flash launch per layer and prefill phase, one paged
-   launch per layer and decode step), and each request's prefill logits
+   launch per layer and decode step; under int8 and nf4 one wgmma-loop
+   launch per projection, layer and prefill phase, one decode-loop
+   launch per projection, layer and decode step, and no tile-loop
+   launch, in the sequential run too), and each request's prefill logits
    against its own sequential run.
 
 The line before the last holds the card's name and power limit, the one
@@ -54,13 +58,18 @@ L2_BYTES = 50 * 2**20
 
 SHAPES_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 # 1: a sequential decode step; 4: the serve phase's decode batch
-# (max_batch); 8: the widest decode tile; 512: a prefill of two prompts
-SHAPES_M = [1, 4, 8, 512]
+# (max_batch); 8: the widest decode tile; 464: the serve phase's first
+# prefill (two prompts, the longer 228 tokens rounded up to 232); 512: a
+# prefill of two 256-token prompts
+SHAPES_M = [1, 4, 8, 464, 512]
 HEADLINE = (4, 4096, 14336)     # the serve phase's decode, w_gate
 # kernel vs plain, bf16 output: both round one f32 sum to bf16 (2^-8
 # relative), after summing K products in different orders
 KERNEL_REL_TOL = 1e-2
 FORMATS = ("float32", "float16", "bfloat16", "int8", "nf4")
+# quantized projections of a llama layer: wq, wk, wv, wo, w_gate, w_up,
+# w_down (the LM head stays in bf16)
+QUANT_PROJECTIONS = 7
 # batched prefill vs the request's own prefill: the same arithmetic at
 # other M and padding, so only the order of f32 sums differs; through 32
 # layers that moves f32 logits by ~1e-6 of their range and 16-bit
@@ -174,7 +183,10 @@ def kernel_phase(torch, K):
             lsets = [wdeq] + [wdeq.clone() for _ in range(lcopies - 1)]
             for M in SHAPES_M:
                 x = torch.randn((M, Kd), generator=gen, device="cuda").to(bf16)
+                before = dict(K.LOOP_LAUNCHES[name])
                 got = kern(x, *wargs, bf16)
+                loop = next(lp for lp, n in K.LOOP_LAUNCHES[name].items()
+                            if n != before[lp])
                 ref = plain(x, *wargs, bf16)
                 torch.cuda.synchronize()
                 diff = (got.float() - ref.float()).abs().max().item()
@@ -190,7 +202,7 @@ def kernel_phase(torch, K):
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / BF16_FLOP_PER_S * 1e3
                 row = {"phase": "kernel", "name": name, "M": M, "K": Kd,
-                       "N": N, "max_abs_err": diff, "max_rel_err": rel,
+                       "N": N, "loop": loop, "max_abs_err": diff, "max_rel_err": rel,
                        "rel_tol": KERNEL_REL_TOL, "kernel_ms": k_ms,
                        "plain_ms": p_ms, "library_ms": l_ms,
                        "bytes": nbytes, "flops": flops,
@@ -399,6 +411,25 @@ def read_launches(mods) -> dict:
     return {name: n for m in mods for name, n in m.LAUNCHES.items()}
 
 
+def read_loops(K) -> dict:
+    return {name: dict(c) for name, c in K.LOOP_LAUNCHES.items()}
+
+
+def check_quant_loops(fmt, loops, prefills, decodes, layers, run) -> None:
+    """Under int8 and nf4: every projection of each of the run's
+    ``prefills`` prefills on the wgmma loop, of each of its ``decodes``
+    decode steps on the decode loop, none on the tile loop."""
+    per = QUANT_PROJECTIONS * layers
+    name = {"int8": "int8_matmul", "nf4": "nf4_matmul"}.get(fmt)
+    if name is None:
+        return
+    want = {"wgmma": per * prefills, "decode": per * decodes, "tile": 0}
+    if loops[name] != want:
+        raise SystemExit(f"{fmt} {run} run: {name} loops {loops[name]}, "
+                         f"expected {want} ({per} per prefill phase and "
+                         f"decode step)")
+
+
 def serve_phase(torch, mods, cfg):
     from repro_torch.launch.serve import build_params, serve
     from repro_torch.models.api import build_model
@@ -416,6 +447,11 @@ def serve_phase(torch, mods, cfg):
         reset_launches(mods)
         con = serve(model=model, params=params, mode="continuous", **kw)
         counts = read_launches(mods)
+        loops = read_loops(mods[0])
+        phases = [p.phase for p in con.engine.phases]
+        check_quant_loops(fmt, loops, phases.count("prefill"),
+                          phases.count("decode"), cfg.num_layers,
+                          "continuous")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches[fmt] = counts
         for r in con.requests:
@@ -429,7 +465,6 @@ def serve_phase(torch, mods, cfg):
             if (counts[name] > 0) != (fmt == fmt_of):
                 raise SystemExit(f"{fmt}: {name} launched "
                                  f"{counts[name]} times")
-        phases = [p.phase for p in con.engine.phases]
         for name, phase in (("flash_attention", "prefill"),
                             ("paged_attention", "decode")):
             want = cfg.num_layers * phases.count(phase)
@@ -437,7 +472,14 @@ def serve_phase(torch, mods, cfg):
                 raise SystemExit(f"{fmt}: {name} launched {counts[name]} "
                                  f"times, not {cfg.num_layers} per {phase} "
                                  f"({want})")
+        reset_launches(mods)
         seq = serve(model=model, params=params, mode="sequential", **kw)
+        seq_loops = read_loops(mods[0])
+        # each request alone: one B=1 prefill, then a decode step for
+        # every token after the first
+        check_quant_loops(fmt, seq_loops, len(seq.requests),
+                          sum(r.max_new_tokens - 1 for r in seq.requests),
+                          cfg.num_layers, "sequential")
         worst = 0.0
         for rc, rs in zip(con.requests, seq.requests):
             a = con.engine.backend.first_logits[rc.req_id]
@@ -470,6 +512,7 @@ def serve_phase(torch, mods, cfg):
               "decode_steps": len(dec),
               "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
               "peak_mem_gb": peak_gb, "launches": counts,
+              "quant_loops": {"continuous": loops, "sequential": seq_loops},
               "prefill_logit_rel_err": worst,
               "prefill_logit_tol": PREFILL_LOGIT_TOL[fmt],
               "requests_same_tokens_as_sequential": same / len(con.requests),

@@ -22,11 +22,16 @@
 // (quant_matmul.cuh, qmm_decode_kernel) and are dequantized from there
 // into registers, 8 weights per 4-byte read, and multiplied on the CUDA
 // cores in f32. The codebook lives in __constant__ memory and is copied
-// to shared memory once per block. At prefill in bf16 (qmm_mma_kernel)
-// each 32 x 128 tile is dequantized to bf16 in shared memory and fed to
-// the tensor cores with mma.sync; f32 compute and unaligned shapes take
-// the CUDA-core tile kernel (qmm_tile_kernel). wgmma, TMA, a multi-stage
-// prefill pipeline and a persistent grid are later work.
+// to shared memory once per block. At prefill in bf16 (M > 8;
+// qmm_wgmma.cuh) a persistent grid of warp-specialised blocks keeps a
+// 4-stage TMA ring full: x tiles, raw 32 x BN packed tiles and the absmax
+// rows of the same 64 K rows (NF4Stage below); each consumer thread
+// dequantizes its fragment of the weights to bf16 in registers, the A
+// operand of wgmma (x is B).
+// f32 compute, blocks other than 32 or a multiple of 64, and shapes the
+// plan gives neither loop take the CUDA-core tile kernel
+// (qmm_tile_kernel).
+#include "qmm_wgmma.cuh"
 #include "quant_matmul.cuh"
 
 namespace {
@@ -75,41 +80,6 @@ struct NF4Format {
 
   __device__ __forceinline__ float epilogue(float acc, int) const {
     return acc;
-  }
-
-  // -- tensor-core kernel: ws (32, 128) <- dequantized bf16, 0 past N.
-  // Each thread unpacks 8 bytes of one packed row: rows 2p and 2p+1 of 8
-  // columns (N % 16 == 0).
-  bool mma_ok(int, int) const {
-    return (reinterpret_cast<uintptr_t>(packed) & 7) == 0 &&
-           qmm::aligned16(absmax);
-  }
-  __device__ __forceinline__ void load_mma_tile(qmm::MmaWTile& ws,
-                                                const float* lut, int k0,
-                                                int n0, int N,
-                                                int tid) const {
-    const int p = tid / 16, c = (tid % 16) * 8, k = k0 + 2 * p;
-    __align__(16) __nv_bfloat16 lo[8], hi[8];
-    if (n0 + c < N) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          packed + (size_t)(k / 2) * N + n0 + c);
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-      const float4* ap = reinterpret_cast<const float4*>(
-          absmax + (size_t)(k / block) * N + n0 + c);
-      const float4 a0 = ap[0], a1 = ap[1];
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        lo[j] = __float2bfloat16_rn(lut[b[j] & 0x0F] * a[j]);
-        hi[j] = __float2bfloat16_rn(lut[b[j] >> 4] * a[j]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) lo[j] = hi[j] = __float2bfloat16_rn(0.f);
-    }
-    *reinterpret_cast<uint4*>(&ws[2 * p][c]) = *reinterpret_cast<uint4*>(lo);
-    *reinterpret_cast<uint4*>(&ws[2 * p + 1][c]) =
-        *reinterpret_cast<uint4*>(hi);
   }
 
   // -- decode kernel: a stage holds the raw (kDecBK / 2, kDecBN) packed
@@ -180,22 +150,110 @@ struct NF4Format {
   }
 };
 
+// -- the wgmma prefill loop (qmm_wgmma.cuh): a stage holds the raw
+// (32, BN) packed tile (K rows 64 kt .. 64 kt + 63, with the swizzle of
+// qmm::wg::raw_at), then the absmax rows those K rows use: one for a
+// block that is a multiple of 64, two for block 32. Both copied by TMA
+// (0 past N).
+struct NF4Stage {
+  CUtensorMap packed;   // (K / 2, N) uint8, box (32 rows, BN)
+  CUtensorMap absmax;   // (K / block, N) f32, box (rows, BN)
+  int block;            // 32, or a multiple of 64
+  int rows;             // absmax rows a stage holds: 64 / block, or 1
+
+  template <int BN>
+  __host__ __device__ static constexpr int raw_bytes() {
+    return qmm::wg::kBK / 2 * BN + 2 * BN * 4;
+  }
+  template <int BN>
+  __device__ __forceinline__ uint32_t tx_bytes() const {
+    return qmm::wg::kBK / 2 * BN + rows * BN * 4;
+  }
+  __device__ __forceinline__ void prepare(float* lut, int tid) const {
+    if (tid < 16) lut[tid] = kNF4[tid];
+  }
+  template <int BN>
+  __device__ __forceinline__ void load(uint8_t* raw, uint64_t* bar, int kt,
+                                       int n0) const {
+    qmm::wg::tma_load_2d(raw, &packed, bar, n0, kt * qmm::wg::kBK / 2);
+    qmm::wg::tma_load_2d(raw + qmm::wg::kBK / 2 * BN, &absmax, bar, n0,
+                         kt * qmm::wg::kBK / block);
+  }
+  // The thread's A fragments of the stage: of columns nb + 2g and nb + 2g
+  // + 1 (g = lane / 4), packed rows p = 8 kk + t and 8 kk + t + 4 (t = lane
+  // % 4) for K step kk; one byte holds K rows 2p (low nibble) and 2p + 1
+  // (high), which make one bf16 pair of the fragment. Each weight is the
+  // codebook value times its absmax in f32, rounded to bf16.
+  template <int BN>
+  __device__ __forceinline__ void fragments(const uint8_t* raw,
+                                            const float* lut, int nb,
+                                            int lane,
+                                            uint32_t (&f)[4][4]) const {
+    const int c = nb + 2 * (lane / 4), t = lane % 4;
+    const float* am =
+        reinterpret_cast<const float*>(raw + qmm::wg::kBK / 2 * BN) + c;
+    const float2 a0 = *reinterpret_cast<const float2*>(am);
+    const float2 a1 = *reinterpret_cast<const float2*>(am + (rows - 1) * BN);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 8 * kk + t + 4 * h;
+        const uint32_t v = *reinterpret_cast<const uint16_t*>(
+            raw + qmm::wg::raw_at<BN>(p, c));
+        const float2 s = 2 * p / block ? a1 : a0;
+        const uint32_t b0 = v & 0xFF, b1 = v >> 8;
+        f[kk][2 * h] = qmm::wg::pack_bf16(lut[b0 & 0x0F] * s.x,
+                                          lut[b0 >> 4] * s.x);
+        f[kk][2 * h + 1] = qmm::wg::pack_bf16(lut[b1 & 0x0F] * s.y,
+                                              lut[b1 >> 4] * s.y);
+      }
+  }
+  __device__ __forceinline__ float epilogue(float acc, int) const {
+    return acc;
+  }
+};
+
 }  // namespace
 
 // x (M, K) and out (M, N) in the compute dtype (bf16 when is_bf16, else
 // f32); packed uint8 (K/2, N); absmax f32 (K/block, N). All row-major and
-// contiguous. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() of the launch.
+// contiguous. `loop` is the host plan's loop (qmm::Loop); for the wgmma
+// loop, (bm, bn) its tile and `grid` its blocks. Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a loop the shape does not allow.
 extern "C" int nf4_matmul_launch(const void* x, const void* packed,
                                  const void* absmax, void* out, int M,
                                  int N, int K, int block, int is_bf16,
+                                 int loop, int bm, int bn, int grid,
                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (loop == qmm::kLoopWgmma) {
+    if (!is_bf16 || !(block == 32 || block % qmm::wg::kBK == 0))
+      return (int)cudaErrorInvalidValue;
+    qmm::wg::Args<NF4Stage> a;
+    a.st.block = block;
+    a.st.rows = block < qmm::wg::kBK ? qmm::wg::kBK / block : 1;
+    if (!qmm::wg::make_map(&a.st.packed, packed,
+                           CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
+                           qmm::wg::kBK / 2, bn, qmm::wg::raw_swizzle(bn)) ||
+        !qmm::wg::make_map(&a.st.absmax, absmax,
+                           CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / block, N,
+                           a.st.rows, bn, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.M = M;
+    a.N = N;
+    a.K = K;
+    return (int)qmm::wg::launch(a, static_cast<const __nv_bfloat16*>(x), bm,
+                                bn, grid, s);
+  }
   NF4Format fmt{static_cast<const uint8_t*>(packed),
                 static_cast<const float*>(absmax), block};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)qmm::launch(static_cast<const __nv_bfloat16*>(x), fmt,
-                            static_cast<__nv_bfloat16*>(out), M, N, K, s);
+                            static_cast<__nv_bfloat16*>(out), M, N, K, loop,
+                            s);
   return (int)qmm::launch(static_cast<const float*>(x), fmt,
-                          static_cast<float*>(out), M, N, K, s);
+                          static_cast<float*>(out), M, N, K, loop, s);
 }

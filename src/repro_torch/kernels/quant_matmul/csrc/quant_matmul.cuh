@@ -2,8 +2,10 @@
 // nf4_matmul.cu): out (M, N) = x (M, K) @ dequant(W) (K, N), with the
 // weight dequantized in shared memory and registers, never written back
 // to device memory. A format (Int8Format, NF4Format) supplies the tile
-// loads, the dequantization and the epilogue; this file supplies three
-// loops and picks one from the shape (launch, at the end).
+// loads, the dequantization and the epilogue; this file supplies the
+// decode and tile loops and runs the one the host's plan names (launch,
+// at the end). The bf16 prefill loop (TMA ring + wgmma) is in
+// qmm_wgmma.cuh.
 //
 // Every block owns an output tile and walks the whole K axis itself (no
 // split-K across blocks, so every sum is taken in one fixed order and the
@@ -11,13 +13,8 @@
 // exact in f32, so the CUDA-core loops below do the arithmetic of a
 // tensor-core bf16 x bf16 -> f32 product.
 //
-// qmm_mma_kernel (bf16, M > 8, aligned shapes: prefill): a 128 x 128
-// output tile per block, 8 warps of 64 x 32, on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 sums). Per 32-deep K step the x tile
-// and the weight tile, dequantized by the format to bf16, are staged in
-// shared memory and read with ldmatrix.
-//
-// qmm_tile_kernel (f32 compute, and any other shape): per K step it stages
+// qmm_tile_kernel (f32 compute, and any shape the other loops do not
+// take): per K step it stages
 //   xs (BM, BK): the activation tile, as floats holding compute-dtype
 //                values;
 //   ws (BK, BN): the weight tile, dequantized by the format's loader and
@@ -43,8 +40,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace qmm {
 
@@ -280,112 +275,6 @@ static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// ---------------------------------------------------------------------------
-// prefill, bf16: tensor cores
-// ---------------------------------------------------------------------------
-constexpr int kMmaBM = 128;
-constexpr int kMmaBN = 128;
-constexpr int kMmaBK = 32;
-constexpr int kMmaPad = 8;   // bf16 per shared row: 16-byte rows, no bank
-                             // conflicts for ldmatrix
-
-using MmaWTile = __nv_bfloat16[kMmaBK][kMmaBN + kMmaPad];
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(s));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <class Format>
-__global__ void __launch_bounds__(kThreads)
-    qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, Format fmt,
-                   __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kMmaBM][kMmaBK + kMmaPad];
-  __shared__ __align__(16) MmaWTile ws;
-  __shared__ float lut[16];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;   // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
-  fmt.prepare(lut, tid);
-  __syncthreads();
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
-    // x tile: 128 rows of 32 bf16, four 16-byte pieces a row
-    for (int c = tid; c < kMmaBM * 4; c += kThreads) {
-      const int r = c / 4, j = (c % 4) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 +
-                                            j);
-      *reinterpret_cast<uint4*>(&xs[r][j]) = v;
-    }
-    fmt.load_mma_tile(ws, lut, k0, n0, N, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK; kk += 16) {
-      unsigned a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], &xs[wm * 64 + i * 16 + lane % 16]
-                             [kk + (lane / 16) * 8]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ldmatrix_x2_trans(b[j], &ws[kk + lane % 16][wn * 32 + j * 8]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + i * 16 + g + h * 8;
-        const int n = n0 + wn * 32 + j * 8 + t * 2;
-        if (m >= M) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (n + e < N)
-            out[(size_t)m * N + n + e] = __float2bfloat16_rn(
-                fmt.epilogue(acc[i][j][h * 2 + e], n + e));
-      }
-}
-
 template <typename T, int MR, class Format>
 cudaError_t launch_decode(const T* x, Format fmt, T* out, int M, int N,
                           int K, cudaStream_t stream) {
@@ -409,29 +298,27 @@ cudaError_t launch_decode(const T* x, Format fmt, T* out, int M, int N,
   return cudaGetLastError();
 }
 
-// The decode kernel for M <= 8 and the tensor-core kernel for bf16 above,
-// when the shapes and pointers allow their 16-byte accesses; otherwise
-// the tile kernel: a 8 x 32 tile with a 256-deep K step for M <= 8, a
-// 64 x 64 tile with a 4 x 4 micro-tile per thread above.
+// The loops the host's plan names (quant_matmul/kernel.py, matmul_plan);
+// kLoopWgmma is launched from qmm_wgmma.cuh.
+enum Loop { kLoopDecode = 0, kLoopWgmma = 1, kLoopTile = 2 };
+
+// The decode loop, or the tile loop: a 8 x 32 tile with a 256-deep K step
+// for M <= 8, a 64 x 64 tile with a 4 x 4 micro-tile per thread above.
+// Refuses (cudaErrorInvalidValue) a decode launch whose shape or pointers
+// do not allow its 16-byte accesses: the plan never asks for one.
 template <typename T, class Format>
 cudaError_t launch(const T* x, Format fmt, T* out, int M, int N, int K,
-                   cudaStream_t stream) {
-  if (M <= kDecM && N % kDecBN == 0 && K % kDecBK == 0 && aligned16(x) &&
-      fmt.dec_ok(K, N)) {
+                   int loop, cudaStream_t stream) {
+  if (loop == kLoopDecode) {
+    if (!(M <= kDecM && N % kDecBN == 0 && K % kDecBK == 0 &&
+          aligned16(x) && fmt.dec_ok(K, N)))
+      return cudaErrorInvalidValue;
     if (M == 1) return launch_decode<T, 1>(x, fmt, out, M, N, K, stream);
     if (M == 2) return launch_decode<T, 2>(x, fmt, out, M, N, K, stream);
     if (M <= 4) return launch_decode<T, 4>(x, fmt, out, M, N, K, stream);
     return launch_decode<T, 8>(x, fmt, out, M, N, K, stream);
   }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (M > kDecM && N % 16 == 0 && K % kMmaBK == 0 && aligned16(x) &&
-        fmt.mma_ok(K, N)) {
-      dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
-      qmm_mma_kernel<Format><<<grid, kThreads, 0, stream>>>(x, fmt, out, M,
-                                                            N, K);
-      return cudaGetLastError();
-    }
-  }
+  if (loop != kLoopTile) return cudaErrorInvalidValue;
   if (M <= kDecM) {
     dim3 grid((N + 31) / 32, 1);
     qmm_tile_kernel<T, 8, 32, 256, 8, 1, 8, Format>

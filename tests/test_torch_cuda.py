@@ -25,8 +25,8 @@ def _rel(got, ref) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain(M, dtype, Kd, N):
     """On the card: each CUDA kernel against its plain version. (512, 208)
-    takes the decode loop (M <= 8) and, in bf16, the tensor-core loop;
-    (320, 200) and f32 take the tile loop, with ragged M/N/K edges. f32 at
+    takes the decode loop (M <= 8) and, in bf16, the wgmma loop; (320,
+    200) and f32 take the tile loop, with ragged M/N/K edges. f32 at
     1e-5; bf16 at 1e-2 relative (one bf16 rounding of f32 sums taken in
     other orders)."""
     if not torch.cuda.is_available():
@@ -46,6 +46,75 @@ def test_cuda_kernels_match_plain(M, dtype, Kd, N):
     assert K.LAUNCHES["nf4_matmul"] == before["nf4_matmul"] + 1
     assert _rel(got8, K.int8_matmul_plain(x, q8.codes, q8.scale, td)) < tol
     assert _rel(got4, K.nf4_matmul_plain(x, q4.packed, q4.absmax, td)) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(256, 128), (256, 64), (128, 128),
+                                  (128, 64), (64, 128), (64, 64)])
+@pytest.mark.parametrize("Kd,N", [(512, 208), (1024, 1040)])
+@pytest.mark.parametrize("M", [9, 81, 130, 464])
+def test_cuda_wgmma_loop_matches_plain(M, Kd, N, tile, monkeypatch):
+    """On the card: the bf16 prefill loop (TMA ring + wgmma) at each of
+    its six output tiles, forced through the plan, against the plain
+    versions: int8, and nf4 with blocks 64 and 32. N is no multiple of
+    128 (and 208 none of 64), so the last column tile reads past N; K
+    spans 8 and 16 stages of the 4-stage ring; M is ragged. A grid of
+    fewer blocks than tiles makes blocks walk several tiles. 1e-2
+    relative (one bf16 rounding of f32 sums taken in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(K, "WG_TILES", (tile,))
+    K._device_plan.cache_clear()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(M + N)
+        x = torch.randn((M, Kd), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = torch.randn((Kd, N), generator=gen, device="cuda") * 0.05
+        q8 = pt_int8.quantize_int8(w)
+        before = {n: dict(c) for n, c in K.LOOP_LAUNCHES.items()}
+        got = K.int8_matmul(x, q8.codes, q8.scale)
+        ref = K.int8_matmul_plain(x, q8.codes, q8.scale)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) < 1e-2
+        for block in (64, 32):
+            q4 = pt_nf4.quantize_nf4(w, block)
+            got = K.nf4_matmul(x, q4.packed, q4.absmax)
+            ref = K.nf4_matmul_plain(x, q4.packed, q4.absmax)
+            torch.cuda.synchronize()
+            assert _rel(got, ref) < 1e-2, block
+        assert K.LOOP_LAUNCHES["int8_matmul"]["wgmma"] == \
+            before["int8_matmul"]["wgmma"] + 1
+        assert K.LOOP_LAUNCHES["nf4_matmul"]["wgmma"] == \
+            before["nf4_matmul"]["wgmma"] + 2
+        plan = K._device_plan(M, N, Kd, True, None, True, x.get_device())
+        assert (plan.loop, plan.bm, plan.bn) == ("wgmma", *tile)
+    finally:
+        K._device_plan.cache_clear()
+
+
+@pytest.mark.gpu
+def test_cuda_wgmma_loop_walks_several_tiles():
+    """On the card: a grid of 3 blocks over 4 x 9 tiles of (128, 128), so
+    every block walks 12 tiles through one ring, against the plain
+    versions at 1e-2 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Kd, N = 464, 1024, 1040
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((M, Kd), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((Kd, N), generator=gen, device="cuda") * 0.05
+    q8 = pt_int8.quantize_int8(w)
+    q4 = pt_nf4.quantize_nf4(w, 64)
+    plan = K.Plan("wgmma", 128, 128, 3)
+    for name, wargs, block in (("int8_matmul", (q8.codes, q8.scale), None),
+                               ("nf4_matmul", (q4.packed, q4.absmax), 64)):
+        out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+        extra = (block,) if block else ()
+        K._launch(name, plan, x.data_ptr(), wargs[0].data_ptr(),
+                  wargs[1].data_ptr(), out.data_ptr(), M, N, Kd, *extra, 1)
+        ref = getattr(K, name + "_plain")(x, *wargs)
+        torch.cuda.synchronize()
+        assert _rel(out, ref) < 1e-2, name
 
 
 def _row_rel(got, ref) -> float:

@@ -160,8 +160,120 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         K.build()
 
 
-def test_library_path_follows_the_sources():
+def test_library_path_follows_the_sources(tmp_path):
     a = K._library_path("int8_matmul")
     b = K._library_path("nf4_matmul")
     assert a != b and a.parent == b.parent == K.BUILD_DIR
     assert a.suffix == ".so"
+    # every header the loops live in is part of the hash: an edit to
+    # either rebuilds both libraries
+    import dataclasses
+    import shutil
+    assert set(K.HEADERS) == {"quant_matmul.cuh", "qmm_wgmma.cuh"}
+    for name in K.KERNELS:
+        assert K.SOURCES[name].headers == K.HEADERS
+    csrc = tmp_path / "csrc"
+    shutil.copytree(K.CSRC, csrc)
+    for name in K.KERNELS:
+        src = dataclasses.replace(K.SOURCES[name], csrc=csrc)
+        before = K.cuda_build.library_path(src)
+        for header in K.HEADERS:
+            with open(csrc / header, "a") as f:
+                f.write("// edited\n")
+            after = K.cuda_build.library_path(src)
+            assert after != before, header
+            before = after
+
+
+# ---------------------------------------------------------------------------
+# the launch plan (pure, from shapes alone)
+# ---------------------------------------------------------------------------
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+SERVE_M = [81, 201, 352, 464, 512]
+
+
+@pytest.mark.parametrize("block", [None, 64])
+@pytest.mark.parametrize("Kd,N", LLAMA_KN + [(512, 208), (1024, 1040)])
+@pytest.mark.parametrize("M", SERVE_M + [9, 130])
+def test_wgmma_grid_covers_every_output_tile_once(M, Kd, N, block):
+    """The persistent grid: block b walks tiles b, b + grid, ...; their
+    origins, as the kernel computes them, cover the M x N output in
+    whole tiles, each exactly once, with no block idle."""
+    plan = K.matmul_plan(M, N, Kd, n_sm=132, block=block)
+    assert plan.loop == "wgmma" and (plan.bm, plan.bn) in K.WG_TILES
+    m_tiles, tiles = K.wgmma_tiles(M, N, plan.bm, plan.bn)
+    assert plan.grid == min(tiles, 132)
+    walked = [K.tile_origin(t, m_tiles, plan.bm, plan.bn)
+              for b in range(plan.grid)
+              for t in range(b, tiles, plan.grid)]
+    assert len(walked) == len(set(walked)) == tiles
+    assert set(walked) == {(m, n) for m in range(0, M, plan.bm)
+                           for n in range(0, N, plan.bn)}
+
+
+@pytest.mark.parametrize("block", [None, 64, 32, 128])
+@pytest.mark.parametrize("Kd,N", LLAMA_KN)
+@pytest.mark.parametrize("M", SERVE_M)
+def test_serve_shapes_take_the_wgmma_loop(M, Kd, N, block):
+    """Every projection of the serve path's prefills (batched M = 352-512,
+    the sequential run's B=1 prompts 81-251) takes the wgmma loop, for
+    int8 and for nf4 with block 64 (and 32 or 128)."""
+    plan = K.matmul_plan(M, N, Kd, n_sm=132, block=block)
+    assert plan.loop == "wgmma"
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("Kd,N", LLAMA_KN)
+def test_decode_shapes_take_the_decode_loop(M, bf16, Kd, N):
+    for block in (None, 64):
+        assert K.matmul_plan(M, N, Kd, 132, bf16=bf16,
+                             block=block).loop == "decode"
+
+
+@pytest.mark.parametrize("M,Kd,N,bf16,block,aligned", [
+    (512, 4096, 4096, False, None, True),     # f32 compute
+    (512, 4096, 4096, False, 64, True),
+    (130, 320, 200, True, None, True),        # N % 16, K % 64
+    (130, 4096, 200, True, None, True),       # N % 16
+    (130, 4128, 256, True, None, True),       # K % 64
+    (130, 4096, 4096, True, 16, True),        # a small nf4 block
+    (130, 4096, 4096, True, 2, True),
+    (130, 4096, 4096, True, None, False),     # a pointer off 16 bytes
+    (4, 320, 200, True, None, True),          # decode, unaligned shape
+    (4, 4096, 4096, True, None, False),
+])
+def test_other_shapes_take_the_tile_loop(M, Kd, N, bf16, block, aligned):
+    assert K.matmul_plan(M, N, Kd, 132, bf16=bf16, block=block,
+                         aligned=aligned).loop == "tile"
+
+
+@pytest.mark.parametrize("block", [None, 64])
+def test_plan_fills_the_card_at_wk_wv(block):
+    """(K, N) = (4096, 1024) at M = 512: at least 100 of 132 SMs busy."""
+    plan = K.matmul_plan(512, 1024, 4096, 132, block=block)
+    assert plan.loop == "wgmma" and plan.grid >= 100
+
+
+@pytest.mark.parametrize("block", [None, 64])
+def test_plan_walks_w_gate_in_at_most_two_tiles_a_block(block):
+    """(4096, 14336) at M = 512: 448 tiles of 128 x 128 would be 3.4
+    waves; the plan's persistent grid gives no block more than two
+    tiles, and every SM one."""
+    plan = K.matmul_plan(512, 14336, 4096, 132, block=block)
+    tiles = K.wgmma_tiles(512, 14336, plan.bm, plan.bn)[1]
+    assert plan.grid == 132 and -(-tiles // plan.grid) <= 2
+
+
+def test_every_planned_tile_has_a_step_time():
+    for fmt, times in K.WG_STEP_US.items():
+        assert set(times) == set(K.WG_TILES), fmt
+
+
+def test_cpu_wrappers_count_no_loop():
+    K.reset_launches()
+    x = torch.from_numpy(_rand((16, 128), 0))
+    q8 = pt_int8.quantize_int8(torch.from_numpy(_rand((128, 32), 1)))
+    K.int8_matmul(x, q8.codes, q8.scale)
+    assert K.LOOP_LAUNCHES == {name: {loop: 0 for loop in K.LOOPS}
+                               for name in K.KERNELS}
