@@ -19,7 +19,10 @@ non-zero exit code:
    heads for B in {1, 4, 8} and ring lengths W in {261, 512, 4096}, with
    ragged lengths and an unassigned page; the attention cells in bf16 and
    f32, each checked row by row and beside a control (the plain version
-   with its mask edge moved by one key) that the check must see.
+   with its mask edge moved by one key) that the check must see. At each
+   cell one call of either attention kernel, captured in a CUDA graph,
+   must be one kernel node and nothing else (paged attention merges its
+   splits in the same launch).
 4. serve: llama-3.1-8b at full width (random weights from
    ``torch.Generator(device="cuda").manual_seed(0)``) under each of the
    five formats: a continuous run of 8 requests through
@@ -105,6 +108,13 @@ PAGED_B = (1, 4, 8)
 PAGED_W = (261, 512, 4096)
 # the cells the kernels line reports: the serve phase's prefill of two
 # prompts and its decode batch over its 512-slot ring
+# where the headline (bf16) kernel of each attention module lives
+ATTN_SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_wgmma.cuh",
+    "paged_attention": "src/repro_torch/kernels/paged_attention/csrc/"
+                       "paged_attention.cu",
+}
 HEADLINE_ATTN = {
     "flash_attention": {"dtype": "bfloat16", "B": 2, "S": 256, "H": 32,
                         "window": None},
@@ -235,6 +245,44 @@ def _copies(nbytes: int) -> int:
     return max(1, min(32, math.ceil(2 * L2_BYTES / nbytes)))
 
 
+def graph_nodes(torch, fn) -> list:
+    """The node types (0: a kernel) of a CUDA graph that captures one call
+    of ``fn`` after a warm-up call: every launch the call makes, read
+    through the driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        raise SystemExit("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+        raise SystemExit("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise SystemExit("cuGraphNodeGetType failed")
+        types.append(t.value)
+    g.reset()
+    return types
+
+
+def check_one_launch(torch, name, fn) -> int:
+    """Fail unless one call of ``fn`` is exactly one CUDA kernel launch
+    (and nothing else: no copy or memset)."""
+    types = graph_nodes(torch, fn)
+    if types != [0]:
+        raise SystemExit(f"{name}: one call captured the graph nodes "
+                         f"{types}, expected one kernel [0]")
+    return len(types)
+
+
 def row_rel_err(got, ref) -> float:
     """Worst row, over the last axis: max |got - ref| / max |ref|."""
     diff = (got.float() - ref.float()).abs().amax(-1)
@@ -242,7 +290,7 @@ def row_rel_err(got, ref) -> float:
 
 
 def _attn_row(torch, name, dtype, got, ref, control, lib, times, nbytes,
-              flops, **shape):
+              flops, launched, **shape):
     rel = row_rel_err(got, ref)
     bound, by = _bound(nbytes, flops, dtype)
     tol = ATTN_REL_TOL[dtype]
@@ -253,7 +301,8 @@ def _attn_row(torch, name, dtype, got, ref, control, lib, times, nbytes,
            .item(),
            "kernel_ms": times[0], "plain_ms": times[1],
            "library_ms": times[2], "bytes": nbytes, "flops": flops,
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by,
+           "cuda_launches_per_call": launched}
     emit(row)
     row["fault"] = (
         f"{name} disagrees with its plain version at {dtype} {shape}: "
@@ -290,6 +339,9 @@ def flash_phase(torch, FK):
                     for _ in range(_copies(nbytes))]
             q, k, v = sets[0]
             got = FK.flash_attention(q, k, v, causal=True, window=window)
+            launched = check_one_launch(
+                torch, "flash_attention", lambda: FK.flash_attention(
+                    q, k, v, causal=True, window=window))
             ref = FK.flash_attention_plain(q, k, v, causal=True,
                                            window=window)
             qpos = torch.arange(S, device="cuda")
@@ -322,8 +374,8 @@ def flash_phase(torch, FK):
                 timed_ms(torch, lib_fn, lsets))
             rows.append(_attn_row(
                 torch, "flash_attention", dtype, got, ref, control, lib,
-                times, nbytes, 4 * B * H * d * pairs, B=B, S=S, H=H, Kv=Kv,
-                d=d, window=window))
+                times, nbytes, 4 * B * H * d * pairs, launched, B=B, S=S,
+                H=H, Kv=Kv, d=d, window=window))
             del sets, lsets, got, ref, lib
             torch.cuda.empty_cache()
     _raise_faults(rows)
@@ -372,6 +424,9 @@ def paged_phase(torch, PK):
                 n_valid = int(valid.sum())
                 got = PK.paged_attention(*sets[0])
                 ref = PK.paged_attention_plain(*sets[0])
+                launched = check_one_launch(
+                    torch, "paged_attention",
+                    lambda: PK.paged_attention(*sets[0]))
                 # control: the plain version without each row's last key
                 control = row_rel_err(PK.paged_attention_plain(
                     q, *sets[0][1:4], (sl - 1).clamp(min=0)), ref)
@@ -393,7 +448,8 @@ def paged_phase(torch, PK):
                     + 4 * (table.numel() + B)
                 rows.append(_attn_row(
                     torch, "paged_attention", dtype, got, ref, control, lib,
-                    times, nbytes, 4 * H * d * n_valid, B=B, W=W, page=page,
+                    times, nbytes, 4 * H * d * n_valid, launched, B=B, W=W,
+                    page=page,
                     seq_lens=[int(x) for x in lens],
                     unassigned_page=n > 1))
                 del caches, views, sets, lsets, got, ref, lib
@@ -576,7 +632,7 @@ def main() -> int:
                     if all(r[k] == v for k, v in shape.items()))
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "source": ATTN_SOURCES[name],
             "replaces": REPLACES[name],
             "launches": max(c[name] for c in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),

@@ -30,6 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+#: the shared Hopper helpers (mbarriers, TMA, wgmma descriptors), as a
+#: header path relative to a kernel module's ``csrc``
+HOPPER_HEADER = "../../csrc/hopper.cuh"
+
 P = ctypes.c_void_p
 I = ctypes.c_int     # noqa: E741
 F = ctypes.c_float

@@ -2,8 +2,12 @@
 ctypes, and its plain PyTorch version.
 
 Counterpart of ``repro.kernels.flash_attention.kernel`` (the Pallas
-``flash_attention_pallas``). The source is ``csrc/flash_attention.cu``,
-built at first use by :mod:`repro_torch.kernels.cuda_build`.
+``flash_attention_pallas``). The source is ``csrc/flash_attention.cu``
+(bf16: the TMA + wgmma kernel of ``csrc/flash_wgmma.cuh``; f32: a
+CUDA-core kernel), built at first use by
+:mod:`repro_torch.kernels.cuda_build`. The bf16 kernel's grid and tensor
+map boxes are planned on the host from the shapes alone
+(:func:`flash_plan`).
 
 :func:`flash_attention` takes q (B, S, H, d) and k, v (B, T, Kv, d) with
 H a multiple of Kv, a causal flag and an optional sliding window, at any
@@ -18,8 +22,9 @@ the plain version.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,22 +33,86 @@ from repro_torch.kernels.cuda_build import F, I, P, check
 
 NAME = "flash_attention"
 CSRC = Path(__file__).resolve().parent / "csrc"
-# q, k, v, out, B, S, T, H, Kv, D, causal, window, scale, is_bf16
+# q, k, v, out, B, S, T, H, Kv, D, causal, window, scale, is_bf16, bq
 SOURCES = {NAME: cuda_build.Source(
-    NAME, CSRC, (P, P, P, P, I, I, I, I, I, I, I, I, F, I))}
+    NAME, CSRC, (P, P, P, P, I, I, I, I, I, I, I, I, F, I, I),
+    ("flash_wgmma.cuh", cuda_build.HOPPER_HEADER))}
 
 #: launches of the CUDA kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {NAME: 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 64          # query heads per KV head: the kernel's 64 rows
+MAX_GROUP = 64          # query heads per KV head: the f32 kernel's 64 rows
 PLAIN_TILE = 128        # query and key tile of the plain version
+WG_ROWS = 128           # (position, head) rows of a bf16 block
+KEY_TILE = 64           # keys per tile of both kernels
+BOX_COLS = 64           # head_dim columns of one tensor-map box (128 bytes)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
     LAUNCHES[NAME] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """The bf16 kernel's launch: ``bq`` query positions per block (all G
+    heads of one KV head each, ``rows = bq * G <= 128`` rows), a grid of
+    (B * Kv, q_tiles) blocks whose y index walks the q tiles from the last
+    to the first, and the tensor-map boxes: q over (d, H, S, B) with box
+    ``q_box``, k and v over (d, Kv, T, B) with box ``kv_box``, ``d_boxes``
+    boxes of 64 columns to a row."""
+
+    bq: int
+    rows: int
+    q_tiles: int
+    grid: Tuple[int, int]
+    q_box: Tuple[int, int, int, int]
+    kv_box: Tuple[int, int, int, int]
+    d_boxes: int
+
+
+def flash_plan(B: int, S: int, H: int, Kv: int, d: int) -> FlashPlan:
+    """The bf16 kernel's plan from the shapes alone."""
+    G = H // Kv
+    bq = WG_ROWS // G
+    q_tiles = -(-S // bq)
+    return FlashPlan(bq=bq, rows=bq * G, q_tiles=q_tiles,
+                     grid=(B * Kv, q_tiles), q_box=(BOX_COLS, G, bq, 1),
+                     kv_box=(BOX_COLS, 1, KEY_TILE, 1),
+                     d_boxes=d // BOX_COLS)
+
+
+def block_origin(plan: FlashPlan, bx: int, by: int,
+                 Kv: int) -> Tuple[int, int, int]:
+    """(batch, KV head, first query position) of block (bx, by), as the
+    kernel computes them: the q tile index is reversed, so that the tiles
+    with the most keys start first."""
+    return bx // Kv, bx % Kv, (plan.q_tiles - 1 - by) * plan.bq
+
+
+def block_rows(plan: FlashPlan, bx: int, by: int, S: int, H: int,
+               Kv: int) -> List[Tuple[int, int, int]]:
+    """The (batch, position, head) rows block (bx, by) stores: row r of
+    its q box is position q0 + r // G and head kv * G + r % G; rows past
+    S are the box's zero fill and are not stored."""
+    G = H // Kv
+    b, kv, q0 = block_origin(plan, bx, by, Kv)
+    return [(b, q0 + r // G, kv * G + r % G) for r in range(plan.rows)
+            if q0 + r // G < S]
+
+
+def key_tiles(q0: int, bq: int, S: int, T: int, causal: bool,
+              window: Optional[int]) -> int:
+    """Key tiles a block of positions q0 .. q0 + bq - 1 walks (the
+    kernel's key_range)."""
+    if not causal:
+        return -(-T // KEY_TILE)
+    end = min(T, min(S, q0 + bq))
+    begin = (max(0, q0 - window + 1) // KEY_TILE * KEY_TILE
+             if window is not None else 0)
+    return -(-(end - begin) // KEY_TILE) if end > begin else 0
 
 
 def _key_range(q0: int, q1: int, T: int, causal: bool,
@@ -142,5 +211,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         cuda_build.launch(
             SOURCES[NAME], LAUNCHES, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, S, T, H, Kv, d, int(causal),
-            window or 0, 1.0 / d ** 0.5, int(q.dtype == torch.bfloat16))
+            window or 0, 1.0 / d ** 0.5, int(q.dtype == torch.bfloat16),
+            flash_plan(B, S, H, Kv, d).bq)
     return out

@@ -3,7 +3,8 @@ ctypes, and its plain PyTorch version.
 
 Counterpart of ``repro.kernels.paged_attention.kernel`` (the Pallas
 ``paged_attention_pallas``). The source is ``csrc/paged_attention.cu``,
-built at first use by :mod:`repro_torch.kernels.cuda_build`.
+built at first use by :mod:`repro_torch.kernels.cuda_build`: one launch
+per call, TMA-staged pages, the products on the tensor cores in bf16.
 
 :func:`paged_attention` takes one query token per sequence, q (B, H, d),
 a K/V pool (n_pages, page, Kv, d) of any page size, a page table
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import functools
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -31,10 +32,11 @@ from repro_torch.kernels.cuda_build import F, I, P, check
 
 NAME = "paged_attention"
 CSRC = Path(__file__).resolve().parent / "csrc"
-# q, k_pages, v_pages, page_table, seq_lens, out, part, B, H, Kv, D,
-# n_pool, page, n_max, split, scale, is_bf16
+# q, k_pages, v_pages, page_table, seq_lens, out, part, counter, B, H, Kv,
+# D, n_pool, page, n_max, split, n_split, scale, is_bf16
 SOURCES = {NAME: cuda_build.Source(
-    NAME, CSRC, (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I))}
+    NAME, CSRC, (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I),
+    (cuda_build.HOPPER_HEADER,))}
 
 #: launches of the CUDA kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {NAME: 0}
@@ -43,35 +45,89 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8           # query heads per KV head the kernel keeps
 DTYPES = (torch.float32, torch.bfloat16)
-# a block's 8 warps take 32 slots each per step: the least split of a
-# row's slots over several blocks
-MIN_SPLIT = 256
-BLOCKS_PER_SM = 2       # blocks the split aims for on every SM
+CHUNK = 64              # slots a block stages at a time (a ring stage)
+# The least split of a row's slots over several blocks, by dtype. A
+# block's fixed cost (q, barriers, its merge) and the last split's merge
+# (1-2.5 us) pay for themselves in bf16 only once a split streams 8
+# chunks; the f32 products on the CUDA cores cost more a chunk than their
+# loads, so f32 spreads a row down to single chunks (the split sweep of
+# tools/paged_probe.py on an H100, PERF.md section 6).
+MIN_SPLIT = 8 * CHUNK
+MIN_SPLIT_F32 = CHUNK
+BLOCKS_PER_SM = 1       # blocks the split aims for on every SM: one wave
+BOX_ROWS = (64, 32, 16, 8, 4, 2, 1)   # the kernel's tensor-map boxes
 
 
 def reset_launches() -> None:
     LAUNCHES[NAME] = 0
 
 
-def split_slots(B: int, Kv: int, slots: int, n_sm: int) -> int:
+def split_slots(B: int, Kv: int, slots: int, n_sm: int,
+                min_split: int = MIN_SPLIT) -> int:
     """Slots per block: each row's ``slots`` are cut into as many splits
-    as it takes for the B * Kv * splits blocks to reach ``BLOCKS_PER_SM``
-    on each of ``n_sm`` SMs, but no more than ``MIN_SPLIT`` slots each
-    would need; a split is a multiple of 32 slots (a warp's chunk).
-    Decided from shapes alone, never from the lengths on the device."""
-    want = -(-BLOCKS_PER_SM * n_sm // max(1, B * Kv))
-    n_split = max(1, min(want, -(-slots // MIN_SPLIT)))
+    as the B * Kv * splits blocks can take without passing
+    ``BLOCKS_PER_SM`` on each of ``n_sm`` SMs (a second wave of blocks
+    would double a call's time), but no more than ``min_split`` slots
+    each would need; a split is a multiple of ``CHUNK`` slots. Decided
+    from shapes alone, never from the lengths on the device."""
+    want = BLOCKS_PER_SM * n_sm // max(1, B * Kv)
+    n_split = max(1, min(want, -(-slots // min_split)))
     per = -(-slots // n_split)
-    return -(-per // 32) * 32
+    return -(-per // CHUNK) * CHUNK
+
+
+def chunk_boxes(c0: int, c1: int, page: int,
+                table_row: List[int], n_pool: int
+                ) -> List[Tuple[int, int, int]]:
+    """The boxes the kernel's producer issues for the slots [c0, c1) of
+    one row (a chunk, c1 - c0 <= CHUNK): (pool row, rows, shared row)
+    with rows one of ``BOX_ROWS``, page by page, skipping pages whose id
+    is < 0 or >= n_pool. Each box lies within one page."""
+    boxes = []
+    j = c0 // page
+    while j * page < c1:
+        pid = table_row[j]
+        if 0 <= pid < n_pool:
+            lo, hi = max(c0, j * page), min(c1, (j + 1) * page)
+            n, row, r = hi - lo, pid * page + lo - j * page, lo - c0
+            for rows in BOX_ROWS:
+                if n & rows:
+                    boxes.append((row, rows, r))
+                    row += rows
+                    r += rows
+        j += 1
+    return boxes
+
+
+def scratch_sizes(B: int, Kv: int, d: int, n_split: int) -> Tuple[int, int]:
+    """(f32 elements of ``part``, int32 elements of the counter) a launch
+    with ``n_split`` splits needs; none with one split."""
+    if n_split == 1:
+        return 0, 0
+    return B * Kv * n_split * MAX_GROUP * (d + 2), B * Kv
+
+
+#: per device, the int32 counters of the last-split merge: zeroed once
+#: when made, and left at 0 by every launch
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    have = _COUNTERS.get(device.index)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = have
+    return have
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_plan(B: int, Kv: int, slots: int, device: int) -> Tuple[int, int]:
+def _launch_plan(B: int, Kv: int, slots: int, device: int,
+                 min_split: int = MIN_SPLIT) -> Tuple[int, int]:
     """(slots per block, splits per row) for a launch on CUDA device
     ``device``: decided once per shape, as decode repeats one shape for
     every layer and step."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    split = split_slots(B, Kv, slots, n_sm)
+    split = split_slots(B, Kv, slots, n_sm, min_split)
     return split, -(-slots // split)
 
 
@@ -149,16 +205,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("q and the pages must be 16-byte aligned")
     out = torch.empty_like(q)
     if B:
-        split, n_split = _launch_plan(B, Kv, n_max * page, q.get_device())
-        # f32 (acc, max, sum) of every split, merged by a second kernel;
-        # from the caching allocator, so no device allocation once warm
-        part = (torch.empty((B, Kv, n_split, MAX_GROUP, d + 2),
-                            dtype=torch.float32, device=q.device)
-                if n_split > 1 else None)
+        split, n_split = _launch_plan(
+            B, Kv, n_max * page, q.get_device(),
+            MIN_SPLIT if q.dtype == torch.bfloat16 else MIN_SPLIT_F32)
+        n_part, n_count = scratch_sizes(B, Kv, d, n_split)
+        # f32 (acc, max, sum) of every split, merged in the same launch by
+        # the last split to finish; from the caching allocator, so no
+        # device allocation once warm
+        part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
+                if n_part else None)
+        counter = _counters(q.device, n_count) if n_count else None
         cuda_build.launch(
             SOURCES[NAME], LAUNCHES, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
             out.data_ptr(), part.data_ptr() if part is not None else None,
-            B, H, Kv, d, n_pool, page, n_max, split, 1.0 / d ** 0.5,
+            counter.data_ptr() if counter is not None else None,
+            B, H, Kv, d, n_pool, page, n_max, split, n_split, 1.0 / d ** 0.5,
             int(q.dtype == torch.bfloat16))
     return out

@@ -42,7 +42,7 @@ from repro_torch.quant.nf4 import codebook, unpack_codes
 KERNELS = ("int8_matmul", "nf4_matmul")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = cuda_build.BUILD_DIR
-HEADERS = ("quant_matmul.cuh", "qmm_wgmma.cuh")
+HEADERS = ("quant_matmul.cuh", "qmm_wgmma.cuh", cuda_build.HOPPER_HEADER)
 SOURCES = {
     # x, codes, scale, out, M, N, K, is_bf16, loop, bm, bn, grid
     "int8_matmul": cuda_build.Source("int8_matmul", CSRC,

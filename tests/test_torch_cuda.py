@@ -193,3 +193,192 @@ def test_cuda_paged_attention_matches_plain(page, H, Kv, d, dtype):
     assert got.dtype == td and torch.isfinite(got.float()).all()
     assert not got[2].float().any()
     assert _row_rel(got, ref) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,Kv,d,causal,window", [
+    (1, 37, 37, 64, 1, 128, True, None),     # G = 64: 2 positions a block
+    (1, 300, 300, 8, 8, 64, True, None),     # G = 1: 128 positions a block
+    (2, 50, 333, 8, 2, 128, False, None),    # ragged T past S, no mask
+    (1, 70, 200, 4, 1, 64, True, 33),        # causal over T > S, a window
+    (1, 2049, 2049, 32, 8, 128, True, None),  # one past a tile, long
+    (3, 5, 5, 7, 1, 128, True, None),        # G = 7, bq = 18 > S
+])
+def test_cuda_flash_wgmma_matches_plain(B, S, T, H, Kv, d, causal, window):
+    """On the card: the bf16 TMA + wgmma kernel at G = 1, 7 and 64 (2 to
+    128 positions a block), d = 64 and 128, T other than S, a window and
+    a long causal row, against the plain version row by row at 1e-2
+    (one bf16 rounding of p and of the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(S + T)
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, T, Kv, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    got = FK.flash_attention(q, k, v, causal=causal, window=window)
+    ref = FK.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel(got, ref) < 1e-2
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wgmma_keeps_to_its_batch_row():
+    """On the card: B = 2 with S = 100, not a multiple of the 32 positions
+    of a block at G = 4, and batch 1's K and V a thousand times batch
+    0's: a box that read past S into the next sequence, or before it,
+    would move batch 0's rows far past 1e-2 (and batch 1's scores would
+    overflow batch 0's softmax). Each batch row also equals the same
+    sequence run alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(100)
+    B, S, H, Kv, d = 2, 100, 32, 8, 128
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, S, Kv, d), generator=gen, device="cuda")
+            for _ in range(2))
+    k[1] *= 1000.0
+    v[1] *= 1000.0
+    k, v = k.bfloat16(), v.bfloat16()
+    got = FK.flash_attention(q, k, v, causal=False)
+    ref = FK.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _row_rel(got, ref) < 1e-2
+    for b in range(B):
+        alone = FK.flash_attention(q[b:b + 1].contiguous(),
+                                   k[b:b + 1].contiguous(),
+                                   v[b:b + 1].contiguous(), causal=False)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wgmma_replays_in_a_graph():
+    """On the card: the bf16 kernel captured in a CUDA graph and replayed
+    twice over new inputs copied into the captured tensors gives, each
+    time, what an eager launch gives on those inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape_q, shape_kv = (2, 130, 32, 128), (2, 130, 8, 128)
+    q = torch.randn(shape_q, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(shape_kv, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    FK.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = FK.flash_attention(q, k, v)
+    for _ in range(2):
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        g.replay()
+        want = FK.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert _row_rel(out, FK.flash_attention_plain(q, k, v)) < 1e-2
+
+
+def _paged_case(page, H, Kv, d, td, seed, poison):
+    """A pool of 4 rows of pages, ragged lengths (full, full - 3, 0, a
+    third), one unassigned page, one page id at n_pool, and, with
+    ``poison``, NaN in every slot the kernel must not read."""
+    B, n_max = 4, max(2, 300 // page)
+    n_pool = B * n_max
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kp, vp = (torch.randn((n_pool, page, Kv, d), generator=gen,
+                          device="cuda").to(td) for _ in range(2))
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(td)
+    pt = torch.randperm(n_pool, generator=gen, device="cuda") \
+        .view(B, n_max).to(torch.int32)
+    full = n_max * page
+    sl = torch.tensor([full, full - 3, 0, max(1, full // 3)],
+                      dtype=torch.int32, device="cuda")
+    pt[1, n_max // 2] = -1
+    pt[3, 0] = n_pool                 # past the pool: masked, never read
+    if poison:
+        used = torch.zeros((n_pool, page), dtype=torch.bool, device="cuda")
+        slot = torch.arange(full, device="cuda")
+        for b in range(B):
+            ids = pt[b].long().repeat_interleave(page)
+            ok = (slot < sl[b]) & (ids >= 0) & (ids < n_pool)
+            used[ids[ok], slot[ok] % page] = True
+        kp[~used] = float("nan")
+        vp[~used] = float("nan")
+    return q, kp, vp, pt, sl
+
+
+def _paged_plain(PK, q, kp, vp, pt, sl):
+    """The plain version (which reads page 0 for a masked page) with the
+    page id past the pool masked as -1 and the NaN of never-read slots
+    out of its way."""
+    pt = torch.where(pt >= kp.shape[0], -1, pt)
+    return PK.paged_attention_plain(q, torch.nan_to_num(kp),
+                                    torch.nan_to_num(vp), pt, sl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,H,Kv,d", [(8, 32, 8, 128), (29, 14, 2, 64),
+                                         (261, 32, 8, 128), (64, 4, 4, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_never_reads_a_masked_slot(page, H, Kv, d, dtype):
+    """On the card: every slot past a row's length, of an unassigned page
+    or of a page id at n_pool holds NaN; the kernel's output stays finite
+    and matches the plain version row by row (bf16 1e-2, f32 1e-5), the
+    row of length 0 is 0, and the call is one launch. Pages of 8, 29, 261
+    (several boxes a page) and 64 slots; G = 4, 7 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    q, kp, vp, pt, sl = _paged_case(page, H, Kv, d, td, page + d, True)
+    before = PK.LAUNCHES["paged_attention"]
+    got = PK.paged_attention(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["paged_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert not got[2].float().any()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert _row_rel(got, _paged_plain(PK, q, kp, vp, pt, sl)) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_replays_in_a_graph_with_new_lengths(dtype):
+    """On the card: one paged call over 4 rows of 4096 slots (several
+    splits a row, so the last split merges them through the counter)
+    captured in a CUDA graph and replayed twice with other lengths
+    written into the captured seq_lens: each replay matches the plain
+    version, which it could not if a replay found the counters of the
+    one before not reset to 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    B, H, Kv, d, page, n_max = 4, 32, 8, 128, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    kp, vp = (torch.randn((B * n_max, page, Kv, d), generator=gen,
+                          device="cuda").to(td) for _ in range(2))
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(td)
+    pt = torch.arange(B * n_max, dtype=torch.int32,
+                      device="cuda").view(B, n_max)
+    sl = torch.tensor([4096, 3000, 17, 2048], dtype=torch.int32,
+                      device="cuda")
+    min_split = PK.MIN_SPLIT if td == torch.bfloat16 else PK.MIN_SPLIT_F32
+    assert PK._launch_plan(B, Kv, n_max * page, q.get_device(),
+                           min_split)[1] > 1
+    PK.paged_attention(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = PK.paged_attention(q, kp, vp, pt, sl)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for lens in ([1, 4096, 2500, 64], [4000, 65, 0, 3333]):
+        sl.copy_(torch.tensor(lens, dtype=torch.int32))
+        g.replay()
+        torch.cuda.synchronize()
+        assert _row_rel(out, PK.paged_attention_plain(q, kp, vp, pt, sl)) \
+            < tol

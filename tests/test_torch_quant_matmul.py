@@ -169,11 +169,14 @@ def test_library_path_follows_the_sources(tmp_path):
     # either rebuilds both libraries
     import dataclasses
     import shutil
-    assert set(K.HEADERS) == {"quant_matmul.cuh", "qmm_wgmma.cuh"}
+    assert set(K.HEADERS) == {"quant_matmul.cuh", "qmm_wgmma.cuh",
+                              "../../csrc/hopper.cuh"}
     for name in K.KERNELS:
         assert K.SOURCES[name].headers == K.HEADERS
-    csrc = tmp_path / "csrc"
+    # the module's csrc and the shared csrc two levels up, as in the tree
+    csrc = tmp_path / "quant_matmul" / "csrc"
     shutil.copytree(K.CSRC, csrc)
+    shutil.copytree(K.CSRC.parents[1] / "csrc", tmp_path / "csrc")
     for name in K.KERNELS:
         src = dataclasses.replace(K.SOURCES[name], csrc=csrc)
         before = K.cuda_build.library_path(src)
