@@ -13,7 +13,12 @@ non-zero exit code:
    kernel, plain and library times and the card's bound: the two
    dequant-matmul kernels at the llama-3.1-8b projection shapes (M in
    {1, 4, 8, 464, 512}, four (K, N)) in bf16, each row naming the loop
-   that ran (decode, wgmma); flash attention at llama-3.1-8b's
+   that ran: "decode" for M <= 8 (the TMA + tensor-core loop of
+   ``qmm_wgmma.cuh`` at 8 rows of x, its K steps split evenly over one
+   block per SM and the split tiles merged in the same launch), "wgmma"
+   for prefill; at the headline decode shape (M = 4, w_gate) one call of
+   either, captured in a CUDA graph, must be one kernel node and nothing
+   else; flash attention at llama-3.1-8b's
    heads (B, S) in {(1, 81), (2, 256), (1, 2048)} causal, one windowed
    cell and one at qwen2.5-0.5b's heads; paged attention at llama-3.1-8b's
    heads for B in {1, 4, 8} and ring lengths W in {261, 512, 4096}, with
@@ -197,6 +202,9 @@ def kernel_phase(torch, K):
                 got = kern(x, *wargs, bf16)
                 loop = next(lp for lp, n in K.LOOP_LAUNCHES[name].items()
                             if n != before[lp])
+                launched = (check_one_launch(
+                    torch, name, lambda: kern(x, *wargs, bf16))
+                    if (M, Kd, N) == HEADLINE else None)
                 ref = plain(x, *wargs, bf16)
                 torch.cuda.synchronize()
                 diff = (got.float() - ref.float()).abs().max().item()
@@ -218,7 +226,8 @@ def kernel_phase(torch, K):
                        "bytes": nbytes, "flops": flops,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations"}
+                       else "operations",
+                       "cuda_launches_per_call": launched}
                 emit(row)
                 if not rel <= KERNEL_REL_TOL:
                     raise SystemExit(f"{name} disagrees with its plain "
@@ -623,6 +632,7 @@ def main() -> int:
             "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "bytes": head["bytes"],
+            "cuda_launches_per_call": head["cuda_launches_per_call"],
             "library_ms": head["library_ms"],
             "library_is": "torch.matmul on the weight already "
                           "dequantized to bf16 (does less work)",

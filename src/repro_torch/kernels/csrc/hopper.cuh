@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // memory addresses, mbarriers, TMA tensor copies and the host-side
 // encoding of their tensor maps, wgmma shared-memory descriptors, the
-// wgmma fences, and bf16 packing and ldmatrix. Used by the quant
-// prefill loop (quant_matmul/csrc/qmm_wgmma.cuh) and the flash and paged
-// attention kernels.
+// wgmma fences, mma.sync, and bf16 packing and ldmatrix. Used by the
+// quant prefill and decode loops (quant_matmul/csrc/qmm_wgmma.cuh) and
+// the flash and paged attention kernels.
 #pragma once
 
 #include <cuda.h>
@@ -110,6 +110,34 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// four 8 x 8 matrices of 16-bit elements at the shared address `a` of
+// each lane's row: lanes 8i .. 8i+7 give the rows of matrix i; thread l
+// receives in r[i] the elements (row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1) of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// shared address of 16-byte chunk `ch` (0..7) of row `r` of a box region
+// that starts on 1024 bytes, as TMA's 128-byte swizzle lays it out
+__device__ __forceinline__ uint32_t swz(uint32_t region, int r, int ch) {
+  return region + r * 128 + ((ch ^ (r & 7)) << 4);
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16) @ b (16 x 8, bf16) on one warp's
+// tensor cores, in the fragment layouts of mma.sync m16n8k16
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

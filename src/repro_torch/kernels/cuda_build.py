@@ -22,7 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, MutableMapping, Sequence, Tuple
+from typing import (Dict, Iterable, List, MutableMapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -126,6 +127,45 @@ def launch(src: Source, counts: MutableMapping[str, int], *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{src.name} launch failed: cudaError {rc}")
     counts[src.name] += 1
+
+
+#: per device, the int32 counters of the kernels' in-launch merges of
+#: split work (paged attention, the quant decode loop): zeroed once when
+#: made, and left at 0 by every launch
+_COUNTERS: Dict[object, torch.Tensor] = {}
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters at 0 on ``device``, shared by every
+    launch on it (launches on one stream run one after another)."""
+    have = _COUNTERS.get(device.index)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = have
+    return have
+
+
+#: per device, the f32 workspaces of the quant decode loop's merge, the
+#: newest last; an older one stays alive, so that a CUDA graph captured
+#: over it keeps a valid address
+_WORKSPACES: Dict[object, List[torch.Tensor]] = {}
+
+
+def workspace(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` float32 elements of scratch on ``device``, shared by
+    every launch on it (launches on one stream run one after another, and
+    a launch reads only what it wrote itself), so that a call allocates
+    nothing once warm."""
+    have = _WORKSPACES.setdefault(device.index, [])
+    if not have or have[-1].numel() < n:
+        size = max(n, 2 * have[-1].numel()) if have else n
+        have.append(torch.empty(size, dtype=torch.float32, device=device))
+    return have[-1]
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """The device address of a tensor, or None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],

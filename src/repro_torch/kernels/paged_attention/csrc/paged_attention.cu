@@ -111,31 +111,11 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
 __device__ __forceinline__ void ldmatrix_x4_t(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// shared address of 16-byte chunk `ch` (0..7) of row `r` of a box region
-// that starts on 1024 bytes, as TMA's 128-byte swizzle lays it out
-__device__ __forceinline__ uint32_t swz(uint32_t region, int r, int ch) {
-  return region + r * 128 + ((ch ^ (r & 7)) << 4);
 }
 
 // The producer: for each chunk of the block's slots [s0, s1), the boxes

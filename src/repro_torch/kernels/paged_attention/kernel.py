@@ -107,19 +107,6 @@ def scratch_sizes(B: int, Kv: int, d: int, n_split: int) -> Tuple[int, int]:
     return B * Kv * n_split * MAX_GROUP * (d + 2), B * Kv
 
 
-#: per device, the int32 counters of the last-split merge: zeroed once
-#: when made, and left at 0 by every launch
-_COUNTERS: Dict[int, torch.Tensor] = {}
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    have = _COUNTERS.get(device.index)
-    if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _COUNTERS[device.index] = have
-    return have
-
-
 @functools.lru_cache(maxsize=None)
 def _launch_plan(B: int, Kv: int, slots: int, device: int,
                  min_split: int = MIN_SPLIT) -> Tuple[int, int]:
@@ -214,12 +201,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         # device allocation once warm
         part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
                 if n_part else None)
-        counter = _counters(q.device, n_count) if n_count else None
+        counter = (cuda_build.counters(q.device, n_count) if n_count
+                   else None)
         cuda_build.launch(
             SOURCES[NAME], LAUNCHES, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), part.data_ptr() if part is not None else None,
-            counter.data_ptr() if counter is not None else None,
+            out.data_ptr(), cuda_build.ptr(part), cuda_build.ptr(counter),
             B, H, Kv, d, n_pool, page, n_max, split, n_split, 1.0 / d ** 0.5,
             int(q.dtype == torch.bfloat16))
     return out

@@ -15,16 +15,14 @@
 // What the design does about it: each weight byte is read from device
 // memory once and dequantized on chip, so no 16-bit copy of the weight is
 // ever written back (the extra pass the paper blames for int8's decode
-// cost). At decode the codes stream through a 4-stage cp.async ring in
-// shared memory (quant_matmul.cuh, qmm_decode_kernel): 16 columns per
-// block, so even the (4096, 1024) projections spread over 64 blocks, and
-// up to three 8 KiB stages of codes in flight per block; the products run
-// on the CUDA cores in f32. At prefill in bf16 (M > 8; qmm_wgmma.cuh) a
-// persistent grid of warp-specialised blocks keeps a 4-stage TMA ring of
-// x tiles and raw 64 x BN code tiles full (Int8Stage below); each
-// consumer thread converts its fragment of the codes to bf16 in
+// cost). In bf16 both loops are those of qmm_wgmma.cuh: a ring of TMA
+// copies of raw 64 x BN code tiles (Int8Stage below) and x tiles, each
+// consumer thread converting its fragment of the codes to bf16 in
 // registers, the A operand of wgmma (x is B), with the per-column scale
-// in the f32 epilogue.
+// in the f32 epilogue. Decode (M <= 8) streams 128-column tiles (whole
+// 128-byte lines) with one block per SM, the K steps split evenly among
+// the blocks and the split tiles merged in the same launch; prefill walks
+// whole output tiles with a persistent grid.
 // f32 compute and shapes the plan gives neither loop take the CUDA-core
 // tile kernel (qmm_tile_kernel).
 #include "qmm_wgmma.cuh"
@@ -67,54 +65,9 @@ struct Int8Format {
   __device__ __forceinline__ float epilogue(float acc, int n) const {
     return acc * scale[n];
   }
-
-  // -- decode kernel: a stage holds the raw (kDecBK, kDecBN) code tile
-  bool dec_ok(int, int) const {
-    return qmm::aligned16(codes);
-  }
-  __host__ __device__ int dec_tile_bytes() const {
-    return qmm::kDecBK * qmm::kDecBN;
-  }
-  __device__ __forceinline__ void prepare(float*, int) const {}
-  __device__ __forceinline__ void dec_load(uint8_t* stage, int k0, int n0,
-                                           int N, int tid) const {
-    constexpr int per_row = qmm::kDecBN / 16;
-    for (int c = tid; c < qmm::kDecBK * per_row; c += qmm::kThreads) {
-      const int r = c / per_row, j = (c % per_row) * 16;
-      qmm::cp_async16(stage + r * qmm::kDecBN + j,
-                      codes + (size_t)(k0 + r) * N + n0 + j);
-    }
-  }
-  // rows kg, kg + kKGroups, ... of the stage; columns 4*cg .. 4*cg+3
-  template <typename T, int MR>
-  __device__ __forceinline__ void dec_compute(
-      const uint8_t* stage, const T* xs, const float*,
-      float (&acc)[MR][4], int kg, int cg) const {
-#pragma unroll 2
-    for (int i = 0; i < qmm::kDecBK / qmm::kKGroups; ++i) {
-      const int r = i * qmm::kKGroups + kg;
-      // four codes to exact floats without the slow int->float unit:
-      // flip each byte's sign bit (b + 128 in 0..255), place it in the
-      // mantissa of 2^23, and subtract 2^23 + 128
-      const unsigned u = *reinterpret_cast<const unsigned*>(
-                             stage + r * qmm::kDecBN + cg * 4) ^
-                         0x80808080u;
-      float w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
-               8388736.0f;
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float xv = qmm::to_f<T>(xs[m * qmm::kDecBK + r]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-      }
-    }
-  }
 };
 
-// -- the wgmma prefill loop (qmm_wgmma.cuh): a stage holds the raw
+// -- the bf16 loops (qmm_wgmma.cuh): a stage holds the raw
 // (64, BN) code tile, copied by TMA (0 past N) with the swizzle of
 // qmm::wg::raw_at
 struct Int8Stage {
@@ -175,35 +128,43 @@ struct Int8Stage {
 // x (M, K) and out (M, N) in the compute dtype (bf16 when is_bf16, else
 // f32); codes int8 (K, N); scale f32 (N,). All row-major and contiguous;
 // codes 4-byte aligned. `loop` is the host plan's loop (qmm::Loop); for
-// the wgmma loop, (bm, bn) its tile and `grid` its blocks. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for a loop the shape does not allow.
+// the wgmma and decode loops, (bm, bn) its tile and `grid` its blocks,
+// and for the decode loop `part` and `counter` its scratch (kernel.py,
+// decode_scratch). Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for
+// a loop the shape does not allow.
 extern "C" int int8_matmul_launch(const void* x, const void* codes,
-                                  const void* scale, void* out, int M,
-                                  int N, int K, int is_bf16, int loop,
-                                  int bm, int bn, int grid, void* stream) {
+                                  const void* scale, void* out, void* part,
+                                  void* counter, int M, int N, int K,
+                                  int is_bf16, int loop, int bm, int bn,
+                                  int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (loop == qmm::kLoopWgmma) {
+  if (loop == qmm::kLoopWgmma || loop == qmm::kLoopDecode) {
     if (!is_bf16) return (int)cudaErrorInvalidValue;
     qmm::wg::Args<Int8Stage> a;
-    if (!qmm::wg::make_map(&a.st.codes, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                           1, K, N, qmm::wg::kBK, bn,
-                           qmm::wg::raw_swizzle(bn)))
+    if (!qmm::wg::make_map_cached(&a.st.codes, codes,
+                                  CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N,
+                                  qmm::wg::kBK, bn, qmm::wg::raw_swizzle(bn)))
       return (int)cudaErrorInvalidValue;
     a.st.scale = static_cast<const float*>(scale);
     a.out = static_cast<__nv_bfloat16*>(out);
+    a.part = static_cast<float*>(part);
+    a.counter = static_cast<int*>(counter);
     a.M = M;
     a.N = N;
     a.K = K;
-    return (int)qmm::wg::launch(a, static_cast<const __nv_bfloat16*>(x), bm,
-                                bn, grid, s);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    if (loop == qmm::kLoopDecode)
+      return (int)qmm::wg::launch_decode(a, xb, bn, grid, s);
+    return (int)qmm::wg::launch(a, xb, bm, bn, grid, s);
   }
+  if (loop != qmm::kLoopTile) return (int)cudaErrorInvalidValue;
   Int8Format fmt{static_cast<const int8_t*>(codes),
                  static_cast<const float*>(scale)};
   if (is_bf16)
-    return (int)qmm::launch(static_cast<const __nv_bfloat16*>(x), fmt,
-                            static_cast<__nv_bfloat16*>(out), M, N, K, loop,
-                            s);
-  return (int)qmm::launch(static_cast<const float*>(x), fmt,
-                          static_cast<float*>(out), M, N, K, loop, s);
+    return (int)qmm::launch_tile(static_cast<const __nv_bfloat16*>(x), fmt,
+                                 static_cast<__nv_bfloat16*>(out), M, N, K,
+                                 s);
+  return (int)qmm::launch_tile(static_cast<const float*>(x), fmt,
+                               static_cast<float*>(out), M, N, K, s);
 }

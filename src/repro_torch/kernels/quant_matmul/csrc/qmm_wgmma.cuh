@@ -1,26 +1,42 @@
-// The bf16 prefill loop of the two dequant-matmul kernels (M > 8), for
-// Hopper (sm_90a): out (M, N) = x (M, K) @ dequant(W) (K, N), bf16 in and
-// out, f32 sums.
+// The bf16 Hopper (sm_90a) loops of the two dequant-matmul kernels,
+// prefill (M > 8) and decode (M <= 8): out (M, N) = x (M, K) @ dequant(W)
+// (K, N), bf16 in and out, f32 sums. One kernel, qmm_wgmma_kernel, with
+// BM = 8 rows of x for decode.
 //
 // Bound: at llama-3.1-8b's prefill shapes (M = 81-512) the 2*M*K*N
-// operations on the tensor cores, not the bytes. What the design does
-// about it (the mixed-input design of CUTLASS, written out by hand):
+// operations on the tensor cores; at decode (M = 1-8) the weight bytes
+// (w_gate: 58.7 MB of int8 codes, 17.6 us at 3.35 TB/s). What the design
+// does about it (the mixed-input design of CUTLASS, written out by hand):
 //
 // - The operands are swapped: each warpgroup computes out^T for 64
 //   output columns, D (64 n x BM m) += W^T (64 n x 16 k) @ x^T (16 k x BM
-//   m), with wgmma.mma_async m64nBMk16. The dequantized weight is the A
-//   operand, built in registers straight from the raw codes in shared
-//   memory; x is the B operand, read by wgmma from shared memory. So the
-//   weight never makes a bf16 round trip through shared memory, and the
-//   consumer warpgroups never wait for each other.
-// - A persistent grid: the host plans the output tile (BM = 64, 128 or
-//   256 rows of x; BN = 64 or 128 output columns, one consumer warpgroup
-//   per 64) and a grid of at most one block per SM from the shapes alone
-//   (quant_matmul/kernel.py, matmul_plan); each block walks output tiles
-//   t = blockIdx.x, blockIdx.x + gridDim.x, ..., column tile t / m_tiles,
-//   row tile t % m_tiles, so blocks that run together read the same
-//   weight columns. Every tile walks the whole K axis in one block, in
-//   one fixed order: no split-K, and the sums do not depend on M.
+//   m), with wgmma.mma_async m64nBMk16 (prefill) or, per warp, mma.sync
+//   m16n8k16 (decode, 16 n x 8 m), which takes the same register A
+//   fragments (wgmma m64n8k16 read 3-11% slower there, PERF.md). The
+//   dequantized weight is the A operand, built in registers straight from
+//   the raw codes in shared memory; x is the B operand, read by wgmma
+//   from shared memory (by ldmatrix for mma.sync). So the
+//   weight never makes a bf16 round trip through shared memory, the
+//   consumer warpgroups never wait for each other, and at decode the
+//   products cost the same whatever M (x's rows past M are zeros that
+//   TMA fills in, not reads).
+// - A persistent grid: the host plans the output tile (prefill: BM = 64,
+//   128 or 256 rows of x; BN = 64 or 128 output columns, one consumer
+//   warpgroup per 64) and a grid of at most one block per SM from the
+//   shapes alone (quant_matmul/kernel.py, matmul_plan). Prefill: each
+//   block walks output tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...,
+//   column tile t / m_tiles, row tile t % m_tiles, so blocks that run
+//   together read the same weight columns; every tile walks the whole K
+//   axis in one block. Decode: one block per SM, and the column tiles' K
+//   steps laid end to end and cut into equal ranges, one a block (walk),
+//   so that every SM streams the same bytes even where there are fewer
+//   column tiles than SMs (wk/wv: 8 tiles of 128 columns). A tile cut
+//   between blocks is split: each writes its f32 partial sums to a
+//   workspace, and the last to finish (an atomic counter per tile, which
+//   it resets) adds them in block order and writes the output, in the
+//   same launch. Every sum is taken in one fixed order that does not
+//   depend on M: the output is the same bits run to run, and a row of x
+//   gets the same sums alone or in a batch.
 // - Warp specialisation: one producer thread (in the last warpgroup,
 //   which gives its registers to the consumers) keeps a ring of as many
 //   stages as fit in shared memory (5-8) full with TMA copies. A stage
@@ -28,23 +44,32 @@
 //   rows past M with zeros) and the format's raw weight tile for the same
 //   64 K rows (int8: 64 x BN codes; nf4: 32 x BN packed bytes, then the
 //   absmax rows those K rows use), swizzled so that the reads below meet
-//   no bank conflicts. Each stage has a full and an empty mbarrier.
+//   no bank conflicts. Each stage has a full and an empty mbarrier. At
+//   decode with BN = 128 a stage is 128-byte lines of codes, and the ring
+//   keeps up to 45 (nf4) or 72 (int8) KB in flight per SM.
 // - A consumer thread gathers its fragment of W^T for a whole stage (32
 //   weights of two adjacent columns: A row g of a warp's 16 rows is
 //   column 2g of its 16, row g + 8 column 2g + 1) and dequantizes it in
 //   registers, then issues four wgmma, one per 16 K. The A fragments are
 //   double-buffered: a stage's products run while the next stage's
 //   fragments are built, and a consumer waits for the group before last
-//   (wgmma.wait_group 1) before it releases that group's stage.
+//   (wgmma.wait_group 1) before it releases that group's stage. At decode
+//   a warp takes two stages at a time instead (their shared-memory reads
+//   in flight together, the products in stage order), since a stage's
+//   handshake and read latency, not its arithmetic, set a warp's pace
+//   there. What stays on the CUDA cores is the dequantization alone.
 // - The epilogue (the format's per-column scale, one rounding to bf16)
-//   runs from the registers straight to device memory, two adjacent
-//   columns per store.
+//   runs from the registers (or the merged partial sums) straight to
+//   device memory, two adjacent columns per store.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <unordered_map>
 
 #include "../../csrc/hopper.cuh"
 
@@ -197,11 +222,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }
 
 // -- the loop --------------------------------------------------------------
-// BM rows of x (64, 128 or 256) by BN output columns (64 or 128, one
-// consumer warpgroup per 64). Shared memory, in bytes from a 1024-aligned
-// base: the x tiles of the stages, then their raw weight tiles (each
-// rounded up to 1024 bytes), as many stages as fit (at most 8).
+// BM rows of x (8 for decode; 64, 128 or 256 for prefill) by BN output
+// columns (64 or 128, one consumer warpgroup per 64). Shared memory, in
+// bytes from a 1024-aligned base: the x tiles of the stages, then their
+// raw weight tiles (each rounded up to 1024 bytes), as many stages as fit
+// (at most 8; a deeper decode ring, 16, read slower at int8's w_gate).
 constexpr int kSmemMax = 232448;   // a block's dynamic shared memory, H100
+constexpr int kDecM = 8;           // rows of x of the decode loop (M <= 8)
+constexpr int kMaxStages = 8;
+// stages a decode warp takes at a time, all their shared-memory reads in
+// flight together
+constexpr int kDecGroup = 2;
 
 template <class Stage, int BM, int BN>
 struct Layout {
@@ -209,7 +240,7 @@ struct Layout {
   static constexpr int raw_bytes =
       (Stage::template raw_bytes<BN>() + 1023) / 1024 * 1024;
   static constexpr int fit = (kSmemMax - 2048) / (x_bytes + raw_bytes);
-  static constexpr int stages = fit < 8 ? fit : 8;
+  static constexpr int stages = fit < kMaxStages ? fit : kMaxStages;
   static constexpr int raw_off = stages * x_bytes;
   static constexpr int total = raw_off + stages * raw_bytes + 1024;
   static_assert(stages >= 5, "a ring of at least five stages");
@@ -220,8 +251,61 @@ struct Args {
   CUtensorMap x;   // (M, K) bf16, box (BM rows, 64), 128-byte swizzle
   Stage st;        // the format's tensor maps and epilogue data
   __nv_bfloat16* out;
+  // decode only: the f32 partial sums of split tiles, (grid + tiles - 1)
+  // slots of kDecM x BN, and one counter per column tile, at 0 between
+  // launches
+  float* part;
+  int* counter;
   int M, N, K, m_tiles, tiles;
 };
+
+// The block of a decode grid of G blocks over U K steps whose range holds
+// step x: block b walks steps [b U / G, (b + 1) U / G).
+__device__ __forceinline__ int split_block(long long x, long long U, int G) {
+  return (int)(((x + 1) * G - 1) / U);
+}
+
+// The segments (output tile t, K steps [k0, k1)) block blockIdx.x walks,
+// in order, each passed to f. Prefill (BM > kDecM): whole tiles t =
+// blockIdx.x, blockIdx.x + gridDim.x, ..., so that blocks that run
+// together read the same weight columns. Decode (BM = kDecM, one row
+// tile): the tiles' K steps laid end to end, tile by tile, and cut into
+// gridDim.x ranges whose lengths differ by at most one step; a tile whose
+// steps fall to several blocks is split.
+template <int BM, class F>
+__device__ __forceinline__ void walk(int tiles, int nk, F&& f) {
+  if constexpr (BM == kDecM) {
+    const long long U = (long long)tiles * nk;
+    int u = (int)(U * blockIdx.x / gridDim.x);
+    const int hi = (int)(U * (blockIdx.x + 1) / gridDim.x);
+    while (u < hi) {
+      const int t = u / nk, k0 = u - t * nk;
+      const int k1 = min(nk, hi - t * nk);
+      f(t, k0, k1);
+      u = t * nk + k1;
+    }
+  } else {
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) f(t, 0, nk);
+  }
+}
+
+// atomicAdd at GPU scope with acquire-release order: the writes that
+// happened before it are seen by whoever acquires the new value, and the
+// writes released by earlier adds are seen after it
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// the consumer warpgroups alone (the producer runs ahead)
+template <int NT>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+}
 
 template <class Stage, int BM, int BN>
 __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
@@ -233,6 +317,7 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[S], empty[S];
   __shared__ float lut[16];
+  __shared__ int last_split;
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
   const int nk = a.K / kBK;
@@ -254,9 +339,9 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == NT) {
       int it = 0;
-      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+      walk<BM>(a.tiles, nk, [&](int t, int k0, int k1) {
         const int m0 = (t % a.m_tiles) * BM, n0 = (t / a.m_tiles) * BN;
-        for (int kt = 0; kt < nk; ++kt, ++it) {
+        for (int kt = k0; kt < k1; ++kt, ++it) {
           const int s = it % S;
           mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
           mbar_expect_tx(&full[s], L::x_bytes + a.st.template tx_bytes<BN>());
@@ -264,7 +349,7 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
           a.st.template load<BN>(smem + L::raw_off + s * L::raw_bytes,
                                  &full[s], kt, n0);
         }
-      }
+      });
     }
   } else {
     if constexpr (NWG == 2)
@@ -273,73 +358,222 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     // this warp's 16 columns of the tile: A rows g and g + 8 of the warp
     // are columns 2g and 2g + 1 of them
     const int nb = warp * 16;
+    // acc[j * 4 + h * 2 + e]: D row 16 * (warp % 4) + lane / 4 + 8 h, that
+    // is column c + h of the tile; D column j * 8 + 2 (lane % 4) + e, that
+    // is row j * 8 + 2 (lane % 4) + e of the tile
+    const int c = nb + 2 * (lane / 4);
+    auto store = [&](const float* acc, int m0, int n0) {
+      const int n = n0 + c;
+      if (n >= a.N) return;   // N is even, so n + 1 < N too
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + j * 8 + 2 * (lane % 4) + e;
+          if (m < a.M)
+            *reinterpret_cast<uint32_t*>(a.out + (size_t)m * a.N + n) =
+                pack_bf16(a.st.epilogue(acc[j * 4 + e], n),
+                          a.st.epilogue(acc[j * 4 + 2 + e], n + 1));
+        }
+    };
     int it = 0;
-    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    walk<BM>(a.tiles, nk, [&](int t, int k0, int k1) {
       const int m0 = (t % a.m_tiles) * BM, n0 = (t / a.m_tiles) * BN;
       float acc[BM / 2];
 #pragma unroll
       for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
-      uint32_t f0[kBK / 16][4], f1[kBK / 16][4];
-      // one stage: its fragments into `cur`, four products, and the
-      // release of the stage before it, once its products are done (they
-      // read `prev`)
-      auto step = [&](uint32_t (&cur)[kBK / 16][4],
-                      uint32_t (&prev)[kBK / 16][4], int kt) {
-        const int s = it % S;
-        mbar_wait(&full[s], (it / S) & 1);
-        a.st.template fragments<BN>(smem + L::raw_off + s * L::raw_bytes,
-                                    lut, nb, lane, cur);
-        const uint32_t xa = smem_u32(smem + s * L::x_bytes);
-        fence_acc(acc);
-        wgmma_fence();
+      if constexpr (BM == kDecM) {
+        // decode: the products on mma.sync m16n8k16 per warp (the A
+        // fragments as for wgmma, x rows 0..7 as the B fragments by
+        // ldmatrix over the 128-byte swizzled rows, chunk q of a row
+        // holding K 8q .. 8q+7). A warp takes kDecGroup stages at a time:
+        // it waits for all, reads all (their shared-memory reads in flight
+        // together), runs the products in stage order and releases the
+        // stages.
+        for (int kt = k0; kt < k1; kt += kDecGroup) {
+          const int n = min(kDecGroup, k1 - kt);
+          uint32_t f[kDecGroup][kBK / 16][4], xb[kDecGroup][kBK / 16][2];
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_rs<BM>(acc, cur[kk], desc(xa + kk * 32, 16, 1024));
-        wgmma_commit();
-        fence_acc(acc);
-        wgmma_wait<1>();
+          for (int i = 0; i < kDecGroup; ++i)
+            if (i < n) mbar_wait(&full[(it + i) % S], ((it + i) / S) & 1);
+#pragma unroll
+          for (int i = 0; i < kDecGroup; ++i)
+            if (i < n) {
+              const int s = (it + i) % S;
+              a.st.template fragments<BN>(
+                  smem + L::raw_off + s * L::raw_bytes, lut, nb, lane, f[i]);
+              const uint32_t xa = smem_u32(smem + s * L::x_bytes);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                uint32_t b[4];
+                ldmatrix_x4(b, swz(xa, lane & 7, 4 * h + (lane >> 3)));
+                xb[i][2 * h][0] = b[0];
+                xb[i][2 * h][1] = b[1];
+                xb[i][2 * h + 1][0] = b[2];
+                xb[i][2 * h + 1][1] = b[3];
+              }
+            }
+#pragma unroll
+          for (int i = 0; i < kDecGroup; ++i)
+            if (i < n)
+#pragma unroll
+              for (int kk = 0; kk < kBK / 16; ++kk)
+                mma_bf16(acc, f[i][kk], xb[i][kk][0], xb[i][kk][1]);
+#pragma unroll
+          for (int i = 0; i < kDecGroup; ++i)
+            if (i < n) mbar_arrive(&empty[(it + i) % S]);
+          it += n;
+        }
+      } else {
+        uint32_t f0[kBK / 16][4], f1[kBK / 16][4];
+        // one stage: its fragments into `cur`, four wgmma, and the release
+        // of the stage before it (none for the segment's `first`), once
+        // its products are done (they read `prev`)
+        auto step = [&](uint32_t (&cur)[kBK / 16][4],
+                        uint32_t (&prev)[kBK / 16][4], bool first) {
+          const int s = it % S;
+          mbar_wait(&full[s], (it / S) & 1);
+          a.st.template fragments<BN>(smem + L::raw_off + s * L::raw_bytes,
+                                      lut, nb, lane, cur);
+          const uint32_t xa = smem_u32(smem + s * L::x_bytes);
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk)
+            wgmma_rs<BM>(acc, cur[kk], desc(xa + kk * 32, 16, 1024));
+          wgmma_commit();
+          fence_acc(acc);
+          wgmma_wait<1>();
+          fence_acc(acc);
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk) fence_regs(prev[kk]);
+          if (!first) mbar_arrive(&empty[(it - 1) % S]);
+          ++it;
+        };
+        int kt = k0;
+        for (; kt + 1 < k1; kt += 2) {
+          step(f0, f1, kt == k0);
+          step(f1, f0, false);
+        }
+        if (kt < k1) step(f0, f1, kt == k0);
+        wgmma_wait<0>();
         fence_acc(acc);
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) fence_regs(prev[kk]);
-        if (kt > 0) mbar_arrive(&empty[(it - 1) % S]);
-        ++it;
-      };
-      int kt = 0;
-      for (; kt + 1 < nk; kt += 2) {
-        step(f0, f1, kt);
-        step(f1, f0, kt + 1);
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          fence_regs(f0[kk]);
+          fence_regs(f1[kk]);
+        }
+        mbar_arrive(&empty[(it - 1) % S]);
       }
-      if (kt < nk) step(f0, f1, kt);
-      wgmma_wait<0>();
-      fence_acc(acc);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        fence_regs(f0[kk]);
-        fence_regs(f1[kk]);
-      }
-      mbar_arrive(&empty[(it - 1) % S]);
 
-      // acc[j * 4 + h * 2 + e]: D row 16 * (warp % 4) + lane / 4 + 8 h,
-      // that is column n0 + nb + 2 (lane / 4) + h; D column j * 8 + 2 (lane
-      // % 4) + e, that is row m0 + j * 8 + 2 (lane % 4) + e of x
-      const int n = n0 + nb + 2 * (lane / 4);
-      if (n < a.N) {   // N is even, so n + 1 < N too
+      if constexpr (BM == kDecM) {
+        if (k0 > 0 || k1 < nk) {
+          // a split tile: this block's f32 partial sums to slot blockIdx.x
+          // + t; the last of the tile's blocks to finish adds all of them
+          // in block (that is K) order, in the same launch, and resets the
+          // tile's counter for the next launch or graph replay
+          const long long U = (long long)a.tiles * nk;
+          const int b0 = split_block((long long)t * nk, U, gridDim.x);
+          const int b1 = split_block((long long)(t + 1) * nk - 1, U,
+                                     gridDim.x);
+          const int r0 = 2 * (lane % 4);
+          float* slot = a.part + (size_t)(blockIdx.x + t) * kDecM * BN + c;
 #pragma unroll
-        for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int m = m0 + j * 8 + 2 * (lane % 4) + e;
-            if (m < a.M)
-              *reinterpret_cast<uint32_t*>(a.out + (size_t)m * a.N + n) =
-                  pack_bf16(a.st.epilogue(acc[j * 4 + e], n),
-                            a.st.epilogue(acc[j * 4 + 2 + e], n + 1));
+          for (int e = 0; e < 2; ++e)
+            if (r0 + e < a.M)
+              *reinterpret_cast<float2*>(slot + (r0 + e) * BN) =
+                  make_float2(acc[e], acc[2 + e]);
+          // the barrier orders every consumer's writes before thread 0's
+          // release, and thread 0's acquire (when last) before every
+          // consumer's reads: one fence a block, not one a thread
+          consumer_sync<NT>();
+          if (tid == 0) {
+            const int done = atomic_add_acq_rel(a.counter + t, 1);
+            last_split = done == b1 - b0;
+            if (last_split) a.counter[t] = 0;
           }
+          consumer_sync<NT>();
+          if (!last_split) return;
+          // four slots' loads in flight at a time (8 or 16, for the 17
+          // slots of a wk/wv tile, read no faster), added in block order
+          constexpr int kAhead = 4;
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int b = b0; b <= b1; b += kAhead) {
+            float2 v[kAhead][2];
+#pragma unroll
+            for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (b + i <= b1 && r0 + e < a.M)
+                  v[i][e] = __ldcg(reinterpret_cast<const float2*>(
+                      a.part + (size_t)(b + i + t) * kDecM * BN +
+                      (r0 + e) * BN + c));
+#pragma unroll
+            for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (b + i <= b1 && r0 + e < a.M) {
+                  sum[e] += v[i][e].x;
+                  sum[2 + e] += v[i][e].y;
+                }
+          }
+          store(sum, m0, n0);
+          return;
+        }
       }
-    }
+      store(acc, m0, n0);
+    });
   }
 }
 
 // -- host --------------------------------------------------------------------
+// make_map for a weight matrix, encoded once per (address, type, shape,
+// box, swizzle) and then served from a cache: every decode step launches
+// on the same weights, and a map is a function of that key alone, so a
+// cached map stays right even where the memory was freed and reused.
+inline bool make_map_cached(CUtensorMap* map, const void* base,
+                            CUtensorMapDataType type, int esize,
+                            uint64_t rows, uint64_t cols, uint32_t box_rows,
+                            uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  struct Key {
+    const void* base;
+    uint64_t rows, cols;
+    uint32_t box_rows, box_cols;
+    int type, esize, swizzle;
+    bool operator==(const Key& o) const {
+      return base == o.base && rows == o.rows && cols == o.cols &&
+             box_rows == o.box_rows && box_cols == o.box_cols &&
+             type == o.type && esize == o.esize && swizzle == o.swizzle;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      size_t h = reinterpret_cast<uintptr_t>(k.base);
+      for (uint64_t v : {k.rows, k.cols, (uint64_t)k.box_rows,
+                         (uint64_t)k.box_cols, (uint64_t)k.type,
+                         (uint64_t)k.swizzle})
+        h = h * 1000003u ^ v;
+      return h;
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  const Key key{base, rows, cols, box_rows, box_cols, (int)type, esize,
+                (int)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!make_map(map, base, type, esize, rows, cols, box_rows, box_cols,
+                swizzle))
+    return false;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return true;
+}
+
 // the swizzle of a raw weight tile with BN-byte rows (raw_at)
 inline CUtensorMapSwizzle raw_swizzle(int bn) {
   return bn == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -368,11 +602,11 @@ cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
   return cudaGetLastError();
 }
 
-// The loop at the host's plan: BM in {256, 128, 64} rows of x by BN in
-// {128, 64} columns, `grid` blocks. The caller has filled a.st with the
-// format's tensor maps for BN. Refuses (cudaErrorInvalidValue) what the
-// plan never gives it: K not a multiple of 64, N not a multiple of 16,
-// another tile.
+// The prefill loop at the host's plan: BM in {256, 128, 64} rows of x by
+// BN in {128, 64} columns, `grid` blocks. The caller has filled a.st with
+// the format's tensor maps for BN. Refuses (cudaErrorInvalidValue) what
+// the plan never gives it: K not a multiple of 64, N not a multiple of
+// 16, another tile.
 template <class Stage>
 cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
                    int grid, cudaStream_t stream) {
@@ -388,6 +622,22 @@ cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
     if (bm == 64) return launch_tiles<Stage, 64, 64>(a, x, grid, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// The decode loop at the host's plan: M <= 8 rows of x by BN in {128, 64}
+// columns, `grid` blocks sharing out the column tiles' K steps (walk),
+// with a.part and a.counter for the split tiles. Refuses
+// (cudaErrorInvalidValue) M > 8, K not a multiple of 64, N not a multiple
+// of 16, more blocks than K steps, missing scratch, another tile.
+template <class Stage>
+cudaError_t launch_decode(Args<Stage>& a, const __nv_bfloat16* x, int bn,
+                          int grid, cudaStream_t stream) {
+  if (a.M < 1 || a.M > kDecM || a.K % kBK || a.N % 16 || grid < 1 ||
+      (bn != 128 && bn != 64) || !a.part || !a.counter ||
+      (long long)grid > (long long)((a.N + bn - 1) / bn) * (a.K / kBK))
+    return cudaErrorInvalidValue;
+  if (bn == 128) return launch_tiles<Stage, kDecM, 128>(a, x, grid, stream);
+  return launch_tiles<Stage, kDecM, 64>(a, x, grid, stream);
 }
 
 }  // namespace wg

@@ -18,12 +18,15 @@ if the launch reports an error, and adds one to its count in
 version.
 
 The loop is planned on the host from the shapes alone
-(:func:`matmul_plan`, cached per shape and device): the decode loop for
-M <= 8, the TMA + wgmma loop for bf16 prefill (M > 8), with its output
-tile and a persistent grid of at most one block per SM, and the
-CUDA-core tile loop for f32 and for shapes neither takes. The C entry
-point runs the loop it is given, and refuses it (an error, which the
-wrapper raises) if the shape does not allow it.
+(:func:`matmul_plan`, cached per shape and device). In bf16 both loops
+are the TMA + wgmma kernel of ``csrc/qmm_wgmma.cuh``: "decode" for M <= 8
+(8 rows of x, 128-column tiles, one block per SM, the column tiles' K
+steps split evenly among the blocks and the split tiles merged in the
+same launch through a workspace and per-tile counters), "wgmma" for
+prefill (M > 8, an output tile and a persistent grid of at most one
+block per SM). The CUDA-core tile loop takes f32 and the shapes neither
+takes. The C entry point runs the loop it is given, and refuses it (an
+error, which the wrapper raises) if the shape does not allow it.
 """
 from __future__ import annotations
 
@@ -44,14 +47,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = cuda_build.BUILD_DIR
 HEADERS = ("quant_matmul.cuh", "qmm_wgmma.cuh", cuda_build.HOPPER_HEADER)
 SOURCES = {
-    # x, codes, scale, out, M, N, K, is_bf16, loop, bm, bn, grid
-    "int8_matmul": cuda_build.Source("int8_matmul", CSRC,
-                                     (P, P, P, P, I, I, I, I, I, I, I, I),
-                                     HEADERS),
-    # x, packed, absmax, out, M, N, K, block, is_bf16, loop, bm, bn, grid
-    "nf4_matmul": cuda_build.Source("nf4_matmul", CSRC,
-                                    (P, P, P, P, I, I, I, I, I, I, I, I, I),
-                                    HEADERS),
+    # x, codes, scale, out, part, counter, M, N, K, is_bf16, loop, bm, bn,
+    # grid
+    "int8_matmul": cuda_build.Source(
+        "int8_matmul", CSRC, (P, P, P, P, P, P, I, I, I, I, I, I, I, I),
+        HEADERS),
+    # x, packed, absmax, out, part, counter, M, N, K, block, is_bf16, loop,
+    # bm, bn, grid
+    "nf4_matmul": cuda_build.Source(
+        "nf4_matmul", CSRC, (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I),
+        HEADERS),
 }
 
 #: the loops of the C entry points, by their number there (qmm::Loop)
@@ -76,8 +81,11 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 # launch plan
 # ---------------------------------------------------------------------------
-DEC_M, DEC_BN, DEC_BK = 8, 16, 512      # the decode loop's rows, tile
-WG_BK = 64                              # K rows per stage of the wgmma loop
+WG_BK = 64          # K rows per stage of the bf16 loops
+DEC_M = 8           # rows of x of the decode loop: M <= 8
+#: the decode loop's column tile: 128 codes (int8) or packed bytes (nf4)
+#: a row, whole 128-byte lines
+DEC_BN = 128
 #: the wgmma loop's output tiles (BM rows of x, BN output columns) and
 #: the time one K step (64 rows) of one tile takes, in us, per format:
 #: the median over llama-3.1-8b's four projections at M = 352 and 512 of
@@ -97,9 +105,8 @@ WG_TILES = tuple(WG_STEP_US["int8"])
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The loop a launch runs; for "wgmma" also its output tile (BM rows
-    of x, BN output columns) and the persistent grid (blocks) that walks
-    the tiles."""
+    """The loop a launch runs; for "wgmma" and "decode" also its output
+    tile (BM rows of x, BN output columns) and its grid (blocks)."""
 
     loop: str
     bm: int = 0
@@ -119,32 +126,63 @@ def tile_origin(t: int, m_tiles: int, bm: int, bn: int) -> Tuple[int, int]:
     return (t % m_tiles) * bm, (t // m_tiles) * bn
 
 
+def decode_segments(plan: Plan, N: int, K: int
+                    ) -> List[Tuple[int, int, int, int]]:
+    """(block, column tile, first K step, end K step) of every segment the
+    decode loop walks, in the kernel's order (``qmm_wgmma.cuh``, walk; a
+    K step is 64 rows): the tiles' K steps laid end to end, block b
+    taking steps [b U / grid, (b + 1) U / grid) of the U."""
+    nk = K // WG_BK
+    u_all = -(-N // plan.bn) * nk
+    segs = []
+    for b in range(plan.grid):
+        u, hi = u_all * b // plan.grid, u_all * (b + 1) // plan.grid
+        while u < hi:
+            t, k0 = divmod(u, nk)
+            k1 = min(nk, hi - t * nk)
+            segs.append((b, t, k0, k1))
+            u = t * nk + k1
+    return segs
+
+
+def decode_scratch(plan: Plan, N: int) -> Tuple[int, int]:
+    """(f32 elements of the workspace, int32 counters) a decode launch
+    needs: the partial sums of block b for column tile t go to slot b + t
+    of DEC_M x bn, and each column tile has a counter."""
+    tiles = -(-N // plan.bn)
+    return (plan.grid + tiles - 1) * DEC_M * plan.bn, tiles
+
+
 def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
                 block: Optional[int] = None, aligned: bool = True) -> Plan:
     """The loop for x (M, K) @ W (K, N), from shapes alone (``block``: the
     nf4 block, None for int8; ``aligned``: every pointer 16-byte aligned).
 
-    - "decode" for M <= 8 where its 16-byte copies fit (N % 16, K % 512,
-      the nf4 block dividing 512);
-    - "wgmma" for bf16, M > 8, N % 16 == 0, K % 64 == 0 and an nf4 block
-      of 32 or a multiple of 64: of :data:`WG_TILES`, the tile whose
-      waves over ``n_sm`` SMs (tiles / n_sm, rounded up) take the least
-      time at the format's :data:`WG_STEP_US`, the earlier on a tie, and
-      a grid of min(tiles, n_sm) blocks;
-    - "tile" otherwise (f32, and unaligned shapes or small nf4 blocks)."""
-    if (M <= DEC_M and N % DEC_BN == 0 and K % DEC_BK == 0 and aligned
-            and (block is None or DEC_BK % block == 0)):
-        return Plan("decode")
-    if (bf16 and M > DEC_M and N % 16 == 0 and K % WG_BK == 0 and aligned
-            and (block is None or block == 32 or block % WG_BK == 0)):
-        step_us = WG_STEP_US["int8" if block is None else "nf4"]
+    Where the bf16 loops take the shape (bf16, N % 16 == 0, K % 64 == 0,
+    aligned, an nf4 block of 32 or a multiple of 64):
 
-        def cost(tile):
-            tiles = wgmma_tiles(M, N, *tile)[1]
-            return -(-tiles // n_sm) * step_us[tile]
-        bm, bn = min(WG_TILES, key=cost)
-        return Plan("wgmma", bm, bn, min(wgmma_tiles(M, N, bm, bn)[1], n_sm))
-    return Plan("tile")
+    - "decode" for M <= 8: :data:`DEC_BN` columns a tile and a grid of
+      min(``n_sm``, K steps of all tiles) blocks. It does not depend on
+      M, so a row of x gets the same sums whatever the batch;
+    - "wgmma" for M > 8: of :data:`WG_TILES`, the tile whose waves over
+      ``n_sm`` SMs (tiles / n_sm, rounded up) take the least time at the
+      format's :data:`WG_STEP_US`, the earlier on a tie, and a grid of
+      min(tiles, n_sm) blocks.
+
+    "tile" otherwise (f32, and unaligned shapes or small nf4 blocks)."""
+    if not (bf16 and N % 16 == 0 and K % WG_BK == 0 and aligned
+            and (block is None or block == 32 or block % WG_BK == 0)):
+        return Plan("tile")
+    if M <= DEC_M:
+        steps = -(-N // DEC_BN) * (K // WG_BK)
+        return Plan("decode", DEC_M, DEC_BN, min(n_sm, steps))
+    step_us = WG_STEP_US["int8" if block is None else "nf4"]
+
+    def cost(tile):
+        tiles = wgmma_tiles(M, N, *tile)[1]
+        return -(-tiles // n_sm) * step_us[tile]
+    bm, bn = min(WG_TILES, key=cost)
+    return Plan("wgmma", bm, bn, min(wgmma_tiles(M, N, bm, bn)[1], n_sm))
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,8 +247,23 @@ def _check_x(x: torch.Tensor, compute_dtype) -> None:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
 
 
-def _launch(name: str, plan: Plan, *args) -> None:
-    cuda_build.launch(SOURCES[name], LAUNCHES, *args,
+def _scratch(plan: Plan, N: int, device: torch.device):
+    """(workspace, counters) of a decode launch (:func:`decode_scratch`),
+    both shared by the launches on ``device``: no allocation once warm,
+    and the counters left at 0 by every launch."""
+    n_part, n_count = decode_scratch(plan, N)
+    return (cuda_build.workspace(device, n_part),
+            cuda_build.counters(device, n_count))
+
+
+def _launch(name: str, plan: Plan, x: torch.Tensor, wargs, out: torch.Tensor,
+            *shape) -> None:
+    part = counter = None
+    if plan.loop == "decode":
+        part, counter = _scratch(plan, out.shape[1], x.device)
+    cuda_build.launch(SOURCES[name], LAUNCHES, x.data_ptr(),
+                      *(w.data_ptr() for w in wargs), out.data_ptr(),
+                      cuda_build.ptr(part), cuda_build.ptr(counter), *shape,
                       LOOPS.index(plan.loop), plan.bm, plan.bn, plan.grid)
     LOOP_LAUNCHES[name][plan.loop] += 1
 
@@ -238,8 +291,8 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         bf16 = compute_dtype == torch.bfloat16
         plan = _device_plan(M, N, K, bf16, None, _aligned(x, codes),
                             x.get_device())
-        _launch("int8_matmul", plan, x.data_ptr(), codes.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), M, N, K, int(bf16))
+        _launch("int8_matmul", plan, x, (codes, scale), out, M, N, K,
+                int(bf16))
     return out
 
 
@@ -264,7 +317,6 @@ def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
         bf16 = compute_dtype == torch.bfloat16
         plan = _device_plan(M, N, K, bf16, K // nb,
                             _aligned(x, packed, absmax), x.get_device())
-        _launch("nf4_matmul", plan, x.data_ptr(), packed.data_ptr(),
-                absmax.data_ptr(), out.data_ptr(), M, N, K, K // nb,
-                int(bf16))
+        _launch("nf4_matmul", plan, x, (packed, absmax), out, M, N, K,
+                K // nb, int(bf16))
     return out

@@ -1,6 +1,7 @@
 """On a CUDA device only: each CUDA kernel against its plain PyTorch
-version: the quant_matmul kernels through every loop the launcher picks,
-the attention kernels at ragged shapes. Imports no JAX,
+version: the quant_matmul kernels through every loop the launcher picks
+(the decode loop also row by row against M = 1 calls and under graph
+replay), the attention kernels at ragged shapes. Imports no JAX,
 so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
@@ -25,8 +26,8 @@ def _rel(got, ref) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain(M, dtype, Kd, N):
     """On the card: each CUDA kernel against its plain version. (512, 208)
-    takes the decode loop (M <= 8) and, in bf16, the wgmma loop; (320,
-    200) and f32 take the tile loop, with ragged M/N/K edges. f32 at
+    in bf16 takes the decode loop (M <= 8) and the wgmma loop; (320, 200)
+    and f32 take the tile loop, with ragged M/N/K edges. f32 at
     1e-5; bf16 at 1e-2 relative (one bf16 rounding of f32 sums taken in
     other orders)."""
     if not torch.cuda.is_available():
@@ -110,11 +111,128 @@ def test_cuda_wgmma_loop_walks_several_tiles():
                                ("nf4_matmul", (q4.packed, q4.absmax), 64)):
         out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
         extra = (block,) if block else ()
-        K._launch(name, plan, x.data_ptr(), wargs[0].data_ptr(),
-                  wargs[1].data_ptr(), out.data_ptr(), M, N, Kd, *extra, 1)
+        K._launch(name, plan, x, wargs, out, M, N, Kd, *extra, 1)
         ref = getattr(K, name + "_plain")(x, *wargs)
         torch.cuda.synchronize()
         assert _rel(out, ref) < 1e-2, name
+
+
+def _decode_case(M, Kd, N, seed):
+    """x (M, Kd) bf16 and the weight quantized as int8 and as nf4 with
+    blocks 64 and 32: (name, weight tensors) for each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, Kd), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((Kd, N), generator=gen, device="cuda") * Kd ** -0.5
+    q8 = pt_int8.quantize_int8(w)
+    cases = [("int8_matmul", (q8.codes, q8.scale))]
+    for block in (64, 32):
+        q4 = pt_nf4.quantize_nf4(w, block)
+        cases.append(("nf4_matmul", (q4.packed, q4.absmax)))
+    return x, cases
+
+
+def _blocks_per_tile(plan, N, Kd):
+    """The most blocks any column tile's K steps fall to."""
+    per = {}
+    for b, t, _, _ in K.decode_segments(plan, N, Kd):
+        per.setdefault(t, set()).add(b)
+    return max(len(bs) for bs in per.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Kd,N,split", [(64, 208, "one"), (128, 16, "two"),
+                                        (640, 400, "many"),
+                                        (4096, 1040, "many")])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_cuda_decode_loop_matches_plain(M, Kd, N, split):
+    """On the card: the bf16 decode loop (TMA ring, products on the tensor
+    cores, the K steps split among the blocks) against the plain versions
+    for int8 and nf4 with blocks 64 and 32, at M = 1..8 and shapes whose
+    column tiles fall to one block, two, or many (several K ranges a
+    tile, blocks that cross tile boundaries, N no multiple of 128). 1e-2
+    relative (one bf16 rounding of f32 sums taken in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = K._device_plan(M, N, Kd, True, None, True, 0)
+    assert plan.loop == "decode"
+    most = _blocks_per_tile(plan, N, Kd)
+    assert {"one": most == 1, "two": most == 2, "many": most > 2}[split]
+    x, cases = _decode_case(M, Kd, N, M + Kd + N)
+    for name, wargs in cases:
+        before = K.LOOP_LAUNCHES[name]["decode"]
+        got = getattr(K, name)(x, *wargs)
+        ref = getattr(K, name + "_plain")(x, *wargs)
+        torch.cuda.synchronize()
+        assert K.LOOP_LAUNCHES[name]["decode"] == before + 1
+        assert _rel(got, ref) < 1e-2, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Kd,N", [(4096, 1024), (640, 400), (14336, 4096)])
+def test_cuda_decode_rows_do_not_depend_on_the_batch(Kd, N):
+    """On the card: row i of an M = 4 decode call is, bit for bit, an
+    M = 1 call on row i alone (the plan and every sum's order do not
+    depend on M), and a second call gives the same bits, for int8 and
+    nf4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _decode_case(4, Kd, N, Kd + N)
+    for name, wargs in cases:
+        fn = getattr(K, name)
+        got = fn(x, *wargs)
+        again = fn(x, *wargs)
+        rows = [fn(x[i:i + 1].contiguous(), *wargs) for i in range(4)]
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), name
+        for i in range(4):
+            assert torch.equal(got[i:i + 1], rows[i]), (name, i)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_replays_in_a_graph():
+    """On the card: a decode call whose tiles are split among many blocks,
+    captured in a CUDA graph and replayed twice with new x copied into
+    the captured input, gives what an eager call gives each time, and
+    leaves every counter of the merge at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _decode_case(4, 4096, 1040, 9)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for name, wargs in cases:
+        fn = getattr(K, name)
+        fn(x, *wargs)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(x, *wargs)
+        for _ in range(2):
+            x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+            g.replay()
+            want = fn(x, *wargs)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), name
+            assert _rel(out, getattr(K, name + "_plain")(x, *wargs)) < 1e-2
+            counters = K.cuda_build.counters(x.device, 1)
+            assert not counters.any(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_cuda_decode_call_is_one_kernel_node(M):
+    """On the card: one decode call (its workspace from the caching
+    allocator, the counters made before) captured in a CUDA graph is one
+    kernel node and nothing else, as chip_smoke checks the attention
+    kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    x, cases = _decode_case(M, 4096, 1024, 12)
+    for name, wargs in cases:
+        fn = getattr(K, name)
+        assert chip_smoke.graph_nodes(torch, lambda: fn(x, *wargs)) == [0]
 
 
 def _row_rel(got, ref) -> float:

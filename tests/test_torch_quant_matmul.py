@@ -225,13 +225,93 @@ def test_serve_shapes_take_the_wgmma_loop(M, Kd, N, block):
     assert plan.loop == "wgmma"
 
 
-@pytest.mark.parametrize("M", [1, 4, 8])
-@pytest.mark.parametrize("bf16", [True, False])
+DECODE_M = [1, 2, 3, 4, 5, 6, 7, 8]
+
+
+@pytest.mark.parametrize("block", [None, 64, 32, 128])
 @pytest.mark.parametrize("Kd,N", LLAMA_KN)
-def test_decode_shapes_take_the_decode_loop(M, bf16, Kd, N):
+@pytest.mark.parametrize("M", DECODE_M)
+def test_decode_shapes_take_the_decode_loop(M, Kd, N, block):
+    """Every bf16 projection of a decode step (M = 1..8) takes the decode
+    loop, int8 and nf4 (blocks 64, 32, 128), with the same plan as M = 1:
+    the plan does not depend on M, so a row of x gets the same sums
+    alone or in a batch."""
+    plan = K.matmul_plan(M, N, Kd, 132, block=block)
+    assert plan.loop == "decode" and plan.bm == K.DEC_M
+    assert plan == K.matmul_plan(1, N, Kd, 132, block=block)
+
+
+@pytest.mark.parametrize("Kd,N", LLAMA_KN)
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_f32_decode_takes_the_tile_loop(M, Kd, N):
+    """f32 compute at M <= 8 is off the serve path (int8 and nf4 compute
+    in bf16) and goes to the CUDA-core tile loop."""
     for block in (None, 64):
-        assert K.matmul_plan(M, N, Kd, 132, bf16=bf16,
-                             block=block).loop == "decode"
+        assert K.matmul_plan(M, N, Kd, 132, bf16=False,
+                             block=block).loop == "tile"
+
+
+def _segments_by_tile(plan, N, Kd):
+    tiles = {}
+    for b, t, k0, k1 in K.decode_segments(plan, N, Kd):
+        tiles.setdefault(t, []).append((b, k0, k1))
+    return tiles
+
+
+@pytest.mark.parametrize("block", [None, 64])
+@pytest.mark.parametrize("Kd,N", LLAMA_KN + [(64, 208), (128, 16),
+                                             (640, 400), (4096, 1040)])
+def test_decode_segments_cover_every_k_step_once(Kd, N, block):
+    """The decode grid's segments, as the kernel walks them: every
+    (column tile, K step) exactly once, each tile's K ranges in block
+    order end to end, every block busy, and the blocks' step counts
+    within one of each other."""
+    plan = K.matmul_plan(4, N, Kd, 132, block=block)
+    nk, tiles = Kd // K.WG_BK, -(-N // plan.bn)
+    by_tile = _segments_by_tile(plan, N, Kd)
+    assert sorted(by_tile) == list(range(tiles))
+    for t, segs in by_tile.items():
+        blocks = [b for b, _, _ in segs]
+        assert blocks == list(range(blocks[0], blocks[-1] + 1)), t
+        edges = [k0 for _, k0, _ in segs] + [segs[-1][2]]
+        assert edges[0] == 0 and edges[-1] == nk, t
+        assert all(k1 == k0n for (_, _, k1), k0n in zip(segs, edges[1:])), t
+    steps = [0] * plan.grid
+    for b, _, k0, k1 in K.decode_segments(plan, N, Kd):
+        steps[b] += k1 - k0
+    assert sum(steps) == tiles * nk
+    assert min(steps) >= 1 and max(steps) - min(steps) <= 1
+
+
+@pytest.mark.parametrize("block", [None, 64])
+@pytest.mark.parametrize("Kd,N", LLAMA_KN)
+def test_decode_grid_fills_the_card(Kd, N, block):
+    """One block on every one of 132 SMs at every decode shape, wk/wv (8
+    column tiles of 128) included: the split, not the column tiles, fills
+    the card."""
+    plan = K.matmul_plan(4, N, Kd, 132, block=block)
+    assert plan.grid == 132
+    assert len({b for b, *_ in K.decode_segments(plan, N, Kd)}) == 132
+
+
+@pytest.mark.parametrize("Kd,N", LLAMA_KN + [(640, 400), (128, 16)])
+def test_decode_scratch_matches_the_plan(Kd, N):
+    """The workspace the wrapper asks for holds a slot (block + tile) for
+    every segment of a split tile, no two segments sharing one, and the
+    counters one per column tile; the wrapper's own scratch holds those
+    sizes."""
+    plan = K.matmul_plan(4, N, Kd, 132)
+    n_part, n_count = K.decode_scratch(plan, N)
+    slot = K.DEC_M * plan.bn
+    assert n_part % slot == 0 and n_count == -(-N // plan.bn)
+    split = [(b, t) for t, segs in _segments_by_tile(plan, N, Kd).items()
+             if len(segs) > 1 for b, _, _ in segs]
+    slots = [b + t for b, t in split]
+    assert len(set(slots)) == len(slots)
+    assert max(slots) < n_part // slot
+    part, counter = K._scratch(plan, N, torch.device("cpu"))
+    assert part.numel() >= n_part and part.dtype == torch.float32
+    assert counter.numel() >= n_count and not counter.any()
 
 
 @pytest.mark.parametrize("M,Kd,N,bf16,block,aligned", [
@@ -245,6 +325,8 @@ def test_decode_shapes_take_the_decode_loop(M, bf16, Kd, N):
     (130, 4096, 4096, True, None, False),     # a pointer off 16 bytes
     (4, 320, 200, True, None, True),          # decode, unaligned shape
     (4, 4096, 4096, True, None, False),
+    (8, 4128, 256, True, None, True),         # decode, K % 64
+    (1, 4096, 4096, True, 16, True),          # decode, a small nf4 block
 ])
 def test_other_shapes_take_the_tile_loop(M, Kd, N, bf16, block, aligned):
     assert K.matmul_plan(M, N, Kd, 132, bf16=bf16, block=block,
