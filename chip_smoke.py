@@ -20,9 +20,13 @@ non-zero exit code:
    either, captured in a CUDA graph, must be one kernel node and nothing
    else; flash attention at llama-3.1-8b's
    heads (B, S) in {(1, 81), (2, 256), (1, 2048)} causal, one windowed
-   cell and one at qwen2.5-0.5b's heads; paged attention at llama-3.1-8b's
-   heads for B in {1, 4, 8} and ring lengths W in {261, 512, 4096}, with
-   ragged lengths and an unassigned page; the attention cells in bf16 and
+   cell and one at qwen2.5-0.5b's heads, and at head_dim 120
+   (h2o-danube-3-4b: (2, 256) causal and a window of 4096 over S = 4608)
+   and 96 (phi-3-vision-4.2b: (2, 256) causal); paged attention at
+   llama-3.1-8b's heads for B in {1, 4, 8} and ring lengths W in {261,
+   512, 4096}, and at h2o-danube's and phi-3-vision's heads for B = 4
+   over W = 512, with ragged lengths and an unassigned page; the
+   attention cells in bf16 and
    f32, each checked row by row and beside a control (the plain version
    with its mask edge moved by one key) that the check must see. At each
    cell one call of either attention kernel, captured in a CUDA graph,
@@ -37,7 +41,12 @@ non-zero exit code:
    launch per projection, layer and prefill phase, one decode-loop
    launch per projection, layer and decode step, and no tile-loop
    launch, in the sequential run too), and each request's prefill logits
-   against its own sequential run.
+   against its own sequential run. Per format it prints the host wall
+   times of the run's phases (``PhaseResult.wall_s``), the analytic
+   report of the H100 SXM energy model (J/token, total J, the analytic
+   clock, mean batch) and, labelled measured, the card's power draw
+   sampled by ``nvidia-smi`` every 100 ms over the continuous run, with
+   the J/token it integrates to.
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -103,14 +112,21 @@ ATTN_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 ATTN_DTYPES = ("bfloat16", "float32")
 LLAMA_HEADS = (32, 8, 128)          # H, Kv, head_dim
 QWEN_HEADS = (14, 2, 64)            # qwen2.5-0.5b
+H2O_HEADS = (32, 8, 120)            # h2o-danube-3-4b: 3840 / 32
+PHI3V_HEADS = (32, 32, 96)          # phi-3-vision-4.2b: 3072 / 32
 # (B, S, heads, window)
 FLASH_CELLS = [(1, 81, LLAMA_HEADS, None), (2, 256, LLAMA_HEADS, None),
                (1, 2048, LLAMA_HEADS, None), (1, 2048, LLAMA_HEADS, 512),
-               (2, 256, QWEN_HEADS, None)]
-PAGED_B = (1, 4, 8)
+               (2, 256, QWEN_HEADS, None), (2, 256, H2O_HEADS, None),
+               (1, 4608, H2O_HEADS, 4096), (2, 256, PHI3V_HEADS, None)]
 # 261: the sequential path's ring for a 228-token prompt (one page);
-# 512: the serve phase's buf_len; 4096: a long context
-PAGED_W = (261, 512, 4096)
+# 512: the serve phase's buf_len; 4096: a long context. (B, W, heads)
+PAGED_CELLS = [(B, W, LLAMA_HEADS) for B in (1, 4, 8)
+               for W in (261, 512, 4096)] \
+    + [(4, 512, H2O_HEADS), (4, 512, PHI3V_HEADS)]
+# the card's power draw in W, one line every 100 ms, over the serve runs
+POWER_SAMPLER = ["nvidia-smi", "--query-gpu=power.draw",
+                 "--format=csv,noheader,nounits", "-lms", "100"]
 # the cells the kernels line reports: the serve phase's prefill of two
 # prompts and its decode batch over its 512-slot ring
 # where the headline (bf16) kernel of each attention module lives
@@ -122,8 +138,8 @@ ATTN_SOURCES = {
 }
 HEADLINE_ATTN = {
     "flash_attention": {"dtype": "bfloat16", "B": 2, "S": 256, "H": 32,
-                        "window": None},
-    "paged_attention": {"dtype": "bfloat16", "B": 4, "W": 512},
+                        "d": 128, "window": None},
+    "paged_attention": {"dtype": "bfloat16", "B": 4, "W": 512, "d": 128},
 }
 
 
@@ -403,65 +419,63 @@ def paged_phase(torch, PK):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
-    H, Kv, d = LLAMA_HEADS
     rows = []
     for dtype in ATTN_DTYPES:
         td = getattr(torch, dtype)
         es = torch.finfo(td).bits // 8
-        for B in PAGED_B:
-            for W in PAGED_W:
-                lens = rng.integers(W // 2, W + 1, B)
-                lens[0] = W
-                cache_bytes = 2 * B * W * Kv * d * es
-                caches = [tuple(torch.randn((B, W, Kv, d), generator=gen,
-                                            device="cuda").to(td)
-                                for _ in range(2))
-                          for _ in range(_copies(cache_bytes))]
-                q = torch.randn((B, H, d), generator=gen,
-                                device="cuda").to(td)
-                pos = torch.as_tensor(lens - 1, dtype=torch.int32,
-                                      device="cuda")
-                views = [ring_cache_pages(kc, vc, pos) for kc, vc in caches]
-                _, _, table, sl = views[0]
-                page, n = views[0][0].shape[1], table.shape[1]
-                if n > 1:
-                    table[B - 1, n // 2] = -1
-                sets = [(q, kp, vp, table, sl) for kp, vp, _, _ in views]
-                slot = torch.arange(W, device="cuda")
-                valid = (slot[None, :] < sl[:, None].long()) \
-                    & (table.repeat_interleave(page, dim=1) >= 0)
-                n_valid = int(valid.sum())
-                got = PK.paged_attention(*sets[0])
-                ref = PK.paged_attention_plain(*sets[0])
-                launched = check_one_launch(
-                    torch, "paged_attention",
-                    lambda: PK.paged_attention(*sets[0]))
-                # control: the plain version without each row's last key
-                control = row_rel_err(PK.paged_attention_plain(
-                    q, *sets[0][1:4], (sl - 1).clamp(min=0)), ref)
-                lsets = [(q[:, :, None], kc.transpose(1, 2).contiguous(),
-                          vc.transpose(1, 2).contiguous())
-                         for kc, vc in caches]
-                mask = valid[:, None, None, :]
+        for B, W, (H, Kv, d) in PAGED_CELLS:
+            lens = rng.integers(W // 2, W + 1, B)
+            lens[0] = W
+            cache_bytes = 2 * B * W * Kv * d * es
+            caches = [tuple(torch.randn((B, W, Kv, d), generator=gen,
+                                        device="cuda").to(td)
+                            for _ in range(2))
+                      for _ in range(_copies(cache_bytes))]
+            q = torch.randn((B, H, d), generator=gen,
+                            device="cuda").to(td)
+            pos = torch.as_tensor(lens - 1, dtype=torch.int32,
+                                  device="cuda")
+            views = [ring_cache_pages(kc, vc, pos) for kc, vc in caches]
+            _, _, table, sl = views[0]
+            page, n = views[0][0].shape[1], table.shape[1]
+            if n > 1:
+                table[B - 1, n // 2] = -1
+            sets = [(q, kp, vp, table, sl) for kp, vp, _, _ in views]
+            slot = torch.arange(W, device="cuda")
+            valid = (slot[None, :] < sl[:, None].long()) \
+                & (table.repeat_interleave(page, dim=1) >= 0)
+            n_valid = int(valid.sum())
+            got = PK.paged_attention(*sets[0])
+            ref = PK.paged_attention_plain(*sets[0])
+            launched = check_one_launch(
+                torch, "paged_attention",
+                lambda: PK.paged_attention(*sets[0]))
+            # control: the plain version without each row's last key
+            control = row_rel_err(PK.paged_attention_plain(
+                q, *sets[0][1:4], (sl - 1).clamp(min=0)), ref)
+            lsets = [(q[:, :, None], kc.transpose(1, 2).contiguous(),
+                      vc.transpose(1, 2).contiguous())
+                     for kc, vc in caches]
+            mask = valid[:, None, None, :]
 
-                def lib_fn(q_, k_, v_):
-                    return sdpa(q_, k_, v_, attn_mask=mask, enable_gqa=True)
+            def lib_fn(q_, k_, v_):
+                return sdpa(q_, k_, v_, attn_mask=mask, enable_gqa=True)
 
-                lib = lib_fn(*lsets[0])[:, :, 0]
-                torch.cuda.synchronize()
-                times = (timed_ms(torch, PK.paged_attention, sets),
-                         timed_ms(torch, PK.paged_attention_plain, sets[:1],
-                                  reps=3, graph=False),
-                         timed_ms(torch, lib_fn, lsets))
-                nbytes = es * (2 * B * H * d + 2 * n_valid * Kv * d) \
-                    + 4 * (table.numel() + B)
-                rows.append(_attn_row(
-                    torch, "paged_attention", dtype, got, ref, control, lib,
-                    times, nbytes, 4 * H * d * n_valid, launched, B=B, W=W,
-                    page=page,
-                    seq_lens=[int(x) for x in lens],
-                    unassigned_page=n > 1))
-                del caches, views, sets, lsets, got, ref, lib
+            lib = lib_fn(*lsets[0])[:, :, 0]
+            torch.cuda.synchronize()
+            times = (timed_ms(torch, PK.paged_attention, sets),
+                     timed_ms(torch, PK.paged_attention_plain, sets[:1],
+                              reps=3, graph=False),
+                     timed_ms(torch, lib_fn, lsets))
+            nbytes = es * (2 * B * H * d + 2 * n_valid * Kv * d) \
+                + 4 * (table.numel() + B)
+            rows.append(_attn_row(
+                torch, "paged_attention", dtype, got, ref, control, lib,
+                times, nbytes, 4 * H * d * n_valid, launched, B=B, W=W,
+                H=H, Kv=Kv, d=d, page=page,
+                seq_lens=[int(x) for x in lens],
+                unassigned_page=n > 1))
+            del caches, views, sets, lsets, got, ref, lib
         torch.cuda.empty_cache()
     _raise_faults(rows)
     return rows
@@ -495,6 +509,27 @@ def check_quant_loops(fmt, loops, prefills, decodes, layers, run) -> None:
                          f"decode step)")
 
 
+def sampled_power(fn):
+    """Run ``fn()`` while ``nvidia-smi`` samples the card's power draw
+    every 100 ms, from the sampler's start to the end of the run; return
+    (fn's result, the samples in W). Fails if the sampler gave no
+    reading."""
+    import os
+    ids = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0].strip()
+    proc = subprocess.Popen(POWER_SAMPLER + ["-i", ids or "0"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out = fn()              # serve() ends with a device synchronise
+    finally:
+        proc.terminate()
+        stdout, stderr = proc.communicate(timeout=60)
+    watts = [float(x) for x in stdout.split()]
+    if not watts:
+        raise SystemExit(f"the power sampler gave no reading: {stderr!r}")
+    return out, watts
+
+
 def serve_phase(torch, mods, cfg):
     from repro_torch.launch.serve import build_params, serve
     from repro_torch.models.api import build_model
@@ -510,7 +545,8 @@ def serve_phase(torch, mods, cfg):
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         reset_launches(mods)
-        con = serve(model=model, params=params, mode="continuous", **kw)
+        con, watts = sampled_power(lambda: serve(
+            model=model, params=params, mode="continuous", **kw))
         counts = read_launches(mods)
         loops = read_loops(mods[0])
         phases = [p.phase for p in con.engine.phases]
@@ -562,10 +598,20 @@ def serve_phase(torch, mods, cfg):
         tok_same = sum(x == y for rc, rs in zip(con.requests, seq.requests)
                        for x, y in zip(rc.generated, rs.generated))
         n_tok = sum(len(r.generated) for r in con.requests)
-        pre = [p.latency_s for p in con.engine.phases
-               if p.phase == "prefill"]
-        dec = [p.latency_s for p in con.engine.phases
-               if p.phase == "decode"]
+        # host wall times of the executed phases (latency_s is the
+        # analytic clock)
+        pre = [p.wall_s for p in con.engine.phases if p.phase == "prefill"]
+        dec = [p.wall_s for p in con.engine.phases if p.phase == "decode"]
+        rep = con.report
+        analytic = {"j_per_token": 3600.0 * rep.mean_energy_per_token_wh,
+                    "total_energy_j": rep.total_energy_j,
+                    "wall_time_s": rep.wall_time_s,
+                    "mean_batch": rep.mean_batch}
+        if not (all(math.isfinite(v) and v > 0 for v in analytic.values())
+                and rep.n_decode_steps == len(dec)):
+            raise SystemExit(f"{fmt}: analytic report {analytic}, "
+                             f"{rep.n_decode_steps} decode steps")
+        mean_w = sum(watts) / len(watts)
         emit({"phase": "serve", "fmt": fmt, "model": cfg.name,
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "requests": len(con.requests),
@@ -576,6 +622,10 @@ def serve_phase(torch, mods, cfg):
               "prefill_ms_mean": 1e3 * sum(pre) / len(pre),
               "decode_steps": len(dec),
               "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+              "analytic": analytic,
+              "measured": {"power_w_mean": mean_w, "samples": len(watts),
+                           "power_w": watts, "interval_s": 0.1,
+                           "j_per_token": mean_w * con.wall_s / n_tok},
               "peak_mem_gb": peak_gb, "launches": counts,
               "quant_loops": {"continuous": loops, "sequential": seq_loops},
               "prefill_logit_rel_err": worst,

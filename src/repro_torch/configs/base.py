@@ -72,6 +72,10 @@ class ModelConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def has_attention(self) -> bool:
+        return self.num_heads > 0
+
     def param_count(self, active_only: bool = False) -> int:
         d, L = self.d_model, self.num_layers
         embed = self.vocab_size * d

@@ -31,7 +31,15 @@
 // on the CUDA cores, since TF32 would round the inputs: 64 rows a block, 8
 // warps of 8 rows, K, V and Q staged as f32, a lane computing the scores
 // of 2 keys, p through shared memory, and a lane keeping the output sums
-// of d / 32 columns.
+// of D / 32 columns.
+//
+// Head dims: 64 and 128 each have their instance (kExact: d is the
+// compile-time D, so their strides and masks fold away); 96 and 120 run on
+// a D = 128 instance with the true d in the row strides. bf16 loads them
+// with tensor maps whose boxes TMA zero-fills past d (flash_wgmma.cuh);
+// f32 loads columns below d and zeroes the rest. The zero columns add
+// exact zeros to the scores, and output columns at or past d are not
+// stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,11 +92,15 @@ struct Smem {
   float p[kRows][kBK];
 };
 
-template <int D>
+// D: the instance's columns; d <= D (a multiple of 4) the head_dim, the
+// row pitch of q, k, v and out; kExact: d == D
+template <int D, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int S,
-                 int T_, int H, int Kv, int causal, int window, float scale) {
+                 int T_, int H, int Kv, int d_arg, int causal, int window,
+                 float scale) {
+  const int d = kExact ? D : d_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
   constexpr int E = 4;                      // floats per 16-byte piece
@@ -107,9 +119,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = tid; c < kRows * CPR; c += kThreads) {
     const int r = c / CPR, e = (c % CPR) * E;
     const int qi = q0 + r / G;
-    if (r < rows && qi < S)
+    if (r < rows && qi < S && e < d)
       load16(&sm.q[r][e],
-                q + ((size_t)(b * S + qi) * H + kv * G + r % G) * D + e);
+                q + ((size_t)(b * S + qi) * H + kv * G + r % G) * d + e);
     else
       zero16(&sm.q[r][e]);
   }
@@ -132,8 +144,8 @@ __global__ void __launch_bounds__(kThreads)
     const int nk = min(kBK, T_ - k0);
     for (int c = tid; c < kBK * CPR; c += kThreads) {
       const int j = c / CPR, e = (c % CPR) * E;
-      if (j < nk) {
-        const size_t off = ((size_t)(b * T_ + k0 + j) * Kv + kv) * D + e;
+      if (j < nk && e < d) {
+        const size_t off = ((size_t)(b * T_ + k0 + j) * Kv + kv) * d + e;
         load16(&sm.k[j][e], k + off);
         load16(&sm.v[j][e], v + off);
       } else {
@@ -231,10 +243,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + i;
     const int qi = q0 + r / G;
-    if (r >= rows || qi >= S) continue;
+    if (r >= rows || qi >= S || lane * DPL >= d) continue;
     const float denom = fmaxf(l[i], 1e-20f);
     float* o =
-        out + ((size_t)(b * S + qi) * H + kv * G + r % G) * D + lane * DPL;
+        out + ((size_t)(b * S + qi) * H + kv * G + r % G) * d + lane * DPL;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) o[c] = acc[i][c] / denom;
   }
@@ -246,8 +258,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename Kernel, typename T>
 cudaError_t launch_with(Kernel kernel, int threads, int smem, bool& ready,
                         const T* q, const T* k, const T* v, T* out, int B,
-                        int S, int T_, int H, int Kv, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        int S, int T_, int H, int Kv, int d, int causal,
+                        int window, float scale, cudaStream_t stream) {
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -256,25 +268,26 @@ cudaError_t launch_with(Kernel kernel, int threads, int smem, bool& ready,
   }
   const int BQ = kRows / (H / Kv);
   dim3 grid((S + BQ - 1) / BQ, B * Kv);
-  kernel<<<grid, threads, smem, stream>>>(q, k, v, out, S, T_, H, Kv, causal,
-                                          window, scale);
+  kernel<<<grid, threads, smem, stream>>>(q, k, v, out, S, T_, H, Kv, d,
+                                          causal, window, scale);
   return cudaGetLastError();
 }
 
 // bf16: the wgmma kernel at the host's plan (bq positions a block); f32:
-// the CUDA-core kernel
-template <typename T, int D>
+// the CUDA-core kernel. Both on the D-column instance for head_dim d <= D
+// (kExact: d == D).
+template <typename T, int D, bool kExact>
 cudaError_t launch(const T* q, const T* k, const T* v, T* out, int B, int S,
-                   int T_, int H, int Kv, int causal, int window, float scale,
-                   int bq, cudaStream_t stream) {
+                   int T_, int H, int Kv, int d, int causal, int window,
+                   float scale, int bq, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return flash::wg::launch<D>(q, k, v, out, B, S, T_, H, Kv, causal,
-                                window, scale, bq, stream);
+    return flash::wg::launch<D, kExact>(q, k, v, out, B, S, T_, H, Kv, d,
+                                        causal, window, scale, bq, stream);
   } else {
     static bool ready = false;
-    return launch_with(flash_kernel<D>, kThreads, (int)sizeof(Smem<D>),
-                       ready, q, k, v, out, B, S, T_, H, Kv, causal, window,
-                       scale, stream);
+    return launch_with(flash_kernel<D, kExact>, kThreads,
+                       (int)sizeof(Smem<D>), ready, q, k, v, out, B, S, T_,
+                       H, Kv, d, causal, window, scale, stream);
   }
 }
 
@@ -287,22 +300,26 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   if (D == 64)
-    return launch<T, 64>(qt, kt, vt, ot, B, S, T_, H, Kv, causal, window,
-                         scale, bq, s);
+    return launch<T, 64, true>(qt, kt, vt, ot, B, S, T_, H, Kv, D, causal,
+                               window, scale, bq, s);
   if (D == 128)
-    return launch<T, 128>(qt, kt, vt, ot, B, S, T_, H, Kv, causal, window,
-                          scale, bq, s);
+    return launch<T, 128, true>(qt, kt, vt, ot, B, S, T_, H, Kv, D, causal,
+                                window, scale, bq, s);
+  if (D == 96 || D == 120)
+    return launch<T, 128, false>(qt, kt, vt, ot, B, S, T_, H, Kv, D, causal,
+                                 window, scale, bq, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q and out (B, S, H, D), k and v (B, T, Kv, D): contiguous, 16-byte
-// aligned, bf16 when is_bf16 else f32. D is 64 or 128; G = H / Kv is at
-// most 64. window <= 0 means no window. bf16 takes bq query positions a
-// block (the host's plan, G * bq <= 128); f32 takes 64 / G. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() of the
-// launch (cudaErrorInvalidValue for a shape it does not take).
+// aligned, bf16 when is_bf16 else f32. D is 64, 96, 120 or 128; G = H /
+// Kv is at most 64. window <= 0 means no window. bf16 takes bq query
+// positions a block (the host's plan, G * bq <= 128); f32 takes 64 / G.
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape it
+// does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int T, int H, int Kv, int D,

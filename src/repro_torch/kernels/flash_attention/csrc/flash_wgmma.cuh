@@ -22,6 +22,13 @@
 //   per block; k and v (d, Kv, T, B) with box {64, 1, 64, 1} into a ring of
 //   kStages stages, each with a full and an empty mbarrier. d = 128 is two
 //   64-column boxes (the 128-byte swizzle caps a box row at 128 bytes).
+// - Head dims 96 and 120 run on a D = 128 instance (kExact false; 64 and
+//   128 have d == D at compile time) with the true d as the maps' inner
+//   extent (row pitches of 192 and 240 bytes, multiples
+//   of 16 as TMA asks): the second box runs past d and TMA fills its
+//   columns past d with zeros. Those columns add exact zeros to Q K^T,
+//   and the output columns past d that P V yields are never stored. The
+//   expect-tx counts stay whole boxes, since TMA counts a box's zero fill.
 // - Products. S = Q K^T is wgmma m64n64k16 with Q and K both read from
 //   shared memory (K-major, 128-byte swizzle). The softmax runs on the
 //   accumulator fragments in registers, the row max and sum over the 4
@@ -73,6 +80,8 @@ struct Args {
   CUtensorMap k;    // (d, Kv, T, B), box {64, 1, 64, 1}
   CUtensorMap v;
   __nv_bfloat16* out;
+  int d;            // head_dim: D, or (not kExact) less than D with the
+                    // columns past d zero-filled by TMA
   int S, T, H, Kv, G, bq, n_qt, causal, window;
   float scale;
 };
@@ -194,7 +203,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
   else wgmma_rs_m64n128_t(d, a, db);
 }
 
-template <int D>
+template <int D, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ Args a) {
   using L = Layout<D>;
@@ -414,43 +423,50 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive(&empty[(n - 1) % kStages]);
   }
 
-  // o[4 j + 2 h + e]: row g + 8 h, column 8 j + 2 quad + e
+  // o[4 j + 2 h + e]: row g + 8 h, column 8 j + 2 quad + e; columns at or
+  // past d (even, so a pair lies wholly on one side) are not stored
+  const int d = kExact ? D : a.d;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
     const float denom = fmaxf(l[h], 1e-20f);
     __nv_bfloat16* dst =
-        a.out + ((size_t)(b * a.S + qp[h]) * a.H + head[h]) * D + 2 * quad;
+        a.out + ((size_t)(b * a.S + qp[h]) * a.H + head[h]) * d + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[4 * j + 2 * h] / denom, o[4 * j + 2 * h + 1] / denom);
+      if (8 * j + 2 * quad < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] / denom,
+                                  o[4 * j + 2 * h + 1] / denom);
   }
 }
 
 // Launch at the host's plan: bq query positions per block (G * bq <=
-// 128). Tensor maps are encoded here, per launch, with no device call;
-// the shared-memory limit is raised once per instance, so that later
+// 128), head_dim d <= D (a multiple of 8; d == D when kExact). Tensor
+// maps are encoded here, per launch, with no device call; the
+// shared-memory limit is raised once per instance, so that later
 // launches, inside a CUDA graph capture too, make no attribute call.
-template <int D>
+template <int D, bool kExact>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-                   int T_, int H, int Kv, int causal, int window, float scale,
-                   int bq, cudaStream_t stream) {
+                   int T_, int H, int Kv, int d, int causal, int window,
+                   float scale, int bq, cudaStream_t stream) {
   using L = Layout<D>;
   const int G = H / Kv;
-  if (bq < 1 || G * bq > kRows) return cudaErrorInvalidValue;
+  if (bq < 1 || G * bq > kRows || d < 1 || d > D || d % 8 ||
+      (kExact && d != D))
+    return cudaErrorInvalidValue;
   Args a;
   const uint64_t e = sizeof(__nv_bfloat16);
-  const uint64_t qd[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S,
+  const uint64_t qd[4] = {(uint64_t)d, (uint64_t)H, (uint64_t)S,
                           (uint64_t)B};
-  const uint64_t qs[3] = {D * e, (uint64_t)H * D * e,
-                          (uint64_t)S * H * D * e};
+  const uint64_t qs[3] = {d * e, (uint64_t)H * d * e,
+                          (uint64_t)S * H * d * e};
   const uint32_t qb[4] = {64, (uint32_t)G, (uint32_t)bq, 1};
-  const uint64_t kd[4] = {(uint64_t)D, (uint64_t)Kv, (uint64_t)T_,
+  const uint64_t kd[4] = {(uint64_t)d, (uint64_t)Kv, (uint64_t)T_,
                           (uint64_t)B};
-  const uint64_t ks[3] = {D * e, (uint64_t)Kv * D * e,
-                          (uint64_t)T_ * Kv * D * e};
+  const uint64_t ks[3] = {d * e, (uint64_t)Kv * d * e,
+                          (uint64_t)T_ * Kv * d * e};
   const uint32_t kb[4] = {64, 1, (uint32_t)kBK, 1};
   if (!make_map_nd(&a.q, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, qd, qs, qb,
                    CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -460,6 +476,7 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   a.out = out;
+  a.d = d;
   a.S = S;
   a.T = T_;
   a.H = H;
@@ -471,7 +488,7 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   a.window = window;
   a.scale = scale;
   if (a.n_qt > 65535) return cudaErrorInvalidValue;
-  auto kernel = flash_wgmma_kernel<D>;
+  auto kernel = flash_wgmma_kernel<D, kExact>;
   static bool raised = false;
   if (!raised) {
     cudaError_t err = cudaFuncSetAttribute(

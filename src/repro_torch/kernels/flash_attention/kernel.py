@@ -13,12 +13,13 @@ map boxes are planned on the host from the shapes alone
 H a multiple of Kv, a causal flag and an optional sliding window, at any
 S, T >= 1. For a tensor on the CPU it returns :func:`flash_attention_plain`.
 For a CUDA tensor it checks device, dtype (f32 or bf16, one for all
-three), shape, contiguity and alignment, raises on anything the kernel
-does not take (head_dim other than 64 or 128, more than 64 query heads
-per KV head), allocates the output, launches on the current stream,
-raises if the launch reports an error, and adds one to
-``LAUNCHES["flash_attention"]``. Nothing falls back from the kernel to
-the plain version.
+three), shape, contiguity and alignment (:func:`check_inputs`), raises on
+anything the kernel does not take (head_dim outside ``HEAD_DIMS``, more
+than 64 query heads per KV head), allocates the output, launches on the
+current stream, raises if the launch reports an error, and adds one to
+``LAUNCHES["flash_attention"]``. Head dims 96 and 120 run on the
+128-column instance with the columns past d zero-filled. Nothing falls
+back from the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ SOURCES = {NAME: cuda_build.Source(
 LAUNCHES: Dict[str, int] = {NAME: 0}
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 120, 128)
 MAX_GROUP = 64          # query heads per KV head: the f32 kernel's 64 rows
 PLAIN_TILE = 128        # query and key tile of the plain version
 WG_ROWS = 128           # (position, head) rows of a bf16 block
@@ -62,7 +63,8 @@ class FlashPlan:
     (B * Kv, q_tiles) blocks whose y index walks the q tiles from the last
     to the first, and the tensor-map boxes: q over (d, H, S, B) with box
     ``q_box``, k and v over (d, Kv, T, B) with box ``kv_box``, ``d_boxes``
-    boxes of 64 columns to a row."""
+    boxes of 64 columns to a row (the last one zero-filled past d when d
+    is 96 or 120)."""
 
     bq: int
     rows: int
@@ -81,7 +83,7 @@ def flash_plan(B: int, S: int, H: int, Kv: int, d: int) -> FlashPlan:
     return FlashPlan(bq=bq, rows=bq * G, q_tiles=q_tiles,
                      grid=(B * Kv, q_tiles), q_box=(BOX_COLS, G, bq, 1),
                      kv_box=(BOX_COLS, 1, KEY_TILE, 1),
-                     d_boxes=d // BOX_COLS)
+                     d_boxes=-(-d // BOX_COLS))
 
 
 def block_origin(plan: FlashPlan, bx: int, by: int,
@@ -176,16 +178,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B, S, H, d), k/v (B, T, Kv, d) -> (B, S, H, d) in q's dtype."""
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+def check_inputs(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take: the checks of the CUDA
+    path, on any device (a test runs them on the meta device)."""
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
@@ -206,6 +202,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must be 16-byte aligned")
     if T == 0 and S:
         raise ValueError("no keys to attend to (T = 0)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, S, H, d), k/v (B, T, Kv, d) -> (B, S, H, d) in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_inputs(q, k, v)
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if B and S:
         cuda_build.launch(

@@ -46,6 +46,14 @@
 //   ldmatrix.trans, both conflict-free through the swizzle. f32: on the
 //   CUDA cores, a lane per slot and half of d for the scores, then a lane
 //   per d / 32 output columns, reading K and V from shared memory.
+// - Head dims. 64 and 128 each have their instance (kExact: d is the
+//   compile-time D); 96 and 120 run on a D = 128 instance. The tensor maps
+//   keep the true d as their inner extent (row pitches of 192 and 240
+//   bytes in bf16, 384 and 480 in f32, multiples of 16 as TMA asks), so
+//   the boxes past d are zero-filled and still count whole towards a
+//   stage's expect-tx bytes. q's columns past d are zero, so those columns
+//   add exact zeros to the scores; the output columns past d are never
+//   stored, and the merge scratch keeps D.
 // - One launch. Each block merges its 8 warps' online softmaxes; with one
 //   split that is the output, otherwise the block writes its (acc, max,
 //   sum) to `part`, and the last block of a (sequence, KV head) to finish
@@ -107,6 +115,8 @@ struct Args {
   int* counter;
   const int* page_table;
   const int* seq_lens;
+  int d;      // head_dim <= D (== D when kExact): the row pitch of q,
+              // out and the pages
   int H, Kv, n_pool, page, n_max, split, n_split;
   float scale;
 };
@@ -165,7 +175,7 @@ __device__ void produce(const Args& a, uint8_t* ring, uint64_t* full,
 template <int D>
 __device__ void consume_bf16(const Args& a, const uint8_t* ring,
                              uint64_t* full, uint64_t* empty,
-                             const uint64_t* valid, int nch, int G,
+                             const uint64_t* valid, int nch, int G, int d,
                              const __nv_bfloat16* q, float& m, float& l,
                              float (&o)[D / 8][4]) {
   using C = Cfg<__nv_bfloat16, D>;
@@ -173,16 +183,17 @@ __device__ void consume_bf16(const Args& a, const uint8_t* ring,
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % kSetWarps;
   const int set = threadIdx.x / 32 / kSetWarps;
   const int g = lane / 4, c = lane % 4;
-  // the A fragments of q: row g (zero past G), rows g + 8 zero
+  // the A fragments of q: row g (zero past G and at columns past d),
+  // rows g + 8 zero
   uint32_t qa[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     qa[ks][1] = qa[ks][3] = 0u;
     qa[ks][0] = qa[ks][2] = 0u;
     if (g < G) {
-      const uint32_t* qr = reinterpret_cast<const uint32_t*>(q + g * D);
-      qa[ks][0] = qr[ks * 8 + c];
-      qa[ks][2] = qr[ks * 8 + c + 4];
+      const uint32_t* qr = reinterpret_cast<const uint32_t*>(q + g * d);
+      if (16 * ks + 2 * c < d) qa[ks][0] = qr[ks * 8 + c];
+      if (16 * ks + 8 + 2 * c < d) qa[ks][2] = qr[ks * 8 + c + 4];
     }
   }
   const uint32_t ring_a = smem_u32(ring);
@@ -355,10 +366,11 @@ __device__ void consume_f32(const Args& a, const uint8_t* ring,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     paged_kernel(const __grid_constant__ Args a) {
   using C = Cfg<T, D>;
+  const int d = kExact ? D : a.d;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[C::stages], empty[C::stages];
   __shared__ uint64_t valid[C::stages];
@@ -369,7 +381,7 @@ __global__ void __launch_bounds__(kThreads)
   const int G = a.H / a.Kv;
   const int kv = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const T* q = static_cast<const T*>(a.q) + ((size_t)b * a.H + kv * G) * D;
+  const T* q = static_cast<const T*>(a.q) + ((size_t)b * a.H + kv * G) * d;
 
   // this block's slots [s0, s1) of the row, in chunks of 64
   const int L = max(0, min(a.seq_lens[b], a.n_max * a.page));
@@ -384,7 +396,8 @@ __global__ void __launch_bounds__(kThreads)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if constexpr (std::is_same<T, float>::value)
-    for (int i = tid; i < G * D; i += kThreads) qs[i / D][i % D] = q[i];
+    for (int i = tid; i < G * D; i += kThreads)
+      qs[i / D][i % D] = i % D < d ? q[i / D * d + i % D] : 0.f;
   __syncthreads();
 
   // the warps' online softmaxes: rows g < G, columns as each path keeps them
@@ -409,7 +422,8 @@ __global__ void __launch_bounds__(kThreads)
   } else if constexpr (std::is_same<T, float>::value) {
     consume_f32<D>(a, ring, full, empty, valid, nch, G, qs, m, l, acc);
   } else {
-    consume_bf16<D>(a, ring, full, empty, valid, nch, G, q, m[0], l[0], o);
+    consume_bf16<D>(a, ring, full, empty, valid, nch, G, d, q, m[0], l[0],
+                    o);
   }
   __syncthreads();   // every stage consumed: the ring is scratch now
 
@@ -446,13 +460,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  T* out = static_cast<T*>(a.out) + ((size_t)b * a.H + kv * G) * D;
+  T* out = static_cast<T*>(a.out) + ((size_t)b * a.H + kv * G) * d;
   float* pp = a.n_split > 1
                   ? a.part + (((size_t)b * a.Kv + kv) * a.n_split + z) *
                                  kMaxG * (D + 2)
                   : nullptr;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, e = i % D;
+  for (int i = tid; i < G * d; i += kThreads) {
+    const int g = i / d, e = i % d;
     float mx = kNegInf;
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mw[w * kMaxG + g]);
     float num = 0.f, den = 0.f;
@@ -488,8 +502,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* p0 =
       a.part + ((size_t)b * a.Kv + kv) * a.n_split * kMaxG * (D + 2);
   constexpr int kStride = kMaxG * (D + 2);
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, e = i % D;
+  for (int i = tid; i < G * d; i += kThreads) {
+    const int g = i / d, e = i % d;
     float mx = kNegInf;
     for (int s = 0; s < a.n_split; ++s)
       mx = fmaxf(mx, __ldcg(p0 + s * kStride + g * (D + 2) + D));
@@ -504,24 +518,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExact>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* pt, const int* lens, void* out, float* part,
-                   int* counter, int B, int H, int Kv, int n_pool, int page,
-                   int n_max, int split, int n_split, float scale,
+                   int* counter, int B, int H, int Kv, int d, int n_pool,
+                   int page, int n_max, int split, int n_split, float scale,
                    cudaStream_t stream) {
   using C = Cfg<T, D>;
   if (split % kCh || (n_split > 1 && (!part || !counter)) ||
-      (uint64_t)n_pool * page >= (1ull << 31))
+      (uint64_t)n_pool * page >= (1ull << 31) || d < 1 || d > D || d % 8 ||
+      (kExact && d != D))
     return cudaErrorInvalidValue;
   Args a = {};
   if (n_pool > 0) {
     const CUtensorMapDataType type = sizeof(T) == 4
                                          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    const uint64_t dims[3] = {(uint64_t)D, (uint64_t)Kv,
+    const uint64_t dims[3] = {(uint64_t)d, (uint64_t)Kv,
                               (uint64_t)n_pool * page};
-    const uint64_t strides[2] = {D * sizeof(T), (uint64_t)Kv * D * sizeof(T)};
+    const uint64_t strides[2] = {d * sizeof(T), (uint64_t)Kv * d * sizeof(T)};
     for (int z = 0; z < kBoxSizes; ++z) {
       const uint32_t box[3] = {(uint32_t)C::EB, 1, (uint32_t)(kCh >> z)};
       if (!make_map_nd(&a.k[z], kp, type, 3, dims, strides, box,
@@ -537,6 +552,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   a.counter = counter;
   a.page_table = pt;
   a.seq_lens = lens;
+  a.d = d;
   a.H = H;
   a.Kv = Kv;
   a.n_pool = n_pool;
@@ -545,7 +561,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   a.split = split;
   a.n_split = n_split;
   a.scale = scale;
-  auto kernel = paged_kernel<T, D>;
+  auto kernel = paged_kernel<T, D, kExact>;
   // raised once per instance, so that later launches, inside a CUDA graph
   // capture too, make no attribute call
   static bool raised = false;
@@ -566,11 +582,17 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp,
                      int page, int n_max, int split, int n_split, float scale,
                      cudaStream_t s) {
   if (D == 64)
-    return launch<T, 64>(q, kp, vp, pt, lens, out, part, counter, B, H, Kv,
-                         n_pool, page, n_max, split, n_split, scale, s);
+    return launch<T, 64, true>(q, kp, vp, pt, lens, out, part, counter, B, H,
+                               Kv, D, n_pool, page, n_max, split, n_split,
+                               scale, s);
   if (D == 128)
-    return launch<T, 128>(q, kp, vp, pt, lens, out, part, counter, B, H, Kv,
-                          n_pool, page, n_max, split, n_split, scale, s);
+    return launch<T, 128, true>(q, kp, vp, pt, lens, out, part, counter, B,
+                                H, Kv, D, n_pool, page, n_max, split,
+                                n_split, scale, s);
+  if (D == 96 || D == 120)
+    return launch<T, 128, false>(q, kp, vp, pt, lens, out, part, counter, B,
+                                 H, Kv, D, n_pool, page, n_max, split,
+                                 n_split, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -579,10 +601,11 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp,
 // q and out (B, H, D); k_pages and v_pages (n_pool, page, Kv, D);
 // page_table (B, n_max) int32, -1 for an unassigned page; seq_lens (B,)
 // int32. All contiguous and 16-byte aligned; bf16 when is_bf16 else f32.
-// D is 64 or 128; G = H / Kv is at most 8. Each row's n_max * page slots
-// are cut into n_split splits of `split` slots (a multiple of 64), one
-// block per (KV head, row, split). With more than one split, `part` is
-// f32 scratch of B * Kv * n_split * 8 * (D + 2) floats and `counter` B *
+// D is 64, 96, 120 or 128; G = H / Kv is at most 8. Each row's n_max *
+// page slots are cut into n_split splits of `split` slots (a multiple of
+// 64), one block per (KV head, row, split). With more than one split,
+// `part` is f32 scratch of B * Kv * n_split * 8 * (D' + 2) floats, D' the
+// instance's width (64 for D = 64, else 128), and `counter` B *
 // Kv int32 that are 0 before the launch (and are left 0 after it). One
 // launch; does not synchronise; returns cudaGetLastError() of the launch.
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,

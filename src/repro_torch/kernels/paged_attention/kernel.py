@@ -12,12 +12,13 @@ a K/V pool (n_pages, page, Kv, d) of any page size, a page table
 Slots at or past a row's length and slots of unassigned pages are masked;
 a row of length 0 returns 0. For a tensor on the CPU it returns
 :func:`paged_attention_plain`. For a CUDA tensor it checks device,
-dtypes, shapes, contiguity and alignment, raises on anything the kernel
-does not take (head_dim other than 64 or 128, more than 8 query heads per
-KV head), allocates the output, launches on the current stream, raises if
-the launch reports an error, and adds one to
-``LAUNCHES["paged_attention"]``. Nothing falls back from the kernel to
-the plain version.
+dtypes, shapes, contiguity and alignment (:func:`check_inputs`), raises
+on anything the kernel does not take (head_dim outside ``HEAD_DIMS``,
+more than 8 query heads per KV head), allocates the output, launches on
+the current stream, raises if the launch reports an error, and adds one
+to ``LAUNCHES["paged_attention"]``. Head dims 96 and 120 run on the
+128-column instance (:func:`instance_d`) with the columns past d
+zero-filled. Nothing falls back from the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ SOURCES = {NAME: cuda_build.Source(
 LAUNCHES: Dict[str, int] = {NAME: 0}
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 120, 128)
 MAX_GROUP = 8           # query heads per KV head the kernel keeps
 DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = 64              # slots a block stages at a time (a ring stage)
@@ -99,12 +100,19 @@ def chunk_boxes(c0: int, c1: int, page: int,
     return boxes
 
 
+def instance_d(d: int) -> int:
+    """The columns of the kernel instance that runs head_dim ``d``: 64 for
+    64, and 128 for 96, 120 and 128."""
+    return 64 if d <= 64 else 128
+
+
 def scratch_sizes(B: int, Kv: int, d: int, n_split: int) -> Tuple[int, int]:
     """(f32 elements of ``part``, int32 elements of the counter) a launch
-    with ``n_split`` splits needs; none with one split."""
+    with ``n_split`` splits needs; none with one split. A split's row
+    keeps the instance's columns, not d's."""
     if n_split == 1:
         return 0, 0
-    return B * Kv * n_split * MAX_GROUP * (d + 2), B * Kv
+    return B * Kv * n_split * MAX_GROUP * (instance_d(d) + 2), B * Kv
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,16 +164,11 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(B, H, d).to(q.dtype)
 
 
-def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                    v_pages: torch.Tensor, page_table: torch.Tensor,
-                    seq_lens: torch.Tensor) -> torch.Tensor:
-    """q (B, H, d) over the pool (n_pages, page, Kv, d) -> (B, H, d) in
-    q's dtype."""
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     seq_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+def check_inputs(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, page_table: torch.Tensor,
+                 seq_lens: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take: the checks of the CUDA
+    path, on any device (a test runs them on the meta device)."""
     if q.ndim != 3 or k_pages.ndim != 4 or page_table.ndim != 2:
         raise ValueError(f"expected q (B, H, d), pages (n, page, Kv, d) and "
                          f"page_table (B, n_max); got {tuple(q.shape)}, "
@@ -190,6 +193,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     check("seq_lens", seq_lens, torch.int32, (B,), q.device)
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q and the pages must be 16-byte aligned")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    seq_lens: torch.Tensor) -> torch.Tensor:
+    """q (B, H, d) over the pool (n_pages, page, Kv, d) -> (B, H, d) in
+    q's dtype."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table,
+                                     seq_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_inputs(q, k_pages, v_pages, page_table, seq_lens)
+    B, H, d = q.shape
+    n_pool, page, Kv = k_pages.shape[:3]
+    n_max = page_table.shape[1]
     out = torch.empty_like(q)
     if B:
         split, n_split = _launch_plan(

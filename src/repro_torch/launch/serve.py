@@ -4,14 +4,16 @@ Counterpart of ``repro.launch.serve``'s default (executed) mode. Builds
 the model, draws its weights from a seeded ``torch.Generator`` on the
 device, quantizes them under ``--fmt``, and serves ``--n`` requests
 (random prompts from ``--seed``, all arriving at t=0) through
-:class:`~repro_torch.serving.engine.ServeEngine`.
+:class:`~repro_torch.serving.engine.ServeEngine`, and prints the host
+wall time beside the analytic report's ``summary()`` (clock and energy
+of the H100 SXM energy model), as the JAX launcher prints its summary.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --full --fmt int8
 
 Without ``--full`` the config is the reduced variant, as in the JAX
-launcher. The arrival patterns other than ``burst``, ``--sim`` and
-``--dry`` wait for ROADMAP A5/A7.
+launcher. The arrival patterns other than ``burst`` and ``--sim`` wait
+for ROADMAP A4(a), ``--dry`` for A7.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.configs.paper_zoo import PAPER_MODELS
 from repro_torch.models.api import Model, build_model
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, ServeReport
 from repro_torch.serving.requests import Request
 
 
@@ -36,6 +38,7 @@ class ServeResult:
     model: Model
     params: Dict[str, Any]
     wall_s: float               # host wall time of engine.run
+    report: ServeReport         # the analytic clock and energy of the run
 
 
 def make_requests(vocab_size: int, n: int, seed: int,
@@ -93,11 +96,12 @@ def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
                       max_prefill_batch=max_prefill_batch, buf_len=buf_len,
                       record_logits=record_logits)
     t0 = time.perf_counter()
-    eng.run(reqs)
+    report = eng.run(reqs)
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     return ServeResult(requests=reqs, engine=eng, model=model,
-                       params=params, wall_s=time.perf_counter() - t0)
+                       params=params, wall_s=time.perf_counter() - t0,
+                       report=report)
 
 
 def main() -> None:
@@ -124,8 +128,10 @@ def main() -> None:
                 buf_len=512 if args.full else 64)
     tokens = sum(len(r.generated) for r in res.requests)
     phases = res.engine.phases
-    pre = [p.latency_s for p in phases if p.phase == "prefill"]
-    dec = [p.latency_s for p in phases if p.phase == "decode"]
+    pre = [p.wall_s for p in phases
+           if p.phase == "prefill" and p.wall_s is not None]
+    dec = [p.wall_s for p in phases
+           if p.phase == "decode" and p.wall_s is not None]
     print(f"model                  {res.model.cfg.name}")
     print(f"format                 {args.fmt}")
     print(f"device                 {res.model.device}")
@@ -139,6 +145,14 @@ def main() -> None:
     if dec:
         print(f"decode_steps           {len(dec)}")
         print(f"mean_decode_step_ms    {1e3 * np.mean(dec):.6g}")
+    rep = res.report
+    print("analytic (h100-sxm energy model)")
+    for k, v in rep.summary().items():
+        print(f"  {k:<21}{v:.6g}")
+    print(f"  {'total_energy_j':<21}{rep.total_energy_j:.6g}")
+    print(f"  {'wall_time_s':<21}{rep.wall_time_s:.6g}")
+    print(f"  {'energy_per_token_j':<21}"
+          f"{3600.0 * rep.mean_energy_per_token_wh:.6g}")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ SEQS = [1, 81, 130, 256, 2049]
 
 
 @pytest.mark.parametrize("S", SEQS)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 120, 128])
 @pytest.mark.parametrize("G", GROUPS)
 def test_flash_plan_covers_every_row_once(G, d, S):
     """Every (batch, position, head) row of q (B = 2, Kv = 2) is stored
@@ -31,7 +31,7 @@ def test_flash_plan_covers_every_row_once(G, d, S):
     assert plan.grid == (B * Kv, -(-S // plan.bq))
     assert plan.q_box == (64, G, plan.bq, 1)
     assert plan.kv_box == (64, 1, 64, 1)
-    assert plan.d_boxes == d // 64 and all(x <= 256 for x in plan.q_box)
+    assert plan.d_boxes == -(-d // 64) and all(x <= 256 for x in plan.q_box)
     seen = []
     for bx, by in itertools.product(range(plan.grid[0]),
                                     range(plan.grid[1])):

@@ -500,3 +500,150 @@ def test_cuda_paged_replays_in_a_graph_with_new_lengths(dtype):
         torch.cuda.synchronize()
         assert _row_rel(out, PK.paged_attention_plain(q, kp, vp, pt, sl)) \
             < tol
+
+
+def _graph_nodes(fn) -> list:
+    """chip_smoke's reading of one captured call's CUDA graph nodes."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke.graph_nodes(torch, fn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [96, 120])
+@pytest.mark.parametrize("B,S,H,Kv,causal,window", [
+    (1, 81, 32, 8, True, None),      # ragged S, G = 4 (h2o-danube's heads)
+    (2, 130, 32, 32, True, 37),      # G = 1 (phi-3-vision's heads), window
+    (1, 200, 8, 2, False, None),     # no mask
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_head_dims_96_and_120(B, S, H, Kv, causal,
+                                                   window, d, dtype):
+    """On the card: head_dim 96 and 120 (the 128-column instance with the
+    columns past d zero-filled) against the plain version row by row,
+    f32 at 1e-5 and bf16 at 1e-2 as at d = 64 and 128; one launch a
+    call, and one kernel node under graph capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    td = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    q, k, v = _flash_inputs(B, S, H, Kv, d, td, S + d)
+    before = FK.LAUNCHES["flash_attention"]
+    got = FK.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == before + 1
+    ref = FK.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == (B, S, H, d) and got.dtype == td
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel(got, ref) < tol
+    assert _graph_nodes(lambda: FK.flash_attention(
+        q, k, v, causal=causal, window=window)) == [0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_head_dim_120_sees_the_mask_edge(dtype):
+    """On the card, d = 120: a control, the plain version without each
+    row's diagonal key, reads above the tolerance over the second half of
+    the rows while the kernel reads below it, so the check would see a
+    one-key error at the mask edge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models.layers import attention
+    td = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    B, S, H, Kv, d = 2, 256, 32, 8, 120
+    q, k, v = _flash_inputs(B, S, H, Kv, d, td, 120)
+    got = FK.flash_attention(q, k, v, causal=True)
+    ref = FK.flash_attention_plain(q, k, v, causal=True)
+    pos = torch.arange(S, device="cuda")
+    ctrl = attention(q, k, v, causal=True,
+                     mask=(pos[None, :] < pos[:, None])[None])
+    torch.cuda.synchronize()
+    assert _row_rel(got, ref) < tol
+    assert _row_rel(ctrl[:, S // 2:], ref[:, S // 2:]) > tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,H,Kv,d", [(8, 32, 8, 120), (29, 32, 32, 96),
+                                         (261, 32, 8, 120), (64, 8, 2, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_attention_head_dims_96_and_120(page, H, Kv, d, dtype):
+    """On the card: head_dim 96 and 120 with NaN in every slot the kernel
+    must not read (ragged lengths, a row of length 0, an unassigned page,
+    a page id at n_pool): finite, row by row against the plain version at
+    the d = 64 and 128 tolerances, one launch a call, one kernel node
+    under graph capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    q, kp, vp, pt, sl = _paged_case(page, H, Kv, d, td, page + d, True)
+    before = PK.LAUNCHES["paged_attention"]
+    got = PK.paged_attention(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["paged_attention"] == before + 1
+    assert got.shape == (4, H, d) and torch.isfinite(got.float()).all()
+    assert not got[2].float().any()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert _row_rel(got, _paged_plain(PK, q, kp, vp, pt, sl)) < tol
+    assert _graph_nodes(lambda: PK.paged_attention(q, kp, vp, pt, sl)) \
+        == [0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [96, 120])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_head_dims_merge_their_splits(d, dtype):
+    """On the card: 4 rows of 4096 slots (several splits a row, merged by
+    the last through the counter, the scratch sized for the 128-column
+    instance) at d = 96 and 120 match the plain version, and the counters
+    are back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    B, H, Kv, page, n_max = 4, 32, 8, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    kp, vp = (torch.randn((B * n_max, page, Kv, d), generator=gen,
+                          device="cuda").to(td) for _ in range(2))
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(td)
+    pt = torch.arange(B * n_max, dtype=torch.int32,
+                      device="cuda").view(B, n_max)
+    sl = torch.tensor([4096, 3000, 17, 2048], dtype=torch.int32,
+                      device="cuda")
+    min_split = PK.MIN_SPLIT if td == torch.bfloat16 else PK.MIN_SPLIT_F32
+    assert PK._launch_plan(B, Kv, n_max * page, q.get_device(),
+                           min_split)[1] > 1
+    got = PK.paged_attention(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert _row_rel(got, PK.paged_attention_plain(q, kp, vp, pt, sl)) < tol
+    assert not PK.cuda_build.counters(q.device, B * Kv).any()
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refuses_other_head_dims():
+    """On the card: head_dim 80 raises in both wrappers before any launch,
+    with no fallback to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.paged_attention import kernel as PK
+    q, k, v = _flash_inputs(1, 16, 4, 2, 80, torch.bfloat16, 0)
+    before = FK.LAUNCHES["flash_attention"], PK.LAUNCHES["paged_attention"]
+    with pytest.raises(ValueError, match="head_dim 80"):
+        FK.flash_attention(q, k, v)
+    pages = torch.zeros((2, 8, 2, 80), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 80"):
+        PK.paged_attention(q[:, 0], pages, pages,
+                           torch.zeros((1, 2), dtype=torch.int32,
+                                       device="cuda"),
+                           torch.ones((1,), dtype=torch.int32,
+                                      device="cuda"))
+    assert (FK.LAUNCHES["flash_attention"],
+            PK.LAUNCHES["paged_attention"]) == before

@@ -60,7 +60,9 @@ def test_tokens_match_jax_engine(weights, mode):
     tm = build_model(CFG, fmt="float32", device="cpu")
     eng = ServeEngine(tm, tparams, mode=mode, max_batch=4,
                       max_prefill_batch=2, buf_len=32)
-    assert eng.run(treqs) is treqs
+    report = eng.run(treqs)
+    assert len(report.requests) == len(treqs)
+    assert all(a is b for a, b in zip(report.requests, treqs))
     for a, b in zip(treqs, jreqs):
         assert a.generated == b.generated, f"req {a.req_id}"
         assert len(a.generated) == a.max_new_tokens
@@ -71,7 +73,7 @@ def test_tokens_match_jax_engine(weights, mode):
         kinds = [p.phase for p in eng.phases]
         assert kinds.count("prefill") == rep.n_prefill_batches
         assert kinds.count("decode") == rep.n_decode_steps
-        assert all(p.latency_s >= 0 for p in eng.phases)
+        assert all(p.latency_s >= 0 and p.wall_s >= 0 for p in eng.phases)
 
 
 def test_prefill_groups_by_length_bucket(weights):
@@ -138,6 +140,28 @@ def test_insert_and_evict_leave_other_lanes(kv_quant):
         for lane in (0, 1, 3):
             assert torch.equal(torch.select(val, ax, lane),
                                torch.select(snap[key], ax, lane)), key
+
+
+def test_kv_quant_serves_prefills_smaller_than_max_batch(weights):
+    """ROADMAP C1's case, which the reference's engine refuses: an int8
+    KV cache with prefill batches (2) smaller than max_batch (4). Every
+    request gets its tokens, and the report's energy and time fields are
+    finite and positive."""
+    _, _, tparams = weights
+    tm = build_model(CFG, fmt="float32", kv_quant=True, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, CFG.vocab_size, 8).astype(np.int32)
+               for _ in range(4)]
+    reqs = _reqs(Request, prompts, new=(3, 4, 2, 5))
+    report = ServeEngine(tm, tparams, max_batch=4, max_prefill_batch=2,
+                         buf_len=32).run(reqs)
+    assert [len(r.generated) for r in reqs] == [3, 4, 2, 5]
+    assert report.n_prefill_batches == 2
+    for value in (report.total_energy_j, report.busy_energy_j,
+                  report.wall_time_s, report.busy_time_s,
+                  report.mean_energy_per_token_wh,
+                  *(r.energy_j for r in reqs)):
+        assert np.isfinite(value) and value > 0
 
 
 def test_engine_rejects_bad_arguments(weights):

@@ -7,8 +7,8 @@ one NVIDIA GPU, at the cells of ``chip_smoke.py``.
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (default: this checkout's), so that one call can time two commits
 in turns, each from its own ``git archive``. For flash attention at
-every ``FLASH_CELLS`` cell and paged attention at every ``PAGED_B`` x
-``PAGED_W`` cell, in bf16 and f32, it prints one JSON line through
+every ``FLASH_CELLS`` cell and paged attention at every ``PAGED_CELLS``
+cell, in bf16 and f32, it prints one JSON line through
 ``chip_smoke.py``'s own attention phases: the kernel's, the plain
 version's and ``scaled_dot_product_attention``'s times (the last a
 yardstick the port never calls), the bound (the larger of the bytes
