@@ -2,13 +2,15 @@
 
 The fields, the ``head_dim`` derivation, ``reduced()`` and
 ``param_count`` are the reference's, so a config means the same model in
-both packages. Only the ``dense`` family runs in the port so far
-(ROADMAP A4 holds the others).
+both packages, and so are the ten architecture ids (:data:`ARCH_IDS`,
+:func:`get_config`), each a module of this package. The ``dense`` and
+``moe`` families run in the port so far (ROADMAP A4 holds the others).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import importlib
+from typing import Optional, Tuple
 
 FAMILIES = ("dense", "moe", "ssm", "vlm", "audio", "hybrid")
 
@@ -132,3 +134,27 @@ class ModelConfig:
             attn_period=2 if self.attn_period else 0,
             sliding_window=64 if self.sliding_window else None,
         )
+
+
+ARCH_IDS = (
+    "qwen3-moe-30b-a3b",
+    "stablelm-1.6b",
+    "mamba2-2.7b",
+    "phi-3-vision-4.2b",
+    "granite-moe-1b-a400m",
+    "seamless-m4t-large-v2",
+    "zamba2-1.2b",
+    "command-r-35b",
+    "minitron-8b",
+    "h2o-danube-3-4b",
+)
+
+
+def get_config(arch: str) -> ModelConfig:
+    mod_name = arch.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.CONFIG
+
+
+def list_archs() -> Tuple[str, ...]:
+    return ARCH_IDS

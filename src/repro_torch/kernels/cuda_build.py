@@ -120,29 +120,32 @@ def _function(src: Source):
     return fn
 
 
-def launch(src: Source, counts: MutableMapping[str, int], *args) -> None:
+def launch(src: Source, counts: MutableMapping[str, int], *args,
+           key: Optional[str] = None) -> None:
     """Call ``<name>_launch(*args, stream)`` on the current stream, raise
-    if it reports a CUDA error, and add one to ``counts[name]``."""
+    if it reports a CUDA error, and add one to ``counts[key]`` (by
+    default ``counts[name]``)."""
     rc = _function(src)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{src.name} launch failed: cudaError {rc}")
-    counts[src.name] += 1
+    counts[key or src.name] += 1
 
 
 #: per device, the int32 counters of the kernels' in-launch merges of
 #: split work (paged attention, the quant decode loop): zeroed once when
-#: made, and left at 0 by every launch
-_COUNTERS: Dict[object, torch.Tensor] = {}
+#: made, and left at 0 by every launch; the newest last, an older one
+#: kept alive, so that a CUDA graph captured over it keeps a valid address
+_COUNTERS: Dict[object, List[torch.Tensor]] = {}
 
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` int32 counters at 0 on ``device``, shared by every
     launch on it (launches on one stream run one after another)."""
-    have = _COUNTERS.get(device.index)
-    if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _COUNTERS[device.index] = have
-    return have
+    have = _COUNTERS.setdefault(device.index, [])
+    if not have or have[-1].numel() < n:
+        have.append(torch.zeros(max(n, 256), dtype=torch.int32,
+                                device=device))
+    return have[-1]
 
 
 #: per device, the f32 workspaces of the quant decode loop's merge, the

@@ -1,16 +1,23 @@
 // int8 dequant-matmul for Hopper (sm_90a):
 //   out (M, N) = (x (M, K) @ codes (K, N) as compute dtype) * scale[n]
-// with f32 accumulation and the compute dtype (bf16 or f32) as output.
+// with f32 accumulation and the compute dtype (bf16 or f32) as output;
+// grouped, E such products in one launch: out[e] = (x[e] (M, K) @
+// codes[e] (K, N)) * scale[e, n], the experts of an MoE layer.
 //
 // Replaces: src/repro/kernels/quant_matmul/kernel.py, int8_matmul_pallas
-// (body _int8_kernel). Same rounding points: x and the codes in the
-// compute dtype (int8 is exact in bf16), f32 sums over K, the per-column
-// scale in the epilogue, one rounding to the compute dtype at the end.
+// (body _int8_kernel), and that kernel under jax.vmap over the experts
+// (src/repro/models/moe.py, _expert_dense). Same rounding points: x and
+// the codes in the compute dtype (int8 is exact in bf16), f32 sums over
+// K, the per-column scale in the epilogue, one rounding to the compute
+// dtype at the end.
 //
 // Bound on an H100 SXM: at decode (M = 1-8) the weight bytes. The
 // (4096, 14336) w_gate is 58.7 MB of codes, about 17.5 us at 3.35 TB/s;
 // every other byte (x, scale, out) is under 1% of that. At prefill
-// (M = 512) the 2*M*K*N operations bound it instead.
+// (M = 512) the 2*M*K*N operations bound it instead. Grouped, at
+// qwen3-moe-30b-a3b's experts (E = 128, (K, N) = (2048, 768)), one call
+// streams 201 MB of codes, about 60 us, at M = 8 (decode) and M = 40
+// (prefill) alike.
 //
 // What the design does about it: each weight byte is read from device
 // memory once and dequantized on chip, so no 16-bit copy of the weight is
@@ -33,6 +40,11 @@ namespace {
 struct Int8Format {
   const int8_t* codes;   // (K, N)
   const float* scale;    // (N,)
+
+  // the format of expert e of a grouped call
+  __device__ __forceinline__ Int8Format expert(int e, int K, int N) const {
+    return {codes + (size_t)e * K * N, scale + (size_t)e * N};
+  }
 
   // -- tile kernel: ws (BK, BN) <- codes[k0:k0+BK, n0:n0+BN] as floats,
   // 0 past the edges. Codes in [-127, 127] are exact in bf16, so no
@@ -71,8 +83,8 @@ struct Int8Format {
 // (64, BN) code tile, copied by TMA (0 past N) with the swizzle of
 // qmm::wg::raw_at
 struct Int8Stage {
-  CUtensorMap codes;     // (K, N) int8, box (64 rows, BN)
-  const float* scale;    // (N,)
+  CUtensorMap codes;     // (E K, N) int8, box (64 rows, BN)
+  const float* scale;    // (E, N)
 
   template <int BN>
   __host__ __device__ static constexpr int raw_bytes() {
@@ -83,10 +95,11 @@ struct Int8Stage {
     return raw_bytes<BN>();
   }
   __device__ __forceinline__ void prepare(float*, int) const {}
+  // the 64 code rows from row k_row of the experts' stacked (E K, N)
   template <int BN>
-  __device__ __forceinline__ void load(uint8_t* raw, uint64_t* bar, int kt,
-                                       int n0) const {
-    qmm::wg::tma_load_2d(raw, &codes, bar, n0, kt * qmm::wg::kBK);
+  __device__ __forceinline__ void load(uint8_t* raw, uint64_t* bar,
+                                       int k_row, int n0) const {
+    qmm::wg::tma_load_2d(raw, &codes, bar, n0, k_row);
   }
   // The thread's A fragments of the stage: for the 16 columns nb .. nb+15
   // of its warp, two transposed ldmatrix.x4 over the code rows (each 8 x 8
@@ -119,14 +132,16 @@ struct Int8Stage {
       }
     }
   }
-  __device__ __forceinline__ float epilogue(float acc, int n) const {
-    return acc * scale[n];
+  // col: e N + n, column n of expert e
+  __device__ __forceinline__ float epilogue(float acc, size_t col) const {
+    return acc * scale[col];
   }
 };
 }  // namespace
 
-// x (M, K) and out (M, N) in the compute dtype (bf16 when is_bf16, else
-// f32); codes int8 (K, N); scale f32 (N,). All row-major and contiguous;
+// x (E, M, K) and out (E, M, N) in the compute dtype (bf16 when is_bf16,
+// else f32); codes int8 (E, K, N); scale f32 (E, N); E = 1 for a 2-D
+// call. All row-major and contiguous;
 // codes 4-byte aligned. `loop` is the host plan's loop (qmm::Loop); for
 // the wgmma and decode loops, (bm, bn) its tile and `grid` its blocks,
 // and for the decode loop `part` and `counter` its scratch (kernel.py,
@@ -135,21 +150,24 @@ struct Int8Stage {
 // a loop the shape does not allow.
 extern "C" int int8_matmul_launch(const void* x, const void* codes,
                                   const void* scale, void* out, void* part,
-                                  void* counter, int M, int N, int K,
+                                  void* counter, int E, int M, int N, int K,
                                   int is_bf16, int loop, int bm, int bn,
                                   int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 1) return (int)cudaErrorInvalidValue;
   if (loop == qmm::kLoopWgmma || loop == qmm::kLoopDecode) {
     if (!is_bf16) return (int)cudaErrorInvalidValue;
     qmm::wg::Args<Int8Stage> a;
     if (!qmm::wg::make_map_cached(&a.st.codes, codes,
-                                  CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N,
-                                  qmm::wg::kBK, bn, qmm::wg::raw_swizzle(bn)))
+                                  CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                  (uint64_t)E * K, N, qmm::wg::kBK, bn,
+                                  qmm::wg::raw_swizzle(bn)))
       return (int)cudaErrorInvalidValue;
     a.st.scale = static_cast<const float*>(scale);
     a.out = static_cast<__nv_bfloat16*>(out);
     a.part = static_cast<float*>(part);
     a.counter = static_cast<int*>(counter);
+    a.E = E;
     a.M = M;
     a.N = N;
     a.K = K;
@@ -163,8 +181,8 @@ extern "C" int int8_matmul_launch(const void* x, const void* codes,
                  static_cast<const float*>(scale)};
   if (is_bf16)
     return (int)qmm::launch_tile(static_cast<const __nv_bfloat16*>(x), fmt,
-                                 static_cast<__nv_bfloat16*>(out), M, N, K,
-                                 s);
+                                 static_cast<__nv_bfloat16*>(out), E, M, N,
+                                 K, s);
   return (int)qmm::launch_tile(static_cast<const float*>(x), fmt,
-                               static_cast<float*>(out), M, N, K, s);
+                               static_cast<float*>(out), E, M, N, K, s);
 }

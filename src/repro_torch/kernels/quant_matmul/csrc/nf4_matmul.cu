@@ -2,18 +2,22 @@
 //   out (M, N) = x (M, K) @ W (K, N),
 //   W[k, n] = round_to_compute(NF4[code(k, n)] * absmax[k / block, n])
 // with f32 accumulation, no epilogue scale, and the compute dtype (bf16
-// or f32) as output.
+// or f32) as output; grouped, E such products in one launch (out[e] =
+// x[e] @ W[e], the experts of an MoE layer).
 //
 // Replaces: src/repro/kernels/quant_matmul/kernel.py, nf4_matmul_pallas
-// (body _nf4_kernel). Same unpacking (two codes per byte along K, the
-// even row in the low nibble), the same 16-entry codebook, and the same
-// rounding of each dequantized weight to the compute dtype before the
-// product (kernel.py:103).
+// (body _nf4_kernel), and that kernel under jax.vmap over the experts
+// (src/repro/models/moe.py, _expert_dense). Same unpacking (two codes per
+// byte along K, the even row in the low nibble), the same 16-entry
+// codebook, and the same rounding of each dequantized weight to the
+// compute dtype before the product (kernel.py:103).
 //
 // Bound on an H100 SXM: at decode (M = 1-8) the weight bytes. The
 // (4096, 14336) w_gate is 29.4 MB of packed codes plus 3.7 MB of f32
 // absmax (block 64), about 9.9 us at 3.35 TB/s. At prefill (M = 512) the
-// 2*M*K*N operations bound it instead.
+// 2*M*K*N operations bound it instead. Grouped, at qwen3-moe-30b-a3b's
+// experts (E = 128, (K, N) = (2048, 768)), one call streams 101 MB of
+// packed codes and 12.6 MB of absmax, about 34 us.
 //
 // What the design does about it: each packed byte and each absmax value
 // is read from device memory once and dequantized on chip, so no 16-bit
@@ -48,6 +52,12 @@ struct NF4Format {
   const float* absmax;     // (K / block, N)
   int block;               // even, divides K
 
+  // the format of expert e of a grouped call
+  __device__ __forceinline__ NF4Format expert(int e, int K, int N) const {
+    return {packed + (size_t)e * (K / 2) * N,
+            absmax + (size_t)e * (K / block) * N, block};
+  }
+
   // -- tile kernel: ws (BK, BN) <- dequantized rows k0:k0+BK, 0 past the
   // edges. BK and k0 are even and K is a multiple of the (even) block, so
   // a byte's two rows share one absmax and never straddle K.
@@ -80,8 +90,8 @@ struct NF4Format {
 // block that is a multiple of 64, two for block 32. Both copied by TMA
 // (0 past N).
 struct NF4Stage {
-  CUtensorMap packed;   // (K / 2, N) uint8, box (32 rows, BN)
-  CUtensorMap absmax;   // (K / block, N) f32, box (rows, BN)
+  CUtensorMap packed;   // (E K / 2, N) uint8, box (32 rows, BN)
+  CUtensorMap absmax;   // (E K / block, N) f32, box (rows, BN)
   int block;            // 32, or a multiple of 64
   int rows;             // absmax rows a stage holds: 64 / block, or 1
 
@@ -96,12 +106,14 @@ struct NF4Stage {
   __device__ __forceinline__ void prepare(float* lut, int tid) const {
     if (tid < 16) lut[tid] = kNF4[tid];
   }
+  // the packed and absmax rows of the 64 K rows from row k_row of the
+  // experts' stacked (E K, N) weight (K is a multiple of the block)
   template <int BN>
-  __device__ __forceinline__ void load(uint8_t* raw, uint64_t* bar, int kt,
-                                       int n0) const {
-    qmm::wg::tma_load_2d(raw, &packed, bar, n0, kt * qmm::wg::kBK / 2);
+  __device__ __forceinline__ void load(uint8_t* raw, uint64_t* bar,
+                                       int k_row, int n0) const {
+    qmm::wg::tma_load_2d(raw, &packed, bar, n0, k_row / 2);
     qmm::wg::tma_load_2d(raw + qmm::wg::kBK / 2 * BN, &absmax, bar, n0,
-                         kt * qmm::wg::kBK / block);
+                         k_row / block);
   }
   // The thread's A fragments of the stage: of columns c = nb + 2g and
   // c + 1 (g = lane / 4), packed rows 8 kk + t and 8 kk + t + 4 (t = lane
@@ -142,15 +154,16 @@ struct NF4Stage {
       }
     }
   }
-  __device__ __forceinline__ float epilogue(float acc, int) const {
+  __device__ __forceinline__ float epilogue(float acc, size_t) const {
     return acc;
   }
 };
 
 }  // namespace
 
-// x (M, K) and out (M, N) in the compute dtype (bf16 when is_bf16, else
-// f32); packed uint8 (K/2, N); absmax f32 (K/block, N). All row-major and
+// x (E, M, K) and out (E, M, N) in the compute dtype (bf16 when is_bf16,
+// else f32); packed uint8 (E, K/2, N); absmax f32 (E, K/block, N); E = 1
+// for a 2-D call. All row-major and
 // contiguous. `loop` is the host plan's loop (qmm::Loop); for the wgmma
 // and decode loops, (bm, bn) its tile and `grid` its blocks, and for the
 // decode loop `part` and `counter` its scratch (kernel.py,
@@ -159,10 +172,11 @@ struct NF4Stage {
 // a loop the shape does not allow.
 extern "C" int nf4_matmul_launch(const void* x, const void* packed,
                                  const void* absmax, void* out, void* part,
-                                 void* counter, int M, int N, int K,
+                                 void* counter, int E, int M, int N, int K,
                                  int block, int is_bf16, int loop, int bm,
                                  int bn, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 1 || block < 2 || K % block) return (int)cudaErrorInvalidValue;
   if (loop == qmm::kLoopWgmma || loop == qmm::kLoopDecode) {
     if (!is_bf16 || !(block == 32 || block % qmm::wg::kBK == 0))
       return (int)cudaErrorInvalidValue;
@@ -170,17 +184,18 @@ extern "C" int nf4_matmul_launch(const void* x, const void* packed,
     a.st.block = block;
     a.st.rows = block < qmm::wg::kBK ? qmm::wg::kBK / block : 1;
     if (!qmm::wg::make_map_cached(&a.st.packed, packed,
-                                  CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
-                                  qmm::wg::kBK / 2, bn,
-                                  qmm::wg::raw_swizzle(bn)) ||
+                                  CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                  (uint64_t)E * K / 2, N, qmm::wg::kBK / 2,
+                                  bn, qmm::wg::raw_swizzle(bn)) ||
         !qmm::wg::make_map_cached(&a.st.absmax, absmax,
                                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                                  K / block, N, a.st.rows, bn,
-                                  CU_TENSOR_MAP_SWIZZLE_NONE))
+                                  (uint64_t)E * (K / block), N, a.st.rows,
+                                  bn, CU_TENSOR_MAP_SWIZZLE_NONE))
       return (int)cudaErrorInvalidValue;
     a.out = static_cast<__nv_bfloat16*>(out);
     a.part = static_cast<float*>(part);
     a.counter = static_cast<int*>(counter);
+    a.E = E;
     a.M = M;
     a.N = N;
     a.K = K;
@@ -194,8 +209,8 @@ extern "C" int nf4_matmul_launch(const void* x, const void* packed,
                 static_cast<const float*>(absmax), block};
   if (is_bf16)
     return (int)qmm::launch_tile(static_cast<const __nv_bfloat16*>(x), fmt,
-                                 static_cast<__nv_bfloat16*>(out), M, N, K,
-                                 s);
+                                 static_cast<__nv_bfloat16*>(out), E, M, N,
+                                 K, s);
   return (int)qmm::launch_tile(static_cast<const float*>(x), fmt,
-                               static_cast<float*>(out), M, N, K, s);
+                               static_cast<float*>(out), E, M, N, K, s);
 }

@@ -1,7 +1,10 @@
 // The bf16 Hopper (sm_90a) loops of the two dequant-matmul kernels,
 // prefill (M > 8) and decode (M <= 8): out (M, N) = x (M, K) @ dequant(W)
 // (K, N), bf16 in and out, f32 sums. One kernel, qmm_wgmma_kernel, with
-// BM = 8 rows of x for decode.
+// BM = 8 rows of x for decode. The same launch runs the grouped form, E
+// such problems at once (the experts of an MoE layer: x (E, M, K) @
+// dequant(W[e]) (K, N) -> out (E, M, N)), with the expert as the outer
+// index of every walk below; E = 1 is the 2-D call.
 //
 // Bound: at llama-3.1-8b's prefill shapes (M = 81-512) the 2*M*K*N
 // operations on the tensor cores; at decode (M = 1-8) the weight bytes
@@ -30,7 +33,11 @@
 //   axis in one block. Decode: one block per SM, and the column tiles' K
 //   steps laid end to end and cut into equal ranges, one a block (walk),
 //   so that every SM streams the same bytes even where there are fewer
-//   column tiles than SMs (wk/wv: 8 tiles of 128 columns). A tile cut
+//   column tiles than SMs (wk/wv: 8 tiles of 128 columns). Grouped, the
+//   tiles are numbered expert by expert (tile t is tile t % tiles_e of
+//   expert t / tiles_e), so prefill blocks that run together read one
+//   expert's weights and decode splits the K steps of all experts' column
+//   tiles evenly over the blocks. A tile cut
 //   between blocks is split: each writes its f32 partial sums to a
 //   workspace, and the last to finish (an atomic counter per tile, which
 //   it resets) adds them in block order and writes the output, in the
@@ -40,10 +47,14 @@
 // - Warp specialisation: one producer thread (in the last warpgroup,
 //   which gives its registers to the consumers) keeps a ring of as many
 //   stages as fit in shared memory (5-8) full with TMA copies. A stage
-//   holds the x tile (BM rows x 64 K, bf16, 128-byte swizzle; TMA fills
-//   rows past M with zeros) and the format's raw weight tile for the same
+//   holds the x tile (BM rows x 64 K, bf16, 128-byte swizzle; x is a
+//   rank-3 tensor map (K, M, E) with boxes of one expert, so TMA fills
+//   rows past M of each expert with zeros and never reads the next
+//   expert's rows) and the format's raw weight tile for the same
 //   64 K rows (int8: 64 x BN codes; nf4: 32 x BN packed bytes, then the
-//   absmax rows those K rows use), swizzled so that the reads below meet
+//   absmax rows those K rows use; the experts' weights as one 2-D map of
+//   E K rows, whose boxes never cross an expert since K is a multiple of
+//   64), swizzled so that the reads below meet
 //   no bank conflicts. Each stage has a full and an empty mbarrier. At
 //   decode with BN = 128 a stage is 128-byte lines of codes, and the ring
 //   keeps up to 45 (nf4) or 72 (int8) KB in flight per SM.
@@ -248,16 +259,30 @@ struct Layout {
 
 template <class Stage>
 struct Args {
-  CUtensorMap x;   // (M, K) bf16, box (BM rows, 64), 128-byte swizzle
+  // (E, M, K) bf16 as a rank-3 map (K, M, E), box (64, BM rows, 1
+  // expert), 128-byte swizzle
+  CUtensorMap x;
   Stage st;        // the format's tensor maps and epilogue data
-  __nv_bfloat16* out;
+  __nv_bfloat16* out;   // (E, M, N)
   // decode only: the f32 partial sums of split tiles, (grid + tiles - 1)
   // slots of kDecM x BN, and one counter per column tile, at 0 between
   // launches
   float* part;
   int* counter;
-  int M, N, K, m_tiles, tiles;
+  // E problems of M rows each; m_tiles row tiles and tiles_e output tiles
+  // an expert, tiles = E * tiles_e in all
+  int E, M, N, K, m_tiles, tiles_e, tiles;
 };
+
+// expert e, first row m0 and first column n0 of output tile t
+template <int BM, int BN, class A>
+__device__ __forceinline__ void tile_at(const A& a, int t, int& e, int& m0,
+                                        int& n0) {
+  e = t / a.tiles_e;
+  const int r = t - e * a.tiles_e;
+  m0 = (r % a.m_tiles) * BM;
+  n0 = (r / a.m_tiles) * BN;
+}
 
 // The block of a decode grid of G blocks over U K steps whose range holds
 // step x: block b walks steps [b U / G, (b + 1) U / G).
@@ -340,14 +365,16 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     if (tid == NT) {
       int it = 0;
       walk<BM>(a.tiles, nk, [&](int t, int k0, int k1) {
-        const int m0 = (t % a.m_tiles) * BM, n0 = (t / a.m_tiles) * BN;
+        int e, m0, n0;
+        tile_at<BM, BN>(a, t, e, m0, n0);
         for (int kt = k0; kt < k1; ++kt, ++it) {
           const int s = it % S;
           mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
           mbar_expect_tx(&full[s], L::x_bytes + a.st.template tx_bytes<BN>());
-          tma_load_2d(smem + s * L::x_bytes, &a.x, &full[s], kt * kBK, m0);
+          tma_load_3d(smem + s * L::x_bytes, &a.x, &full[s], kt * kBK, m0,
+                      e);
           a.st.template load<BN>(smem + L::raw_off + s * L::raw_bytes,
-                                 &full[s], kt, n0);
+                                 &full[s], e * a.K + kt * kBK, n0);
         }
       });
     }
@@ -362,23 +389,27 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     // is column c + h of the tile; D column j * 8 + 2 (lane % 4) + e, that
     // is row j * 8 + 2 (lane % 4) + e of the tile
     const int c = nb + 2 * (lane / 4);
-    auto store = [&](const float* acc, int m0, int n0) {
+    // rows m0 .. of expert ex (its rows past M are not stored)
+    auto store = [&](const float* acc, int ex, int m0, int n0) {
       const int n = n0 + c;
       if (n >= a.N) return;   // N is even, so n + 1 < N too
+      const size_t col = (size_t)ex * a.N + n;
 #pragma unroll
       for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int m = m0 + j * 8 + 2 * (lane % 4) + e;
           if (m < a.M)
-            *reinterpret_cast<uint32_t*>(a.out + (size_t)m * a.N + n) =
-                pack_bf16(a.st.epilogue(acc[j * 4 + e], n),
-                          a.st.epilogue(acc[j * 4 + 2 + e], n + 1));
+            *reinterpret_cast<uint32_t*>(
+                a.out + ((size_t)ex * a.M + m) * a.N + n) =
+                pack_bf16(a.st.epilogue(acc[j * 4 + e], col),
+                          a.st.epilogue(acc[j * 4 + 2 + e], col + 1));
         }
     };
     int it = 0;
     walk<BM>(a.tiles, nk, [&](int t, int k0, int k1) {
-      const int m0 = (t % a.m_tiles) * BM, n0 = (t / a.m_tiles) * BN;
+      int ex, m0, n0;
+      tile_at<BM, BN>(a, t, ex, m0, n0);
       float acc[BM / 2];
 #pragma unroll
       for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
@@ -517,11 +548,11 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
                   sum[2 + e] += v[i][e].y;
                 }
           }
-          store(sum, m0, n0);
+          store(sum, ex, m0, n0);
           return;
         }
       }
-      store(acc, m0, n0);
+      store(acc, ex, m0, n0);
     });
   }
 }
@@ -583,11 +614,15 @@ template <class Stage, int BM, int BN>
 cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
                          cudaStream_t stream) {
   using L = Layout<Stage, BM, BN>;
-  if (!make_map(&a.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.M, a.K, BM,
-                kBK, CU_TENSOR_MAP_SWIZZLE_128B))
+  const uint64_t dims[3] = {(uint64_t)a.K, (uint64_t)a.M, (uint64_t)a.E};
+  const uint64_t strides[2] = {(uint64_t)a.K * 2, (uint64_t)a.M * a.K * 2};
+  const uint32_t box[3] = {(uint32_t)kBK, (uint32_t)BM, 1};
+  if (!make_map_nd(&a.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   a.m_tiles = (a.M + BM - 1) / BM;
-  a.tiles = a.m_tiles * ((a.N + BN - 1) / BN);
+  a.tiles_e = a.m_tiles * ((a.N + BN - 1) / BN);
+  a.tiles = a.E * a.tiles_e;
   auto kernel = qmm_wgmma_kernel<Stage, BM, BN>;
   // raised once per instance, so that later launches, inside a CUDA graph
   // capture too, make no attribute call
@@ -603,14 +638,15 @@ cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
 }
 
 // The prefill loop at the host's plan: BM in {256, 128, 64} rows of x by
-// BN in {128, 64} columns, `grid` blocks. The caller has filled a.st with
-// the format's tensor maps for BN. Refuses (cudaErrorInvalidValue) what
-// the plan never gives it: K not a multiple of 64, N not a multiple of
-// 16, another tile.
+// BN in {128, 64} columns, `grid` blocks, over a.E experts. The caller has
+// filled a.st with the format's tensor maps for BN. Refuses
+// (cudaErrorInvalidValue) what the plan never gives it: K not a multiple
+// of 64, N not a multiple of 16, no expert, another tile.
 template <class Stage>
 cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
                    int grid, cudaStream_t stream) {
-  if (a.K % kBK || a.N % 16 || grid < 1) return cudaErrorInvalidValue;
+  if (a.K % kBK || a.N % 16 || grid < 1 || a.E < 1)
+    return cudaErrorInvalidValue;
   if (bn == 128) {
     if (bm == 256) return launch_tiles<Stage, 256, 128>(a, x, grid, stream);
     if (bm == 128) return launch_tiles<Stage, 128, 128>(a, x, grid, stream);
@@ -625,16 +661,18 @@ cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
 }
 
 // The decode loop at the host's plan: M <= 8 rows of x by BN in {128, 64}
-// columns, `grid` blocks sharing out the column tiles' K steps (walk),
-// with a.part and a.counter for the split tiles. Refuses
-// (cudaErrorInvalidValue) M > 8, K not a multiple of 64, N not a multiple
-// of 16, more blocks than K steps, missing scratch, another tile.
+// columns, `grid` blocks sharing out the K steps of all a.E experts'
+// column tiles (walk), with a.part and a.counter for the split tiles.
+// Refuses (cudaErrorInvalidValue) M > 8, K not a multiple of 64, N not a
+// multiple of 16, no expert, more blocks than K steps, missing scratch,
+// another tile.
 template <class Stage>
 cudaError_t launch_decode(Args<Stage>& a, const __nv_bfloat16* x, int bn,
                           int grid, cudaStream_t stream) {
   if (a.M < 1 || a.M > kDecM || a.K % kBK || a.N % 16 || grid < 1 ||
-      (bn != 128 && bn != 64) || !a.part || !a.counter ||
-      (long long)grid > (long long)((a.N + bn - 1) / bn) * (a.K / kBK))
+      a.E < 1 || (bn != 128 && bn != 64) || !a.part || !a.counter ||
+      (long long)grid >
+          (long long)a.E * ((a.N + bn - 1) / bn) * (a.K / kBK))
     return cudaErrorInvalidValue;
   if (bn == 128) return launch_tiles<Stage, kDecM, 128>(a, x, grid, stream);
   return launch_tiles<Stage, kDecM, 64>(a, x, grid, stream);

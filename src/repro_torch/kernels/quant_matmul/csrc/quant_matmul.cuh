@@ -6,6 +6,10 @@
 // bf16 loops of qmm_wgmma.cuh (decode, M <= 8; prefill, M > 8) do not
 // take (launch, at the end).
 //
+// Grouped calls (E problems, x (E, M, K), out (E, M, N)) take one grid
+// layer per expert (blockIdx.z) and the format of that expert (its
+// expert()).
+//
 // Every block owns an output tile and walks the whole K axis itself (no
 // split-K across blocks, so every sum is taken in one fixed order and the
 // result is deterministic). Sums are f32. A product of two bf16 values is
@@ -57,7 +61,7 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 template <typename T, int BM, int BN, int BK, int TM, int TN, int KS,
           class Format>
 __global__ void __launch_bounds__(kThreads)
-    qmm_tile_kernel(const T* __restrict__ x, Format fmt,
+    qmm_tile_kernel(const T* __restrict__ x, Format fmt_all,
                     T* __restrict__ out, int M, int N, int K) {
   constexpr int NX = BN / TN;          // threads along N in a k-group
   constexpr int NY = BM / TM;          // threads along M in a k-group
@@ -69,6 +73,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float xs[BM][BK + 1];
   __shared__ __align__(16) float ws[BK][BN];
 
+  const Format fmt = fmt_all.expert(blockIdx.z, K, N);
+  x += (size_t)blockIdx.z * M * K;
+  out += (size_t)blockIdx.z * M * N;
   const int tid = threadIdx.x;
   const int kg = tid / (NX * NY);
   const int r = tid % (NX * NY);
@@ -140,17 +147,18 @@ __global__ void __launch_bounds__(kThreads)
 // kLoopDecode and kLoopWgmma are launched from qmm_wgmma.cuh.
 enum Loop { kLoopDecode = 0, kLoopWgmma = 1, kLoopTile = 2 };
 
-// The tile loop: a 8 x 32 tile with a 256-deep K step for M <= 8, a
-// 64 x 64 tile with a 4 x 4 micro-tile per thread above.
+// The tile loop over E experts: a 8 x 32 tile with a 256-deep K step for
+// M <= 8, a 64 x 64 tile with a 4 x 4 micro-tile per thread above.
 template <typename T, class Format>
-cudaError_t launch_tile(const T* x, Format fmt, T* out, int M, int N, int K,
-                        cudaStream_t stream) {
+cudaError_t launch_tile(const T* x, Format fmt, T* out, int E, int M, int N,
+                        int K, cudaStream_t stream) {
+  if (E < 1 || E > 65535) return cudaErrorInvalidValue;
   if (M <= 8) {
-    dim3 grid((N + 31) / 32, 1);
+    dim3 grid((N + 31) / 32, 1, E);
     qmm_tile_kernel<T, 8, 32, 256, 8, 1, 8, Format>
         <<<grid, kThreads, 0, stream>>>(x, fmt, out, M, N, K);
   } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
+    dim3 grid((N + 63) / 64, (M + 63) / 64, E);
     qmm_tile_kernel<T, 64, 64, 32, 4, 4, 1, Format>
         <<<grid, kThreads, 0, stream>>>(x, fmt, out, M, N, K);
   }

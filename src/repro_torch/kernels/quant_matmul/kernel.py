@@ -7,15 +7,19 @@ first use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
 shared library with a plain C interface under ``build/kernels/`` at the
 root of the checkout, and loaded with ``ctypes``.
 
-Each wrapper takes a 2-D problem. For a tensor on the CPU it returns its
-plain PyTorch version (``*_plain``: the kernel's exact rounding points,
-used by the CPU tests). For a CUDA tensor it checks device, dtype, shape
-and contiguity, raises on anything the kernel does not take, allocates
-the output with ``torch.empty``, launches on the current stream, raises
-if the launch reports an error, and adds one to its count in
-:data:`LAUNCHES` and to the count of the loop it ran in
+``int8_matmul``/``nf4_matmul`` take a 2-D problem; ``*_grouped`` take its
+grouped form, E problems at once (x (E, C, K) against a weight with a
+leading expert axis, the experts of an MoE layer), in one launch of the
+same kernel: what the Pallas kernels compute under ``jax.vmap`` over the
+experts. For a tensor on the CPU a wrapper returns the plain PyTorch
+version (``*_plain``, which takes either form: the kernel's exact
+rounding points, used by the CPU tests). For a CUDA tensor it checks
+device, dtype, shape and contiguity, raises on anything the kernel does
+not take, allocates the output with ``torch.empty``, launches on the
+current stream, raises if the launch reports an error, and adds one to
+its own count in :data:`LAUNCHES` and to the count of the loop it ran in
 :data:`LOOP_LAUNCHES`. Nothing falls back from the kernel to the plain
-version.
+version, and a grouped call is never a loop of 2-D calls.
 
 The loop is planned on the host from the shapes alone
 (:func:`matmul_plan`, cached per shape and device). In bf16 both loops
@@ -25,7 +29,9 @@ steps split evenly among the blocks and the split tiles merged in the
 same launch through a workspace and per-tile counters), "wgmma" for
 prefill (M > 8, an output tile and a persistent grid of at most one
 block per SM). The CUDA-core tile loop takes f32 and the shapes neither
-takes. The C entry point runs the loop it is given, and refuses it (an
+takes. A grouped call walks the experts inside those loops (the plan
+takes the expert count), and in bf16 raises where the plan gives it
+neither. The C entry point runs the loop it is given, and refuses it (an
 error, which the wrapper raises) if the shape does not allow it.
 """
 from __future__ import annotations
@@ -47,32 +53,36 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = cuda_build.BUILD_DIR
 HEADERS = ("quant_matmul.cuh", "qmm_wgmma.cuh", cuda_build.HOPPER_HEADER)
 SOURCES = {
-    # x, codes, scale, out, part, counter, M, N, K, is_bf16, loop, bm, bn,
-    # grid
+    # x, codes, scale, out, part, counter, E, M, N, K, is_bf16, loop, bm,
+    # bn, grid
     "int8_matmul": cuda_build.Source(
-        "int8_matmul", CSRC, (P, P, P, P, P, P, I, I, I, I, I, I, I, I),
+        "int8_matmul", CSRC, (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I),
         HEADERS),
-    # x, packed, absmax, out, part, counter, M, N, K, block, is_bf16, loop,
-    # bm, bn, grid
+    # x, packed, absmax, out, part, counter, E, M, N, K, block, is_bf16,
+    # loop, bm, bn, grid
     "nf4_matmul": cuda_build.Source(
-        "nf4_matmul", CSRC, (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I),
-        HEADERS),
+        "nf4_matmul", CSRC,
+        (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I), HEADERS),
 }
+#: the wrappers that launch the kernels, each with its own count: the
+#: 2-D calls and the grouped calls (one launch over all experts)
+ENTRY_POINTS = ("int8_matmul", "nf4_matmul", "int8_matmul_grouped",
+                "nf4_matmul_grouped")
 
 #: the loops of the C entry points, by their number there (qmm::Loop)
 LOOPS = ("decode", "wgmma", "tile")
 
-#: launches of each CUDA kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: launches of each wrapper since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 #: the same launches by the loop that ran
 LOOP_LAUNCHES: Dict[str, Dict[str, int]] = {
-    name: {loop: 0 for loop in LOOPS} for name in KERNELS}
+    name: {loop: 0 for loop in LOOPS} for name in ENTRY_POINTS}
 
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in ENTRY_POINTS:
         LAUNCHES[name] = 0
         for loop in LOOPS:
             LOOP_LAUNCHES[name][loop] = 0
@@ -106,16 +116,20 @@ WG_TILES = tuple(WG_STEP_US["int8"])
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """The loop a launch runs; for "wgmma" and "decode" also its output
-    tile (BM rows of x, BN output columns) and its grid (blocks)."""
+    tile (BM rows of x, BN output columns) and its grid (blocks); the
+    number of experts of a grouped call (1 for a 2-D call)."""
 
     loop: str
     bm: int = 0
     bn: int = 0
     grid: int = 0
+    experts: int = 1
 
 
 def wgmma_tiles(M: int, N: int, bm: int, bn: int) -> Tuple[int, int]:
-    """(row tiles, all tiles) of the wgmma loop's output grid."""
+    """(row tiles, all tiles) of the wgmma loop's output grid of one
+    expert; a grouped call walks ``experts`` such grids, expert by
+    expert (tile t is tile t % tiles of expert t // tiles)."""
     m_tiles = -(-M // bm)
     return m_tiles, m_tiles * -(-N // bn)
 
@@ -131,9 +145,11 @@ def decode_segments(plan: Plan, N: int, K: int
     """(block, column tile, first K step, end K step) of every segment the
     decode loop walks, in the kernel's order (``qmm_wgmma.cuh``, walk; a
     K step is 64 rows): the tiles' K steps laid end to end, block b
-    taking steps [b U / grid, (b + 1) U / grid) of the U."""
+    taking steps [b U / grid, (b + 1) U / grid) of the U. Grouped, the
+    column tiles of all experts are numbered expert by expert: tile t is
+    column tile t % ceil(N / bn) of expert t // ceil(N / bn)."""
     nk = K // WG_BK
-    u_all = -(-N // plan.bn) * nk
+    u_all = plan.experts * -(-N // plan.bn) * nk
     segs = []
     for b in range(plan.grid):
         u, hi = u_all * b // plan.grid, u_all * (b + 1) // plan.grid
@@ -148,51 +164,57 @@ def decode_segments(plan: Plan, N: int, K: int
 def decode_scratch(plan: Plan, N: int) -> Tuple[int, int]:
     """(f32 elements of the workspace, int32 counters) a decode launch
     needs: the partial sums of block b for column tile t go to slot b + t
-    of DEC_M x bn, and each column tile has a counter."""
-    tiles = -(-N // plan.bn)
+    of DEC_M x bn, and each column tile (of every expert) has a
+    counter."""
+    tiles = plan.experts * -(-N // plan.bn)
     return (plan.grid + tiles - 1) * DEC_M * plan.bn, tiles
 
 
 def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
-                block: Optional[int] = None, aligned: bool = True) -> Plan:
+                block: Optional[int] = None, aligned: bool = True,
+                experts: int = 1) -> Plan:
     """The loop for x (M, K) @ W (K, N), from shapes alone (``block``: the
-    nf4 block, None for int8; ``aligned``: every pointer 16-byte aligned).
+    nf4 block, None for int8; ``aligned``: every pointer 16-byte aligned),
+    or for ``experts`` such products in one grouped launch, M rows each.
 
     Where the bf16 loops take the shape (bf16, N % 16 == 0, K % 64 == 0,
     aligned, an nf4 block of 32 or a multiple of 64):
 
     - "decode" for M <= 8: :data:`DEC_BN` columns a tile and a grid of
-      min(``n_sm``, K steps of all tiles) blocks. It does not depend on
-      M, so a row of x gets the same sums whatever the batch;
+      min(``n_sm``, K steps of all tiles of all experts) blocks. It does
+      not depend on M, so a row of x gets the same sums whatever the
+      batch;
     - "wgmma" for M > 8: of :data:`WG_TILES`, the tile whose waves over
-      ``n_sm`` SMs (tiles / n_sm, rounded up) take the least time at the
-      format's :data:`WG_STEP_US`, the earlier on a tie, and a grid of
-      min(tiles, n_sm) blocks.
+      ``n_sm`` SMs (tiles of all experts / n_sm, rounded up) take the
+      least time at the format's :data:`WG_STEP_US`, the earlier on a
+      tie, and a grid of min(tiles, n_sm) blocks.
 
     "tile" otherwise (f32, and unaligned shapes or small nf4 blocks)."""
     if not (bf16 and N % 16 == 0 and K % WG_BK == 0 and aligned
             and (block is None or block == 32 or block % WG_BK == 0)):
-        return Plan("tile")
+        return Plan("tile", experts=experts)
     if M <= DEC_M:
-        steps = -(-N // DEC_BN) * (K // WG_BK)
-        return Plan("decode", DEC_M, DEC_BN, min(n_sm, steps))
+        steps = experts * -(-N // DEC_BN) * (K // WG_BK)
+        return Plan("decode", DEC_M, DEC_BN, min(n_sm, steps), experts)
     step_us = WG_STEP_US["int8" if block is None else "nf4"]
 
+    def tiles(tile):
+        return experts * wgmma_tiles(M, N, *tile)[1]
+
     def cost(tile):
-        tiles = wgmma_tiles(M, N, *tile)[1]
-        return -(-tiles // n_sm) * step_us[tile]
+        return -(-tiles(tile) // n_sm) * step_us[tile]
     bm, bn = min(WG_TILES, key=cost)
-    return Plan("wgmma", bm, bn, min(wgmma_tiles(M, N, bm, bn)[1], n_sm))
+    return Plan("wgmma", bm, bn, min(tiles((bm, bn)), n_sm), experts)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_plan(M: int, N: int, K: int, bf16: bool, block: Optional[int],
-                 aligned: bool, device: int) -> Plan:
+                 aligned: bool, device: int, experts: int = 1) -> Plan:
     """:func:`matmul_plan` for CUDA device ``device``, once per shape:
     prefill repeats seven shapes in every layer, decode one per step."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return matmul_plan(M, N, K, n_sm, bf16=bf16, block=block,
-                       aligned=aligned)
+                       aligned=aligned, experts=experts)
 
 
 def _library_path(name: str) -> Path:
@@ -214,10 +236,11 @@ def int8_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
                       compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x and the codes cast to the compute dtype, an f32 product (exact
     products of compute-dtype values, f32 sums), the per-column scale,
-    one rounding to the compute dtype."""
+    one rounding to the compute dtype. 2-D, or grouped: x (E, C, K),
+    codes (E, K, N), scale (E, N), expert by expert."""
     acc = torch.matmul(x.to(compute_dtype).float(),
                        codes.to(compute_dtype).float())
-    return (acc * scale[None, :]).to(compute_dtype)
+    return (acc * scale[..., None, :]).to(compute_dtype)
 
 
 def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -225,11 +248,12 @@ def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                      compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Each weight dequantized in f32 (codebook value times its block's
     absmax) and rounded to the compute dtype, then an f32 product and one
-    rounding of the result."""
+    rounding of the result. 2-D, or grouped: x (E, C, K), packed
+    (E, K/2, N), absmax (E, K/block, N), expert by expert."""
     codes = unpack_codes(packed)
-    block = codes.shape[0] // absmax.shape[0]
+    block = codes.shape[-2] // absmax.shape[-2]
     w = codebook(codes.device)[codes] \
-        * absmax.repeat_interleave(block, dim=0)
+        * absmax.repeat_interleave(block, dim=-2)
     w = w.to(compute_dtype).float()
     return torch.matmul(x.to(compute_dtype).float(), w).to(compute_dtype)
 
@@ -237,14 +261,14 @@ def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def _check_x(x: torch.Tensor, compute_dtype) -> None:
+def _check_x(x: torch.Tensor, compute_dtype, ndim: int = 2) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if compute_dtype not in _COMPUTE_DTYPES:
         raise TypeError(f"compute dtype {compute_dtype} not supported; "
                         f"expected one of {_COMPUTE_DTYPES}")
-    if x.ndim != 2:
-        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    if x.ndim != ndim:
+        raise ValueError(f"x must be {ndim}-D, got {tuple(x.shape)}")
 
 
 def _scratch(plan: Plan, N: int, device: torch.device):
@@ -256,20 +280,85 @@ def _scratch(plan: Plan, N: int, device: torch.device):
             cuda_build.counters(device, n_count))
 
 
-def _launch(name: str, plan: Plan, x: torch.Tensor, wargs, out: torch.Tensor,
-            *shape) -> None:
+def _launch(name: str, entry: str, plan: Plan, x: torch.Tensor, wargs,
+            out: torch.Tensor, *shape) -> None:
+    """Launch library ``name`` at ``plan`` and count it for the wrapper
+    ``entry``."""
     part = counter = None
     if plan.loop == "decode":
-        part, counter = _scratch(plan, out.shape[1], x.device)
+        part, counter = _scratch(plan, out.shape[-1], x.device)
     cuda_build.launch(SOURCES[name], LAUNCHES, x.data_ptr(),
                       *(w.data_ptr() for w in wargs), out.data_ptr(),
-                      cuda_build.ptr(part), cuda_build.ptr(counter), *shape,
-                      LOOPS.index(plan.loop), plan.bm, plan.bn, plan.grid)
-    LOOP_LAUNCHES[name][plan.loop] += 1
+                      cuda_build.ptr(part), cuda_build.ptr(counter),
+                      plan.experts, *shape, LOOPS.index(plan.loop), plan.bm,
+                      plan.bn, plan.grid, key=entry)
+    LOOP_LAUNCHES[entry][plan.loop] += 1
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _int8_launch(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                 compute_dtype, entry: str, grouped: bool) -> torch.Tensor:
+    """x (E, C, K) @ dequant(codes (E, K, N), scale (E, N)) on the card,
+    counted for the wrapper ``entry``; E = 1 for a 2-D call (``grouped``
+    false)."""
+    E, C, K = x.shape
+    N = codes.shape[-1]
+    _check("x", x, compute_dtype, (E, C, K), x.device)
+    _check("codes", codes, torch.int8, (E, K, N), x.device)
+    _check("scale", scale, torch.float32, (E, N), x.device)
+    if N % 4 == 0 and codes.data_ptr() % 4:
+        raise ValueError("codes must be 4-byte aligned")
+    out = torch.empty((E, C, N), dtype=compute_dtype, device=x.device)
+    if E and C and N:
+        bf16 = compute_dtype == torch.bfloat16
+        plan = _plan(entry, grouped, C, N, K, bf16, None,
+                     _aligned(x, codes), x, E)
+        _launch("int8_matmul", entry, plan, x, (codes, scale), out, C, N, K,
+                int(bf16))
+    return out
+
+
+def _nf4_launch(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
+                compute_dtype, entry: str, grouped: bool) -> torch.Tensor:
+    """x (E, C, K) @ dequant(packed (E, K/2, N), absmax (E, K/block, N))
+    on the card, counted for the wrapper ``entry``; E = 1 for a 2-D call
+    (``grouped`` false)."""
+    E, C, K = x.shape
+    N = packed.shape[-1]
+    nb = absmax.shape[-2]
+    if K % 2 or nb == 0 or K % nb or (K // nb) % 2:
+        raise ValueError(f"K={K} must be a multiple of an even block "
+                         f"(absmax has {nb} rows)")
+    _check("x", x, compute_dtype, (E, C, K), x.device)
+    _check("packed", packed, torch.uint8, (E, K // 2, N), x.device)
+    _check("absmax", absmax, torch.float32, (E, nb, N), x.device)
+    out = torch.empty((E, C, N), dtype=compute_dtype, device=x.device)
+    if E and C and N:
+        bf16 = compute_dtype == torch.bfloat16
+        plan = _plan(entry, grouped, C, N, K, bf16, K // nb,
+                     _aligned(x, packed, absmax), x, E)
+        _launch("nf4_matmul", entry, plan, x, (packed, absmax), out, C, N,
+                K, K // nb, int(bf16))
+    return out
+
+
+def _plan(entry: str, grouped: bool, C: int, N: int, K: int, bf16: bool,
+          block: Optional[int], aligned: bool, x: torch.Tensor,
+          E: int) -> Plan:
+    """The device plan of a call; a grouped call in bf16 raises where the
+    plan gives it neither bf16 loop (``entry`` names it)."""
+    plan = _device_plan(C, N, K, bf16, block, aligned, x.get_device(), E)
+    if grouped and bf16 and plan.loop == "tile":
+        raise ValueError(
+            f"{entry}: no grouped bf16 kernel for C={C} K={K} N={N}"
+            + ("" if block is None else f" block={block}")
+            + (" (the bf16 loops need N % 16 == 0, K % 64 == 0, 16-byte "
+               "aligned operands and an nf4 block of 32 or a multiple of "
+               "64)"))
+    return plan
 
 
 def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
@@ -279,21 +368,8 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return int8_matmul_plain(x, codes, scale, compute_dtype)
     _check_x(x, compute_dtype)
-    M, K = x.shape
-    N = codes.shape[-1]
-    _check("x", x, compute_dtype, (M, K), x.device)
-    _check("codes", codes, torch.int8, (K, N), x.device)
-    _check("scale", scale, torch.float32, (N,), x.device)
-    if N % 4 == 0 and codes.data_ptr() % 4:
-        raise ValueError("codes must be 4-byte aligned")
-    out = torch.empty((M, N), dtype=compute_dtype, device=x.device)
-    if M and N:
-        bf16 = compute_dtype == torch.bfloat16
-        plan = _device_plan(M, N, K, bf16, None, _aligned(x, codes),
-                            x.get_device())
-        _launch("int8_matmul", plan, x, (codes, scale), out, M, N, K,
-                int(bf16))
-    return out
+    return _int8_launch(x[None], codes[None], scale[None], compute_dtype,
+                        "int8_matmul", grouped=False)[0]
 
 
 def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
@@ -303,20 +379,30 @@ def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, packed, absmax, compute_dtype)
     _check_x(x, compute_dtype)
-    M, K = x.shape
-    N = packed.shape[-1]
-    nb = absmax.shape[0]
-    if K % 2 or nb == 0 or K % nb or (K // nb) % 2:
-        raise ValueError(f"K={K} must be a multiple of an even block "
-                         f"(absmax has {nb} rows)")
-    _check("x", x, compute_dtype, (M, K), x.device)
-    _check("packed", packed, torch.uint8, (K // 2, N), x.device)
-    _check("absmax", absmax, torch.float32, (nb, N), x.device)
-    out = torch.empty((M, N), dtype=compute_dtype, device=x.device)
-    if M and N:
-        bf16 = compute_dtype == torch.bfloat16
-        plan = _device_plan(M, N, K, bf16, K // nb,
-                            _aligned(x, packed, absmax), x.get_device())
-        _launch("nf4_matmul", plan, x, (packed, absmax), out, M, N, K,
-                K // nb, int(bf16))
-    return out
+    return _nf4_launch(x[None], packed[None], absmax[None], compute_dtype,
+                       "nf4_matmul", grouped=False)[0]
+
+
+def int8_matmul_grouped(x: torch.Tensor, codes: torch.Tensor,
+                        scale: torch.Tensor,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (E, C, K) @ dequant(codes int8 (E, K, N), scale f32 (E, N)) ->
+    (E, C, N) in the compute dtype: every expert in one launch."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, codes, scale, compute_dtype)
+    _check_x(x, compute_dtype, ndim=3)
+    return _int8_launch(x, codes, scale, compute_dtype,
+                        "int8_matmul_grouped", grouped=True)
+
+
+def nf4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
+                       absmax: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (E, C, K) @ dequant(packed uint8 (E, K/2, N), absmax f32
+    (E, K/block, N)) -> (E, C, N) in the compute dtype: every expert in
+    one launch."""
+    if x.device.type == "cpu":
+        return nf4_matmul_plain(x, packed, absmax, compute_dtype)
+    _check_x(x, compute_dtype, ndim=3)
+    return _nf4_launch(x, packed, absmax, compute_dtype,
+                       "nf4_matmul_grouped", grouped=True)

@@ -1,8 +1,10 @@
-"""Serving launcher: random-weight greedy serving of a paper-zoo model.
+"""Serving launcher: random-weight greedy serving of a paper-zoo model or
+one of the architectures of ``ARCH_IDS`` (dense and MoE).
 
 Counterpart of ``repro.launch.serve``'s default (executed) mode. Builds
 the model, draws its weights from a seeded ``torch.Generator`` on the
-device, quantizes them under ``--fmt``, and serves ``--n`` requests
+device, quantizing each layer under ``--fmt`` as it is drawn, and serves
+``--n`` requests
 (random prompts from ``--seed``, all arriving at t=0) through
 :class:`~repro_torch.serving.engine.ServeEngine`, and prints the host
 wall time beside the analytic report's ``summary()`` (clock and energy
@@ -10,6 +12,8 @@ of the H100 SXM energy model), as the JAX launcher prints its summary.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --full --fmt int8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --full --fmt nf4
 
 Without ``--full`` the config is the reduced variant, as in the JAX
 launcher. The arrival patterns other than ``burst`` and ``--sim`` wait
@@ -25,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config
 from repro_torch.configs.paper_zoo import PAPER_MODELS
 from repro_torch.models.api import Model, build_model
 from repro_torch.serving.engine import ServeEngine, ServeReport
@@ -61,12 +66,21 @@ def make_requests(vocab_size: int, n: int, seed: int,
     return reqs
 
 
+def arch_config(arch: str) -> ModelConfig:
+    """The config of a paper-zoo model or of an ``ARCH_IDS`` id."""
+    if arch in PAPER_MODELS:
+        return PAPER_MODELS[arch]
+    return get_config(arch)
+
+
 def build_params(model: Model, seed: int) -> Dict[str, Any]:
-    """Random master weights from ``seed`` on the model's device, then
-    post-training quantization under the model's format."""
+    """Random master weights from ``seed`` on the model's device, under
+    post-training quantization in the model's format: each layer is
+    quantized as soon as it is drawn, so the 16-bit masters of the whole
+    stack are never resident together (the bytes of drawing everything,
+    then quantizing)."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    params = model.init(gen)
-    return model.quantize(params)
+    return model.init(gen, quantize=True)
 
 
 def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
@@ -84,7 +98,7 @@ def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
     on the same weights (for example the same requests in the other
     mode); otherwise they are built from ``seed``."""
     if model is None:
-        cfg = PAPER_MODELS[arch]
+        cfg = arch_config(arch)
         model = build_model(cfg.reduced() if reduced else cfg, fmt=fmt,
                             kv_quant=kv_quant, device=device)
         params = build_params(model, seed)
@@ -107,7 +121,7 @@ def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-3.1-8b",
-                    choices=sorted(PAPER_MODELS))
+                    choices=sorted(PAPER_MODELS) + list(ARCH_IDS))
     ap.add_argument("--n", type=int, default=24)
     ap.add_argument("--pattern", default="burst", choices=["burst"],
                     help="arrival pattern; all requests arrive at t=0")

@@ -1,18 +1,22 @@
-"""Model facade for the dense decoder family.
+"""Model facade for the dense and MoE decoder families.
 
-Counterpart of ``repro.models.api`` for ``family == "dense"``. A
+Counterpart of ``repro.models.api`` for ``family`` "dense" and "moe". A
 :class:`Model` bundles (config, precision policy, device) and exposes
 
-* ``init(generator)``                      -> params tree
+* ``init(generator, quantize=False)``      -> params tree
 * ``quantize(params)``                     -> params with int8/nf4 leaves
-* ``prefill(params, batch, buf_len, lengths)`` -> (last logits, cache)
+* ``prefill(params, batch, buf_len, lengths, with_aux=False)``
+                                           -> (last logits, cache[, aux])
 * ``decode_step(params, tokens, cache)``   -> (logits, cache)
 * ``init_cache(batch, buf_len)``           -> empty decode cache
 * ``logits(params, hidden)``               -> LM-head projection
 
 The params tree is a dict: ``embed`` (V, D), ``final_norm`` (D,),
-``lm_head`` (D, V) and ``layers``, a list of per-layer dicts. Other
-families raise NotImplementedError (ROADMAP A4).
+``lm_head`` (D, V) and ``layers``, a list of per-layer dicts (an MoE
+layer's ``moe`` entry holds the router and the experts' stacked
+projections). ``prefill(..., with_aux=True)`` also returns the layer
+means of the MoE router metrics of that forward (zeros for a dense
+model). Other families raise NotImplementedError (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.models.layers import (PREFILL_PAST_RING, embed,
                                        slot_positions_after_prefill)
 from repro_torch.quant.apply import linear_apply, quantize_params
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -59,9 +63,15 @@ class Model:
         return self.policy.activation_dtype
 
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator,
+             quantize: bool = False) -> Dict[str, Any]:
         """Random weights in the policy's master dtype, drawn from
-        ``generator`` on its device (which must be the model's)."""
+        ``generator`` on its device (which must be the model's). With
+        ``quantize``, each layer is quantized under the model's policy as
+        soon as it is drawn, before the next is drawn, so that the masters
+        of the whole stack are never resident together; the bytes are
+        those of :meth:`quantize` on the whole tree (the draws are the
+        same, in the same order)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
@@ -77,8 +87,12 @@ class Model:
                                        cfg.vocab_size, dtype),
         }
         del table
-        params["layers"] = [tfm.init_decoder_layer(generator, cfg, dtype)
-                            for _ in range(cfg.num_layers)]
+        params["layers"] = []
+        for _ in range(cfg.num_layers):
+            layer = tfm.init_decoder_layer(generator, cfg, dtype)
+            params["layers"].append(quantize_params(layer, self.policy)
+                                    if quantize else layer)
+            del layer
         return params
 
     def quantize(self, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -91,13 +105,15 @@ class Model:
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 buf_len: Optional[int] = None,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
         """Forward over the prompt, build the decode cache.
 
         ``lengths``: (B,) true prompt lengths when the batch is
         right-padded; defaults to the full width. Returns
         (last_token_logits (B, V) f32, cache) with logits taken at each
-        row's final *real* token."""
+        row's final *real* token; with ``with_aux``, (logits, cache, aux),
+        aux the layer-mean MoE router metrics of the forward."""
         tokens = batch["tokens"]
         x = embed(tokens, params["embed"], self.adt)
         B, S = x.shape[0], x.shape[1]
@@ -107,13 +123,14 @@ class Model:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device)
         buf = self._buf_len(S, buf_len)
-        h, kv = tfm.decoder_forward_seq(params["layers"], x, self.cfg,
-                                        self.policy, causal=True,
-                                        window=self.window, collect_kv=True)
+        h, kv, aux = tfm.decoder_forward_seq(
+            params["layers"], x, self.cfg, self.policy, causal=True,
+            window=self.window, collect_kv=True)
         cache = self._kv_cache_from_prefill(kv, S, buf, lengths)
         h = rms_norm(h, params["final_norm"])
         last = h[torch.arange(B, device=x.device), lengths.long() - 1]
-        return self.logits(params, last), cache
+        logits = self.logits(params, last)
+        return (logits, cache, aux) if with_aux else (logits, cache)
 
     def _buf_len(self, S: int, buf_len: Optional[int]) -> int:
         if self.window is not None:

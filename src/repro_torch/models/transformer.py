@@ -1,15 +1,17 @@
-"""The dense decoder stack: init, attention and FFN blocks, full-sequence
-forward (prefill) and one-token decode against a ring-buffer KV cache.
+"""The decoder stack of the dense and MoE families: init, attention and
+FFN blocks (a gated MLP, or the MoE FFN of :mod:`repro_torch.models.moe`),
+full-sequence forward (prefill) and one-token decode against a
+ring-buffer KV cache.
 
-Counterpart of the dense parts of ``repro.models.transformer``. The
+Counterpart of the dense and MoE parts of ``repro.models.transformer``. The
 reference scans over layers stacked on a leading axis; here the layers
 are a list of per-layer parameter dicts and a Python loop walks them.
 Decode writes the cache in place. Prefill attention, at every length,
 is the flash attention kernel, which computes what the reference's
 ``attention``/``chunked_attention`` compute; decode attention is the
 paged attention kernel over the ring cache viewed as pages, except for
-windowed and int8-KV models (see :func:`decoder_decode_step`). MoE and
-cross-attention raise NotImplementedError (ROADMAP A4).
+windowed and int8-KV models (see :func:`decoder_decode_step`).
+Cross-attention waits for ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.layers import (apply_rope, attention,
                                        cache_write_decode,
@@ -72,18 +75,41 @@ def init_mlp_params(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def init_moe_params(generator: torch.Generator, cfg: ModelConfig,
+                    dtype) -> Dict[str, Any]:
+    """The router (D, E), kept in f32, and the experts' stacked
+    projections (E, D, F), (E, D, F), (E, F, D), drawn in f32 on the
+    generator's device, as the reference's ``init_moe_params`` lays them
+    out."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    dev = generator.device
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return w * scale
+
+    return {
+        "w_router": normal((D, E), D ** -0.5),
+        "experts_gate": normal((E, D, F), D ** -0.5).to(dtype),
+        "experts_up": normal((E, D, F), D ** -0.5).to(dtype),
+        "experts_down": normal((E, F, D), F ** -0.5).to(dtype),
+    }
+
+
 def init_decoder_layer(generator: torch.Generator, cfg: ModelConfig,
                        dtype) -> Dict[str, Any]:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP A4)")
     dev = generator.device
-    return {
+    p = {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         "attn": init_attn_params(generator, cfg, dtype),
         "mlp_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "mlp": init_mlp_params(generator, cfg, dtype),
     }
+    if cfg.is_moe:
+        p["moe"] = init_moe_params(generator, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp_params(generator, cfg, dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -124,11 +150,24 @@ def attn_block_seq(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 
 
 def ffn_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-              policy: PrecisionPolicy) -> torch.Tensor:
+              policy: PrecisionPolicy, *, with_aux: bool = True
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The FFN sublayer with its residual: (x, the MoE router's aux
+    metrics, empty for a dense layer or without ``with_aux``). An MoE
+    layer routes the B * S tokens of x as one set."""
+    xn = rms_norm(x, p["mlp_norm"])
     if cfg.is_moe:
-        raise NotImplementedError("the MoE FFN is not ported yet "
-                                  "(ROADMAP A4)")
-    return x + gated_mlp(p["mlp"], rms_norm(x, p["mlp_norm"]), policy)
+        B, S, D = xn.shape
+        y, aux = moe_mod.moe_ffn(p["moe"], xn.reshape(B * S, D),
+                                 top_k=cfg.experts_per_token, policy=policy,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 with_aux=with_aux)
+        return x + y.reshape(B, S, D), aux
+    return x + gated_mlp(p["mlp"], xn, policy), {}
+
+
+#: the MoE router metrics a forward returns (layer means)
+MOE_AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
 
 def quantize_kv(x: torch.Tensor):
@@ -155,17 +194,24 @@ def decoder_forward_seq(layers: List[Dict[str, Any]], x: torch.Tensor,
                         collect_kv: bool = False):
     """Run the decoder stack over a full sequence.
 
-    Returns (hidden, (k, v) stacked as (L, B, S, Kv, hd) or None)."""
+    Returns (hidden, (k, v) stacked as (L, B, S, Kv, hd) or None, aux):
+    aux is the layer mean of the MoE router metrics (zeros for a dense
+    stack), summed layer by layer and divided once, as the reference's
+    scan does."""
     ks, vs = [], []
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in MOE_AUX}
     for lp in layers:
         x, k, v = attn_block_seq(lp, x, cfg, policy, causal=causal,
                                  window=window)
-        x = ffn_block(lp, x, cfg, policy)
+        x, a = ffn_block(lp, x, cfg, policy)
+        if cfg.is_moe:
+            aux = {key: aux[key] + a[key] for key in aux}
         if collect_kv:
             ks.append(k)
             vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, kv
+    return x, kv, {k: v / cfg.num_layers for k, v in aux.items()}
 
 
 def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
@@ -225,6 +271,6 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
             else:
                 o = attention(q, ck, cv, mask=mask)
         x = x + linear_apply(lp["attn"]["wo"], o.reshape(B, 1, -1), policy)
-        x = ffn_block(lp, x, cfg, policy)
+        x, _ = ffn_block(lp, x, cfg, policy, with_aux=False)
     cache["pos"] = pos + 1
     return x

@@ -6,7 +6,10 @@ representation:
 
 * plain tensor -> a matmul in the policy's compute dtype,
 * Int8Weight   -> the int8 dequant-matmul kernel (+ outlier matmul),
-* NF4Weight    -> the nf4 dequant-matmul kernel.
+* NF4Weight    -> the nf4 dequant-matmul kernel;
+
+with an expert axis on the weight (E, in, out) and on x (E, C, in), the
+grouped form of each: one launch over all experts.
 
 There is no switch between a kernel and a reference path: for a CUDA
 tensor the quantized ops launch the kernels, and for a CPU tensor they
@@ -35,7 +38,8 @@ def dequantize_weight(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
 
 def linear_apply(w: Any, x: torch.Tensor,
                  policy: PrecisionPolicy) -> torch.Tensor:
-    """y = x @ w under the precision policy.
+    """y = x @ w under the precision policy; for an (E, in, out) weight
+    and x (E, C, in), y[e] = x[e] @ w[e].
 
     The output dtype is the compute dtype. For 16-bit policies the
     matmul accumulates in f32 and rounds its output to the compute dtype
@@ -43,8 +47,12 @@ def linear_apply(w: Any, x: torch.Tensor,
     policies stay f32 end to end."""
     cd = policy.compute_dtype
     if isinstance(w, Int8Weight):
+        if w.codes.ndim == 3:
+            return qops.int8_matmul_grouped_kernel(x, w, compute_dtype=cd)
         return qops.int8_matmul_kernel(x, w, compute_dtype=cd)
     if isinstance(w, NF4Weight):
+        if w.packed.ndim == 3:
+            return qops.nf4_matmul_grouped_kernel(x, w, compute_dtype=cd)
         return qops.nf4_matmul_kernel(x, w, compute_dtype=cd)
     return torch.matmul(x.to(cd), w.to(cd))
 
@@ -66,14 +74,15 @@ def _quantize_leaf(path: str, leaf: Any, policy: PrecisionPolicy) -> Any:
         return leaf
     if leaf.shape[-1] < _MIN_QUANT_DIM or leaf.shape[-2] < _MIN_QUANT_DIM:
         return leaf
-    if leaf.ndim > 2:
-        raise NotImplementedError(
-            f"{path}: stacked expert weights belong to the MoE family, "
-            "which the port does not run yet (ROADMAP A4)")
+    if leaf.ndim > 3:
+        raise ValueError(f"{path}: expected (in, out) or (experts, in, out),"
+                         f" got {tuple(leaf.shape)}")
+    # an (experts, in, out) stack is quantized slice by slice, as the
+    # reference does (its quant/apply.py), batched over the expert axis
     if policy.fmt == INT8:
         return quantize_int8(leaf, policy.outlier_fraction)
     blk = policy.nf4_block_size
-    while leaf.shape[0] % blk or blk % 2:
+    while leaf.shape[-2] % blk or blk % 2:
         blk //= 2
     return quantize_nf4(leaf, max(blk, 2))
 

@@ -14,12 +14,14 @@ import torch
 
 
 class Int8Weight(NamedTuple):
-    """Quantized (in_dim, out_dim) weight.
+    """Quantized (in_dim, out_dim) weight, or a stack of E expert weights
+    (E, in_dim, out_dim), each slice quantized on its own: every field
+    then carries the leading expert axis.
 
-    ``codes``  int8  (in_dim, out_dim)
-    ``scale``  f32   (out_dim,)           absmax / 127 per output column
-    ``outlier_idx``  int32 (n_outliers,)  input rows kept in 16-bit
-    ``outlier_w``    bf16  (n_outliers, out_dim)
+    ``codes``  int8  ([E,] in_dim, out_dim)
+    ``scale``  f32   ([E,] out_dim)           absmax / 127 per output column
+    ``outlier_idx``  int32 ([E,] n_outliers)  input rows kept in 16-bit
+    ``outlier_w``    bf16  ([E,] n_outliers, out_dim)
     """
     codes: torch.Tensor
     scale: torch.Tensor
@@ -32,37 +34,42 @@ def quantize_int8(w: torch.Tensor, outlier_fraction: float = 0.0
     """Vector-wise absmax quantization with optional outlier split.
 
     The outlier rows (largest L-inf norm; ties broken by index, as
-    ``jnp.argsort`` does) are zeroed in the codes and kept in bf16."""
-    if w.ndim != 2:
-        raise ValueError(f"expected 2-D weight, got {tuple(w.shape)}")
+    ``jnp.argsort`` does) are zeroed in the codes and kept in bf16. A 3-D
+    ``w`` (E, in_dim, out_dim) is quantized batched over its expert axis,
+    to the bytes of quantizing each slice alone (the reference's
+    ``quant/apply.py`` quantizes slice by slice)."""
+    if w.ndim not in (2, 3):
+        raise ValueError(f"expected a 2-D weight or an (E, in, out) stack, "
+                         f"got {tuple(w.shape)}")
     w = w.to(torch.float32)
-    in_dim = w.shape[0]
+    lead, (in_dim, out_dim) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
     n_out = int(round(outlier_fraction * in_dim))
     if n_out > 0:
-        row_mag = w.abs().amax(dim=1)
-        outlier_idx = torch.argsort(-row_mag, stable=True)[:n_out] \
-            .to(torch.int32)
-        outlier_w = w[outlier_idx.long()].to(torch.bfloat16)
-        w = w.clone()
-        w[outlier_idx.long()] = 0.0
+        row_mag = w.abs().amax(dim=-1)
+        outlier_idx = torch.argsort(-row_mag, dim=-1, stable=True) \
+            [..., :n_out].to(torch.int32)
+        rows = outlier_idx.long()[..., None].expand(lead + (n_out, out_dim))
+        outlier_w = torch.gather(w, -2, rows).to(torch.bfloat16)
+        w = w.scatter(-2, rows, 0.0)
     else:
-        outlier_idx = torch.zeros((0,), dtype=torch.int32, device=w.device)
-        outlier_w = torch.zeros((0, w.shape[1]), dtype=torch.bfloat16,
+        outlier_idx = torch.zeros(lead + (0,), dtype=torch.int32,
+                                  device=w.device)
+        outlier_w = torch.zeros(lead + (0, out_dim), dtype=torch.bfloat16,
                                 device=w.device)
-    absmax = w.abs().amax(dim=0)
+    absmax = w.abs().amax(dim=-2)
     scale = torch.where(absmax > 0, absmax / 127.0,
                         torch.ones_like(absmax)).to(torch.float32)
-    codes = torch.clamp(torch.round(w / scale[None, :]), -127, 127) \
+    codes = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127) \
         .to(torch.int8)
     return Int8Weight(codes=codes, scale=scale, outlier_idx=outlier_idx,
                       outlier_w=outlier_w)
 
 
 def dequantize_int8(q: Int8Weight, dtype=torch.bfloat16) -> torch.Tensor:
-    w = q.codes.to(torch.float32) * q.scale[None, :]
-    if q.outlier_idx.shape[0]:
-        w = w.index_add(0, q.outlier_idx.long(),
-                        q.outlier_w.to(torch.float32))
+    w = q.codes.to(torch.float32) * q.scale[..., None, :]
+    if q.outlier_idx.shape[-1]:
+        rows = q.outlier_idx.long()[..., None].expand(q.outlier_w.shape)
+        w = w.scatter_add(-2, rows, q.outlier_w.to(torch.float32))
     return w.to(dtype)
 
 

@@ -31,11 +31,13 @@ def codebook(device) -> torch.Tensor:
 
 
 class NF4Weight(NamedTuple):
-    """Quantized (in_dim, out_dim) weight.
+    """Quantized (in_dim, out_dim) weight, or a stack of E expert weights
+    (E, in_dim, out_dim), each slice quantized on its own: both fields
+    then carry the leading expert axis.
 
-    ``packed``  uint8 (in_dim // 2, out_dim)  two 4-bit codes per byte,
-                packed along the input dim (even row in low nibble).
-    ``absmax``  f32   (in_dim // block, out_dim) per-block scale.
+    ``packed``  uint8 ([E,] in_dim // 2, out_dim)  two 4-bit codes per
+                byte, packed along the input dim (even row in low nibble).
+    ``absmax``  f32   ([E,] in_dim // block, out_dim) per-block scale.
     """
     packed: torch.Tensor
     absmax: torch.Tensor
@@ -61,33 +63,41 @@ def _nearest_code(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_nf4(w: torch.Tensor, block: int = 64) -> NF4Weight:
-    if w.ndim != 2:
-        raise ValueError(f"expected 2-D weight, got {tuple(w.shape)}")
-    in_dim, out_dim = w.shape
+    """Block-wise NF4 quantization of a 2-D weight, or of an (E, in, out)
+    stack batched over its expert axis, to the bytes of quantizing each
+    slice alone."""
+    if w.ndim not in (2, 3):
+        raise ValueError(f"expected a 2-D weight or an (E, in, out) stack, "
+                         f"got {tuple(w.shape)}")
+    lead, (in_dim, out_dim) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
     if in_dim % (2 * block) and in_dim % block:
         raise ValueError(f"in_dim {in_dim} not divisible by block {block}")
     if in_dim % 2:
         raise ValueError("in_dim must be even for 2-per-byte packing")
-    wb = w.to(torch.float32).reshape(in_dim // block, block, out_dim)
-    absmax = wb.abs().amax(dim=1)                              # (nb, out)
+    wb = w.to(torch.float32).reshape(lead + (in_dim // block, block,
+                                             out_dim))
+    absmax = wb.abs().amax(dim=-2)                        # (.., nb, out)
     absmax = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
-    codes = _nearest_code(wb / absmax[:, None, :]).reshape(in_dim, out_dim)
-    packed = codes[0::2, :] | (codes[1::2, :] << 4)
+    codes = _nearest_code(wb / absmax[..., None, :]) \
+        .reshape(lead + (in_dim, out_dim))
+    packed = codes[..., 0::2, :] | (codes[..., 1::2, :] << 4)
     return NF4Weight(packed=packed.contiguous(),
                      absmax=absmax.to(torch.float32))
 
 
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
-    """(K/2, N) uint8 -> (K, N) int64 codes, even rows from the low
-    nibble."""
+    """([E,] K/2, N) uint8 -> ([E,] K, N) int64 codes, even rows from the
+    low nibble."""
     lo = (packed & 0x0F).long()
     hi = ((packed >> 4) & 0x0F).long()
-    return torch.stack([lo, hi], dim=1).reshape(-1, packed.shape[-1])
+    return torch.stack([lo, hi], dim=-2) \
+        .reshape(packed.shape[:-2] + (-1, packed.shape[-1]))
 
 
 def dequantize_nf4(q: NF4Weight, dtype=torch.bfloat16) -> torch.Tensor:
     codes = unpack_codes(q.packed)
-    in_dim, out_dim = codes.shape
+    lead, (in_dim, out_dim) = codes.shape[:-2], codes.shape[-2:]
     vals = codebook(codes.device)[codes]
-    vals = vals.reshape(-1, q.block, out_dim) * q.absmax[:, None, :]
-    return vals.reshape(in_dim, out_dim).to(dtype)
+    vals = vals.reshape(lead + (-1, q.block, out_dim)) \
+        * q.absmax[..., None, :]
+    return vals.reshape(lead + (in_dim, out_dim)).to(dtype)

@@ -354,22 +354,30 @@ class ExecutedBackend(AnalyticBackend):
     phases on a model. The clock stays analytic (what the paper measures
     per phase); each executed phase also carries its host wall time.
 
-    The config and precision policy are the model's. ``record_logits``:
+    The precision policy is the model's, and so is the config the
+    phases are priced for unless ``cost_cfg`` names another (a reduced
+    model priced at full width). ``record_logits``:
     keep each request's first-token logits (f32, on the host) in
-    ``first_logits[req_id]``, for checks against a sequential run."""
+    ``first_logits[req_id]``, for checks against a sequential run.
+    ``prefill_shapes`` holds the (rows, padded length) of each batched
+    prefill, in order, and for an MoE model ``prefill_aux`` its
+    layer-mean router metrics (``dropped_fraction`` among them)."""
 
     name = "executed"
 
     def __init__(self, model, params, *, max_batch: int,
                  buf_len: int = 256, record_logits: bool = False,
-                 **analytic_kw):
-        super().__init__(model.cfg, policy=model.policy, **analytic_kw)
+                 cost_cfg: Optional[ModelConfig] = None, **analytic_kw):
+        super().__init__(cost_cfg or model.cfg, policy=model.policy,
+                         **analytic_kw)
         self.model = model
         self.params = params
         self.max_batch = max_batch
         self.buf_len = buf_len
         self.record_logits = record_logits
         self.first_logits: Dict[int, torch.Tensor] = {}
+        self.prefill_shapes: List[Tuple[int, int]] = []
+        self.prefill_aux: List[Dict[str, float]] = []
         self.start()
 
     def start(self) -> None:
@@ -440,10 +448,14 @@ class ExecutedBackend(AnalyticBackend):
             toks[j, :r.prompt_len] = r.prompt[:exec_pad]
             lens[j] = r.prompt_len
         dev = self.model.device
-        logits, pcache = self.model.prefill(
+        logits, pcache, aux = self.model.prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(dev)},
-            buf_len=self.buf_len, lengths=torch.from_numpy(lens).to(dev))
+            buf_len=self.buf_len, lengths=torch.from_numpy(lens).to(dev),
+            with_aux=True)
         first = torch.argmax(logits, -1).cpu().numpy()
+        self.prefill_shapes.append(toks.shape)
+        if self.model.cfg.is_moe:
+            self.prefill_aux.append({k: float(v) for k, v in aux.items()})
         for j, (slot, r) in enumerate(picks):
             self._record(r, logits[j])
             r.generated = [int(first[j])]

@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.batching.static import bucket_length
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.energy import EnergyModel
 from repro_torch.core.hardware import H100_SXM, DeviceSpec
 from repro_torch.serving import slo
@@ -212,13 +213,16 @@ class ServeEngine:
     """Serve a request list through an :class:`ExecutedBackend` built for
     ``model`` (its config and precision policy) on the analytic
     ``device`` of ``n_chips`` chips, priced by ``energy_model_cls``.
-    ``fmt``, when given, must be the model's format."""
+    ``fmt``, when given, must be the model's format. ``cost_cfg``: the
+    config the phases are priced for, when not the model's (a reduced
+    model served on the CPU, priced at full width)."""
 
     def __init__(self, model, params, *, mode: str = "continuous",
                  max_batch: int = 32, max_prefill_batch: int = 8,
                  buf_len: int = 256, record_logits: bool = False,
                  fmt: Optional[str] = None, device: DeviceSpec = H100_SXM,
-                 n_chips: int = 1, energy_model_cls=EnergyModel):
+                 n_chips: int = 1, energy_model_cls=EnergyModel,
+                 cost_cfg: Optional[ModelConfig] = None):
         if mode not in ("continuous", "sequential"):
             raise ValueError(mode)
         if max_batch < 1 or max_prefill_batch < 1:
@@ -233,7 +237,7 @@ class ServeEngine:
         self.backend = ExecutedBackend(
             model, params, max_batch=max_batch, buf_len=buf_len,
             record_logits=record_logits, device=device, n_chips=n_chips,
-            energy_model_cls=energy_model_cls)
+            energy_model_cls=energy_model_cls, cost_cfg=cost_cfg)
         self.phases: List[PhaseResult] = []
 
     def run(self, requests: List[Request]) -> ServeReport:

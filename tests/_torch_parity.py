@@ -1,12 +1,15 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
-package: moving arrays across as numpy, and carrying a JAX model's
-weights into the port through the reference's npz checkpoint."""
+package: moving arrays across as numpy, carrying a JAX model's weights
+into the port through the reference's npz checkpoint, and compiling the
+reference's int8 MoE layer on the CPU."""
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.models import moe as jax_moe
 from repro.training.checkpoint import save_checkpoint
 from repro_torch.weights import load_jax_checkpoint
 
@@ -37,3 +40,24 @@ def carry_params(params, tmp_path, name="ckpt.npz"):
     path = os.path.join(str(tmp_path), name)
     save_checkpoint(path, params)
     return load_jax_checkpoint(path, device="cpu")
+
+
+def host_expert_product(monkeypatch):
+    """Run the reference's int8 expert product (``moe._expert_dense``)
+    op by op on the host, called back from the compiled reference: XLA:CPU
+    cannot compile its batched bf16 x bf16 -> f32 dots (DotThunk), and
+    running the whole reference op by op compiles every primitive on its
+    own (about 30 s in each test process)."""
+    expert_dense = jax_moe._expert_dense
+
+    def host(w, x, policy):
+        with jax.disable_jit():
+            return np.asarray(expert_dense(w, x, policy))
+
+    def called_back(w, x, policy):
+        out = jax.ShapeDtypeStruct(x.shape[:-1] + (w.codes.shape[-1],),
+                                   policy.compute_dtype)
+        return jax.pure_callback(lambda w_, x_: host(w_, x_, policy), out,
+                                 w, x)
+
+    monkeypatch.setattr(jax_moe, "_expert_dense", called_back)

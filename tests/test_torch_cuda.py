@@ -1,7 +1,9 @@
 """On a CUDA device only: each CUDA kernel against its plain PyTorch
 version: the quant_matmul kernels through every loop the launcher picks
 (the decode loop also row by row against M = 1 calls and under graph
-replay), the attention kernels at ragged shapes. Imports no JAX,
+replay), their grouped launch over the experts of an MoE layer at
+qwen3-moe-30b-a3b's and granite-moe-1b-a400m's shapes, the attention
+kernels at ragged shapes. Imports no JAX,
 so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
@@ -111,7 +113,7 @@ def test_cuda_wgmma_loop_walks_several_tiles():
                                ("nf4_matmul", (q4.packed, q4.absmax), 64)):
         out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
         extra = (block,) if block else ()
-        K._launch(name, plan, x, wargs, out, M, N, Kd, *extra, 1)
+        K._launch(name, name, plan, x, wargs, out, M, N, Kd, *extra, 1)
         ref = getattr(K, name + "_plain")(x, *wargs)
         torch.cuda.synchronize()
         assert _rel(out, ref) < 1e-2, name
@@ -647,3 +649,127 @@ def test_cuda_attention_refuses_other_head_dims():
                                       device="cuda"))
     assert (FK.LAUNCHES["flash_attention"],
             PK.LAUNCHES["paged_attention"]) == before
+
+
+# ---------------------------------------------------------------------------
+# the grouped launch: every expert of an MoE projection in one launch
+# ---------------------------------------------------------------------------
+def _grouped_case(E, C, Kd, N, seed, td=torch.bfloat16):
+    """x (E, C, Kd) and an (E, Kd, N) weight quantized as int8 and as nf4
+    (block 64): (entry point, weight tensors) for each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((E, C, Kd), generator=gen, device="cuda").to(td)
+    w = torch.randn((E, Kd, N), generator=gen, device="cuda") * Kd ** -0.5
+    q8 = pt_int8.quantize_int8(w)
+    q4 = pt_nf4.quantize_nf4(w, 64)
+    return x, [("int8_matmul", (q8.codes, q8.scale)),
+               ("nf4_matmul", (q4.packed, q4.absmax))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,Kd,N", [
+    (128, 8, 2048, 768), (128, 8, 768, 2048),       # qwen3 decode
+    (128, 40, 2048, 768), (128, 40, 768, 2048),     # qwen3 prefill
+    (32, 8, 1024, 512), (32, 8, 512, 1024),         # granite decode
+    (32, 160, 1024, 512), (32, 160, 512, 1024),     # granite prefill
+    (3, 5, 320, 208), (3, 130, 320, 208)])          # ragged C and N
+def test_cuda_grouped_matches_plain(E, C, Kd, N):
+    """On the card: one grouped call over all experts against the plain
+    grouped version at qwen3-moe-30b-a3b's and granite-moe-1b-a400m's
+    expert shapes, on the decode loop for C <= 8 and the wgmma loop
+    above, one launch a call; 1e-2 relative (one bf16 rounding of f32
+    sums taken in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(E, C, Kd, N, E + C + N)
+    loop = "decode" if C <= 8 else "wgmma"
+    for name, wargs in cases:
+        entry = name + "_grouped"
+        before = dict(K.LOOP_LAUNCHES[entry])
+        launches = K.LAUNCHES[entry]
+        got = getattr(K, entry)(x, *wargs)
+        ref = getattr(K, name + "_plain")(x, *wargs)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[entry] == launches + 1
+        assert K.LOOP_LAUNCHES[entry][loop] == before[loop] + 1
+        assert got.shape == (E, C, N)
+        assert _rel(got, ref) < 1e-2, entry
+        # every expert holds its own product, not a neighbour's
+        worst = max(_rel(got[e], ref[e]) for e in (0, E // 2, E - 1))
+        assert worst < 1e-2, entry
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_decode_rows_do_not_depend_on_the_batch():
+    """On the card: row i of each expert of a C = 4 grouped decode call
+    is, bit for bit, a C = 1 call on that row (the grouped plan and every
+    sum's order do not depend on C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(16, 4, 768, 2048, 3)
+    for name, wargs in cases:
+        fn = getattr(K, name + "_grouped")
+        got = fn(x, *wargs)
+        for i in range(4):
+            row = fn(x[:, i:i + 1].contiguous(), *wargs)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:, i:i + 1], row), (name, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 40])
+def test_cuda_grouped_call_is_one_kernel_node(C):
+    """On the card: one grouped call captured in a CUDA graph is one
+    kernel node and nothing else, and replays of it with new x give the
+    eager result, the merge's counters back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(128, C, 2048, 768, 5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, wargs in cases:
+        fn = getattr(K, name + "_grouped")
+        assert _graph_nodes(lambda: fn(x, *wargs)) == [0]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(x, *wargs)
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        g.replay()
+        want = fn(x, *wargs)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+        assert not K.cuda_build.counters(x.device, 1).any(), name
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_float32_takes_the_tile_loop():
+    """On the card: f32 compute runs the grouped form on the CUDA-core
+    tile loop (one grid layer per expert) at 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(5, 9, 256, 208, 8, td=torch.float32)
+    for name, wargs in cases:
+        entry = name + "_grouped"
+        before = K.LOOP_LAUNCHES[entry]["tile"]
+        got = getattr(K, entry)(x, *wargs, torch.float32)
+        ref = getattr(K, name + "_plain")(x, *wargs, torch.float32)
+        torch.cuda.synchronize()
+        assert K.LOOP_LAUNCHES[entry]["tile"] == before + 1
+        assert _rel(got, ref) < 1e-5, entry
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_bf16_refuses_what_no_loop_takes():
+    """On the card: a bf16 grouped call the Hopper loops do not take (K
+    not a multiple of 64) raises before any launch, with no fallback to
+    the plain version or a loop of 2-D calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((2, 8, 96), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q8 = pt_int8.quantize_int8(
+        torch.randn((2, 96, 64), generator=gen, device="cuda"))
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="no grouped bf16 kernel"):
+        K.int8_matmul_grouped(x, q8.codes, q8.scale)
+    assert K.LAUNCHES == before

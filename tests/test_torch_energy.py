@@ -498,3 +498,30 @@ def test_engine_refuses_a_late_arrival_and_another_format(weights):
     reqs[3].arrival_time = 0.5
     with pytest.raises(ValueError, match="arrive after"):
         ServeEngine(model, tparams).run(reqs)
+
+
+def test_executed_backend_prices_phases_for_cost_cfg(weights):
+    """ExecutedBackend(cost_cfg=...) (ServeEngine's ``cost_cfg``) runs the
+    reduced model and prices its phases for the full-width config, as
+    the analytic backend of that config does; the prefill also returns
+    its router metrics (zeros for a dense model)."""
+    fmt, _, _, tparams = weights
+    full = PAPER_MODELS["llama-3.1-8b"]
+    model = build_model(CFG, fmt=fmt, device="cpu")
+    reqs = [r for _, r in _picks(Request, [5, 9])]
+    for r in reqs:
+        r.prompt = np.arange(r.prompt_len) % CFG.vocab_size
+    batch = pt_backend.PrefillBatch([(0, reqs[0]), (1, reqs[1])], 16)
+    want = pt_backend.AnalyticBackend(full, policy=model.policy) \
+        .prefill(batch)
+    eng = ServeEngine(model, tparams, max_batch=2, buf_len=32,
+                      cost_cfg=full)
+    got = eng.backend.prefill(batch)
+    assert (got.latency_s, got.energy_j) == (want.latency_s, want.energy_j)
+    assert eng.backend.prefill_shapes == [(2, 16)]
+    assert [len(r.generated) for r in reqs] == [1, 1]
+    _, _, aux = model.prefill(tparams, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.long)}, with_aux=True)
+    assert set(aux) == {"load_balance_loss", "router_z_loss",
+                        "dropped_fraction"}
+    assert all(float(v) == 0.0 for v in aux.values())

@@ -218,24 +218,39 @@ def test_teacher_forced_logits(fmt, kv_quant, tmp_path):
         assert rel_err(a, b) < TEACHER_TOL, f"step {i}"
 
 
-def test_other_families_raise():
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "phi-3-vision-4.2b"])
+def test_other_families_raise(arch):
+    """A family the port does not run yet (ssm, vlm) raises, naming the
+    ROADMAP item."""
     from repro.configs import get_config
     from repro_torch.configs.base import ModelConfig
     import dataclasses
-    moe = get_config("granite-moe-1b-a400m").reduced()
-    cfg = ModelConfig(**{f.name: getattr(moe, f.name)
+    ref = get_config(arch).reduced()
+    cfg = ModelConfig(**{f.name: getattr(ref, f.name)
                          for f in dataclasses.fields(ModelConfig)})
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         build_model(cfg, device="cpu")
 
 
 def test_config_parity():
+    """The paper's zoo and every ARCH_IDS config: the same fields and
+    param counts (total and active) in both packages, full and
+    reduced."""
+    from repro.configs import get_config as jax_get_config
+    from repro.configs.base import ARCH_IDS as J_IDS
     from repro.configs.paper_zoo import PAPER_MODELS as JZ
+    from repro_torch.configs import ARCH_IDS as T_IDS
+    from repro_torch.configs import get_config as torch_get_config
     from repro_torch.configs.paper_zoo import PAPER_MODELS as TZ
     import dataclasses
     assert set(JZ) == set(TZ)
-    for name in JZ:
-        for c_j, c_t in ((JZ[name], TZ[name]),
-                         (JZ[name].reduced(), TZ[name].reduced())):
+    assert tuple(J_IDS) == tuple(T_IDS)
+    pairs = [(JZ[name], TZ[name]) for name in JZ] \
+        + [(jax_get_config(a), torch_get_config(a)) for a in J_IDS]
+    for full_j, full_t in pairs:
+        for c_j, c_t in ((full_j, full_t),
+                         (full_j.reduced(), full_t.reduced())):
             assert dataclasses.asdict(c_j) == dataclasses.asdict(c_t)
             assert c_j.param_count() == c_t.param_count()
+            assert c_j.param_count(active_only=True) \
+                == c_t.param_count(active_only=True)

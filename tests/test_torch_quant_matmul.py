@@ -138,7 +138,8 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
                        K.int8_matmul_plain(x, q8.codes, q8.scale))
     assert torch.equal(K.nf4_matmul(x, q4.packed, q4.absmax),
                        K.nf4_matmul_plain(x, q4.packed, q4.absmax))
-    assert K.LAUNCHES == {"int8_matmul": 0, "nf4_matmul": 0}
+    assert K.LAUNCHES == {"int8_matmul": 0, "nf4_matmul": 0,
+                          "int8_matmul_grouped": 0, "nf4_matmul_grouped": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -360,5 +361,6 @@ def test_cpu_wrappers_count_no_loop():
     x = torch.from_numpy(_rand((16, 128), 0))
     q8 = pt_int8.quantize_int8(torch.from_numpy(_rand((128, 32), 1)))
     K.int8_matmul(x, q8.codes, q8.scale)
+    K.int8_matmul_grouped(x[None], q8.codes[None], q8.scale[None])
     assert K.LOOP_LAUNCHES == {name: {loop: 0 for loop in K.LOOPS}
-                               for name in K.KERNELS}
+                               for name in K.ENTRY_POINTS}

@@ -51,9 +51,10 @@ ONES = "for (auto& r : {f}) for (auto& v : r) v = 0x3F803F80u;"
 WGMMA = """            wgmma_rs<BM>(acc, cur[kk], desc(xa + kk * 32, 16, 1024));"""
 MMA = """                mma_bf16(acc, f[i][kk], xb[i][kk][0], xb[i][kk][1]);"""
 LOADS = """          mbar_expect_tx(&full[s], L::x_bytes + a.st.template tx_bytes<BN>());
-          tma_load_2d(smem + s * L::x_bytes, &a.x, &full[s], kt * kBK, m0);
+          tma_load_3d(smem + s * L::x_bytes, &a.x, &full[s], kt * kBK, m0,
+                      e);
           a.st.template load<BN>(smem + L::raw_off + s * L::raw_bytes,
-                                 &full[s], kt, n0);"""
+                                 &full[s], e * a.K + kt * kBK, n0);"""
 # the fragments (and x's) kept alive through a use that costs one operation
 KEEP = """acc[{i}] += __uint_as_float(({r}[0] ^ {r}[1] ^ {r}[2] ^ {r}[3] ^
                                       {x}) & 0x3F800000u);"""
