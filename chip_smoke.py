@@ -14,9 +14,13 @@ non-zero exit code:
    dequant-matmul kernels at the llama-3.1-8b projection shapes (M in
    {1, 4, 8, 464, 512}, four (K, N)) and at every other 2-D projection
    that a serve cell runs in int8 or nf4 (qwen3-moe-30b-a3b's and
-   granite-moe-1b-a400m's attention, command-r-35b's seven), at the rows
-   the serve gives it (1 and 4 at decode, 512 at prefill), in bf16, each
-   row naming the loop
+   granite-moe-1b-a400m's attention, command-r-35b's seven, mamba2-2.7b's
+   w_in (2560, 10576) and w_out (5120, 2560) in nf4, zamba2-1.2b's w_in
+   (2048, 8384), w_out (4096, 2048) and shared block in int8,
+   seamless-m4t-large-v2's (1024, 1024), (1024, 8192) and (8192, 1024)
+   in int8), at the rows the serve gives it (1 and 4 at decode, 512 at
+   prefill; 2 and 128 for the Model runs' decode pair and encoder), in
+   bf16, each row naming the loop
    that ran: "decode" for M <= 8 (the TMA + tensor-core loop of
    ``qmm_wgmma.cuh`` at 8 rows of x, its K steps split evenly over one
    block per SM and the split tiles merged in the same launch), "wgmma"
@@ -26,13 +30,19 @@ non-zero exit code:
    heads (B, S) in {(1, 81), (2, 256), (1, 2048)} causal, one windowed
    cell and one at qwen2.5-0.5b's heads, and at head_dim 120
    (h2o-danube-3-4b: (2, 256) causal and a window of 4096 over S = 4608)
-   and 96 (phi-3-vision-4.2b: (2, 256) causal), and (2, 256) at the
-   heads of qwen3-moe-30b-a3b (32/4/64), stablelm-1.6b (32/32/64),
-   command-r-35b (64/8/128) and granite-moe-1b-a400m (16/8/64); paged
-   attention at
+   and 96 (phi-3-vision-4.2b: (2, 256) causal, and (2, 576 + 256), the
+   vlm prefill with patches), and (2, 256) at the
+   heads of qwen3-moe-30b-a3b (32/4/64), stablelm-1.6b (32/32/64, also
+   zamba2-1.2b's shared block), command-r-35b (64/8/128),
+   granite-moe-1b-a400m (16/8/64) and seamless-m4t-large-v2 (16/16/64);
+   without a mask at seamless's heads (FLASH_FULL_CELLS: its encoder,
+   (2, 64) over 64 frames, and its cross-attention, 256 queries over 64
+   frames); paged attention at
    llama-3.1-8b's heads for B in {1, 4, 8} and ring lengths W in {261,
-   512, 4096}, and at the other six heads for B = 4
-   over W = 512, with ragged lengths and an unassigned page; the
+   512, 4096}, at the other seven heads for B = 4
+   over W = 512, and at seamless's for B = 2 over W = 64 (a decode
+   step's cross-attention over the encoder K/V, one page a row), with
+   ragged lengths and an unassigned page; the
    attention cells in bf16 and
    f32, each checked row by row and beside a control (the plain version
    with its mask edge moved by one key) that the check must see. At each
@@ -80,6 +90,25 @@ non-zero exit code:
    and command-r-35b in int8, at full width and depth, 4 requests of 8
    new tokens, the same checks (h2o-danube's windowed decode takes the
    masked path: no paged launch).
+7. families: with the dense cells' traffic and checks, at full width and
+   depth, phi-3-vision-4.2b in bfloat16 (text only, as the reference
+   serves it: 32 flash launches a prefill, 32 paged a step), mamba2-2.7b
+   in bfloat16 and nf4 (no attention; 2 quant launches a layer and
+   phase, 128) and zamba2-1.2b in bfloat16 and int8 (the shared block at
+   6 sites: 6 flash launches a prefill and 6 paged a step; 2 quant
+   launches a Mamba layer and 7 a site, 118 a phase).
+8. model: phi-3-vision-4.2b in bfloat16 with 576 seeded patch embeddings
+   a request, and seamless-m4t-large-v2 in bfloat16 and int8 with 64
+   seeded frame embeddings a request (no serving path carries frames: the
+   reference's backend passes only tokens), through ``Model.prefill`` and
+   ``Model.decode_step``: the dense cells' 4 prompts, two at a time,
+   right-padded with ``lengths``, a prefill and 8 greedy decode steps on
+   a ring that holds the prefill; the launches counted over that run
+   (seamless: 72 flash launches a prefill, its encoder's 24, the
+   decoder's 24 and the cross-attention's 24; 48 paged a step, self and
+   cross; under int8 432 quant launches a prefill and 216 a step), and
+   each request's batched prefill logits against its own prefill. Prints
+   a model line of host wall times, tokens/s and peak memory.
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -89,7 +118,8 @@ no CUDA device is visible.
 Cuts: qwen3-moe-30b-a3b runs no float32 (120 GB of weights, more than
 the card's 80 GB) and no float16 (it stores the same 16-bit bytes as
 bfloat16 and casts them per product); the dense ARCH_IDS configs run one
-format each, 4 requests of 8 new tokens. Weights are random.
+format each, 4 requests of 8 new tokens; the families' cells run one or
+two formats each, with the same traffic. Weights are random.
 """
 from __future__ import annotations
 
@@ -170,21 +200,38 @@ QWEN3_HEADS = (32, 4, 64)           # qwen3-moe-30b-a3b
 STABLELM_HEADS = (32, 32, 64)       # stablelm-1.6b (MHA)
 COMMAND_R_HEADS = (64, 8, 128)      # command-r-35b
 GRANITE_HEADS = (16, 8, 64)         # granite-moe-1b-a400m
-# (B, S, heads, window)
+SEAMLESS_HEADS = (16, 16, 64)       # seamless-m4t-large-v2 (MHA)
+# zamba2-1.2b's shared block is 32/32/64, stablelm's heads
+# audio frames a request of the Model runs: fixed, so that a request's
+# encoder input does not depend on its batch
+T_ENC = 64
+# (B, S, heads, window): causal self-attention. (2, 832) at phi-3-vision's
+# heads: a pair of the vlm Model run's prefills, 576 patches and a prompt
+# padded to 256
 FLASH_CELLS = [(1, 81, LLAMA_HEADS, None), (2, 256, LLAMA_HEADS, None),
                (1, 2048, LLAMA_HEADS, None), (1, 2048, LLAMA_HEADS, 512),
                (2, 256, QWEN_HEADS, None), (2, 256, H2O_HEADS, None),
                (1, 4608, H2O_HEADS, 4096), (2, 256, PHI3V_HEADS, None),
                (2, 256, QWEN3_HEADS, None), (2, 256, STABLELM_HEADS, None),
                (2, 256, COMMAND_R_HEADS, None),
-               (2, 256, GRANITE_HEADS, None)]
+               (2, 256, GRANITE_HEADS, None),
+               (2, 256, SEAMLESS_HEADS, None),
+               (2, 576 + 256, PHI3V_HEADS, None)]
+# (B, S, T, heads): attention without a mask, S queries over T keys: the
+# audio encoder over its T_ENC frames and the decoder's cross-attention
+# of a padded prompt over them
+FLASH_FULL_CELLS = [(2, T_ENC, T_ENC, SEAMLESS_HEADS),
+                    (2, 256, T_ENC, SEAMLESS_HEADS)]
 # 261: the sequential path's ring for a 228-token prompt (one page);
-# 512: the serve phase's buf_len; 4096: a long context. (B, W, heads)
+# 512: the serve phase's buf_len; 4096: a long context. (B, W, heads);
+# (2, T_ENC): a decode step's cross-attention over the encoder K/V, one
+# page a row
 PAGED_CELLS = [(B, W, LLAMA_HEADS) for B in (1, 4, 8)
                for W in (261, 512, 4096)] \
     + [(4, 512, h) for h in (H2O_HEADS, PHI3V_HEADS, QWEN3_HEADS,
                              STABLELM_HEADS, COMMAND_R_HEADS,
-                             GRANITE_HEADS)]
+                             GRANITE_HEADS, SEAMLESS_HEADS)] \
+    + [(2, T_ENC, SEAMLESS_HEADS)]
 # the card's power draw in W, one line every 100 ms, over the serve runs
 POWER_SAMPLER = ["nvidia-smi", "--query-gpu=power.draw",
                  "--format=csv,noheader,nounits", "-lms", "100"]
@@ -250,10 +297,19 @@ def timed_ms(torch, fn, arg_sets, reps: int = 10,
 def serve_projections(cfg) -> list:
     """(K, N) of each 2-D projection a layer of ``cfg`` quantizes: wq,
     wk and wv, wo, and for a dense layer w_gate and w_up, w_down (an MoE
-    layer's experts take the grouped launch)."""
+    layer's experts take the grouped launch; an audio layer's
+    cross-attention and its encoder's layers have the same shapes); a
+    Mamba layer's w_in and w_out, and for hybrid the shared block's."""
     D = cfg.d_model
+    kn = []
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.ssm import ssm_dims
+        dims = ssm_dims(cfg)
+        kn += [(D, dims["d_in_proj"]), (dims["d_inner"], D)]
+    if not cfg.has_attention:
+        return kn
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    kn = [(D, q), (D, kv), (q, D)]
+    kn += [(D, q), (D, kv), (q, D)]
     if not cfg.is_moe:
         kn += [(D, cfg.d_ff), (cfg.d_ff, D)]
     return kn
@@ -266,7 +322,9 @@ def quant_cells(configs) -> tuple:
     config makes in each quantized format it serves: its 2-D projections
     at 1 row (a sequential decode step), max_batch rows (a continuous
     one) and max_prefill_batch times the longest prompt (a batched
-    prefill), and for MoE its grouped expert products (E, C, K, N) at the
+    prefill); every MODEL_CELLS config's at the same rows and at the
+    pair's rows (a decode step) and its encoder rows (MODEL_PAIR *
+    T_ENC); and for MoE its grouped expert products (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
     top_k) of the logit pair. ``configs`` maps an arch to its config.
@@ -287,7 +345,12 @@ def quant_cells(configs) -> tuple:
     for arch, E, C, Kd, N in GROUPED_SHAPES:
         for name in ("int8_matmul", "nf4_matmul"):
             add(grouped, (name + "_grouped", E, Kd, N), [C], arch)
-    for arch, formats, kw in SERVE_CELLS:
+    cells = [(arch, formats, kw, [1, kw["max_batch"]])
+             for arch, formats, kw in SERVE_CELLS] \
+        + [(arch, formats, MODEL_TRAFFIC,
+            [1, MODEL_TRAFFIC["max_batch"], MODEL_PAIR, MODEL_PAIR * T_ENC])
+           for arch, formats in MODEL_CELLS]
+    for arch, formats, kw, small in cells:
         cfg = configs[arch]
         batched = kw["max_prefill_batch"] * kw["prompt_len"][1]
         for fmt in formats:
@@ -295,8 +358,7 @@ def quant_cells(configs) -> tuple:
             if name is None:
                 continue
             for Kd, N in serve_projections(cfg):
-                add(two_d, (name, Kd, N), [1, kw["max_batch"], batched],
-                    arch)
+                add(two_d, (name, Kd, N), small + [batched], arch)
             if not cfg.is_moe:
                 continue
             E, k = cfg.num_experts, cfg.experts_per_token
@@ -453,16 +515,22 @@ def grouped_phase(torch, K, cells):
 
 
 def check_attention_cells(configs) -> None:
-    """Fail unless the heads (H, Kv, head_dim) of every SERVE_CELLS
-    config are among FLASH_CELLS' and, unless it is windowed (its decode
-    takes the masked path), among PAGED_CELLS'."""
+    """Fail unless the heads (H, Kv, head_dim) of every SERVE_CELLS and
+    MODEL_CELLS config with attention are among FLASH_CELLS' and, unless
+    it is windowed (its decode takes the masked path), among
+    PAGED_CELLS'; an audio config's also among FLASH_FULL_CELLS' (its
+    encoder and cross-attention). An attention-free config needs none."""
     flash = {h for _, _, h, _ in FLASH_CELLS}
+    full = {h for _, _, _, h in FLASH_FULL_CELLS}
     paged = {h for _, _, h in PAGED_CELLS}
-    for arch, _, _ in SERVE_CELLS:
+    for arch in [a for a, *_ in SERVE_CELLS] + [a for a, _ in MODEL_CELLS]:
         cfg = configs[arch]
+        if not cfg.has_attention:
+            continue
         heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
         if heads not in flash or (not cfg.sliding_window
-                                  and heads not in paged):
+                                  and heads not in paged) \
+                or (cfg.family == "audio" and heads not in full):
             raise SystemExit(f"{arch}: its heads {heads} are missing from "
                              f"the attention cells")
 
@@ -556,45 +624,59 @@ def _raise_faults(rows) -> None:
 
 
 def flash_phase(torch, FK):
-    """Flash attention against its plain version; the library time is
-    scaled_dot_product_attention on the same q, k, v laid out (B, H, S, d)
-    beforehand, causal (and with the window as a boolean mask)."""
+    """Flash attention against its plain version at FLASH_CELLS (causal,
+    S = T) and FLASH_FULL_CELLS (no mask, S queries over T keys); the
+    library time is scaled_dot_product_attention on the same q, k, v laid
+    out (B, H, S, d) beforehand, causal (with the window as a boolean
+    mask) or unmasked."""
     from repro_torch.models.layers import attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(2)
+    cells = [(B, S, S, h, w, True) for B, S, h, w in FLASH_CELLS] \
+        + [(B, S, T, h, None, False) for B, S, T, h in FLASH_FULL_CELLS]
     rows = []
     for dtype in ATTN_DTYPES:
         td = getattr(torch, dtype)
         es = torch.finfo(td).bits // 8
-        for B, S, (H, Kv, d), window in FLASH_CELLS:
-            nbytes = es * (2 * B * S * H * d + 2 * B * S * Kv * d)
+        for B, S, T, (H, Kv, d), window, causal in cells:
+            nbytes = es * (2 * B * S * H * d + 2 * B * T * Kv * d)
             sets = [tuple(torch.randn(shape, generator=gen,
                                       device="cuda").to(td)
-                          for shape in ((B, S, H, d), (B, S, Kv, d),
-                                        (B, S, Kv, d)))
+                          for shape in ((B, S, H, d), (B, T, Kv, d),
+                                        (B, T, Kv, d)))
                     for _ in range(_copies(nbytes))]
             q, k, v = sets[0]
-            got = FK.flash_attention(q, k, v, causal=True, window=window)
+            kw = dict(causal=causal, window=window)
+            got = FK.flash_attention(q, k, v, **kw)
             launched = check_one_launch(
-                torch, "flash_attention", lambda: FK.flash_attention(
-                    q, k, v, causal=True, window=window))
-            ref = FK.flash_attention_plain(q, k, v, causal=True,
-                                           window=window)
+                torch, "flash_attention",
+                lambda: FK.flash_attention(q, k, v, **kw))
+            ref = FK.flash_attention_plain(q, k, v, **kw)
             qpos = torch.arange(S, device="cuda")
-            allow = qpos[None, :] <= qpos[:, None]
-            if window is not None:
-                allow &= qpos[None, :] > qpos[:, None] - window
+            kpos = torch.arange(T, device="cuda")
+            if causal:
+                allow = kpos[None, :] <= qpos[:, None]
+                if window is not None:
+                    allow &= kpos[None, :] > qpos[:, None] - window
+                # control: the plain attention without each row's
+                # diagonal key, over the second half of the rows
+                strict = kpos[None, :] < qpos[:, None]
+                ctrl = attention(q, k, v, window=window, mask=strict[None],
+                                 causal=True)
+                control = row_rel_err(ctrl[:, S // 2:], ref[:, S // 2:])
+                lkw = (dict(is_causal=True) if window is None
+                       else dict(attn_mask=allow))
+            else:
+                allow = torch.ones((S, T), dtype=torch.bool, device="cuda")
+                # control: the plain attention without the last key
+                ctrl = attention(q, k, v, mask=(kpos < T - 1)[None, None]
+                                 .expand(1, S, T))
+                control = row_rel_err(ctrl, ref)
+                lkw = {}
             pairs = int(allow.sum())
-            # control: the plain attention without each row's diagonal key
-            strict = qpos[None, :] < qpos[:, None]
-            ctrl = attention(q, k, v, causal=True, window=window,
-                             mask=strict[None])
-            control = row_rel_err(ctrl[:, S // 2:], ref[:, S // 2:])
-            del ctrl, strict
+            del ctrl
             lsets = [tuple(t.transpose(1, 2).contiguous() for t in st)
                      for st in sets]
-            lkw = (dict(is_causal=True) if window is None
-                   else dict(attn_mask=allow))
 
             def lib_fn(q_, k_, v_):
                 return sdpa(q_, k_, v_, enable_gqa=True, **lkw)
@@ -602,16 +684,15 @@ def flash_phase(torch, FK):
             lib = lib_fn(*lsets[0]).transpose(1, 2)
             torch.cuda.synchronize()
             times = (
-                timed_ms(torch, lambda *a: FK.flash_attention(
-                    *a, causal=True, window=window), sets),
-                timed_ms(torch, lambda *a: FK.flash_attention_plain(
-                    *a, causal=True, window=window), sets[:1], reps=3,
-                    graph=False),
+                timed_ms(torch, lambda *a: FK.flash_attention(*a, **kw),
+                         sets),
+                timed_ms(torch, lambda *a: FK.flash_attention_plain(*a, **kw),
+                         sets[:1], reps=3, graph=False),
                 timed_ms(torch, lib_fn, lsets))
             rows.append(_attn_row(
                 torch, "flash_attention", dtype, got, ref, control, lib,
                 times, nbytes, 4 * B * H * d * pairs, launched, B=B, S=S,
-                H=H, Kv=Kv, d=d, window=window))
+                T=T, H=H, Kv=Kv, d=d, window=window, causal=causal))
             del sets, lsets, got, ref, lib
             torch.cuda.empty_cache()
     _raise_faults(rows)
@@ -705,44 +786,84 @@ def read_loops(K) -> dict:
     return {name: dict(c) for name, c in K.LOOP_LAUNCHES.items()}
 
 
-def expected_quant_loops(cfg, fmt, tokens) -> dict:
+def quant_calls_per_phase(cfg) -> tuple:
+    """(2-D quant calls a phase makes over its tokens, over the encoder's
+    rows; grouped expert products a phase): a dense or vlm layer's 7
+    projections, an MoE layer's 4 attention ones (and 3 grouped), an
+    audio decoder layer's 9 (its own 7, the cross-attention's q and o)
+    and for a prefill its encoder's 7 a layer and each decoder layer's
+    cross K/V, 2; a Mamba layer's 2, and hybrid's shared block's 7 at
+    each site."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return 2 * L, 0, 0
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_sites
+        return 2 * L + QUANT_PROJECTIONS * n_attn_sites(cfg), 0, 0
+    if cfg.family == "audio":
+        return ((QUANT_PROJECTIONS + 2) * L,
+                QUANT_PROJECTIONS * cfg.enc_layers + 2 * L, 0)
+    if cfg.is_moe:
+        return (QUANT_PROJECTIONS - 3) * L, 0, 3 * L
+    return QUANT_PROJECTIONS * L, 0, 0
+
+
+def expected_quant_loops(cfg, fmt, tokens, enc_rows=()) -> dict:
     """Under int8 and nf4, the launches of each quant entry point by loop
     over phases that route ``tokens`` tokens each (a prefill: its rows
-    times its padded length; a decode step: its lanes): per layer and
-    phase, the 2-D projections (7 of a dense layer, the 4 attention ones
-    of an MoE layer) on the decode loop for at most 8 rows and the wgmma
-    loop above, and the 3 grouped expert products on the loop their
-    capacity (rows an expert) chooses the same way; none on the tile
-    loop. Empty for the other formats."""
+    times its padded length; a decode step: its lanes), and for audio
+    prefills whose encoders take ``enc_rows`` rows each: the 2-D calls of
+    :func:`quant_calls_per_phase` on the decode loop for at most 8 rows
+    and the wgmma loop above, and an MoE layer's grouped expert products
+    on the loop their capacity (rows an expert) chooses the same way;
+    none on the tile loop. Empty for the other formats."""
     from repro_torch.models.moe import expert_capacity
     name = {"int8": "int8_matmul", "nf4": "nf4_matmul"}.get(fmt)
     if name is None:
         return {}
-    L = cfg.num_layers
+    per, per_enc, grouped = quant_calls_per_phase(cfg)
     zero = {"decode": 0, "wgmma": 0, "tile": 0}
     want = {name: dict(zero)}
     if cfg.is_moe:
         want[name + "_grouped"] = dict(zero)
-    two_d = QUANT_PROJECTIONS - (3 if cfg.is_moe else 0)
     for T in tokens:
-        want[name]["decode" if T <= 8 else "wgmma"] += two_d * L
+        want[name]["decode" if T <= 8 else "wgmma"] += per
         if cfg.is_moe:
             C = expert_capacity(T, cfg.num_experts, cfg.experts_per_token,
                                 cfg.moe_capacity_factor)
             want[name + "_grouped"]["decode" if C <= 8 else "wgmma"] \
-                += 3 * L
+                += grouped
+    for T in enc_rows:
+        want[name]["decode" if T <= 8 else "wgmma"] += per_enc
     return want
 
 
-def check_quant_loops(cfg, fmt, loops, tokens, run) -> dict:
+def check_quant_loops(cfg, fmt, loops, tokens, run, enc_rows=()) -> dict:
     """Fail unless the run's quant launches by loop are
     :func:`expected_quant_loops`; return them."""
-    want = expected_quant_loops(cfg, fmt, tokens)
+    want = expected_quant_loops(cfg, fmt, tokens, enc_rows)
     got = {name: loops[name] for name in want}
     if got != want:
         raise SystemExit(f"{cfg.name} {fmt} {run} run: quant loops {got}, "
                          f"expected {want}")
     return got
+
+
+def attention_launches(cfg) -> tuple:
+    """(flash launches per prefill, paged launches per decode step): one
+    of each a layer (a windowed model's decode takes the masked path:
+    none); audio adds its encoder's flash per encoder layer and a
+    cross-attention of each per decoder layer; hybrid one of each per
+    site of its shared block; none for SSM."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_sites
+        return n_attn_sites(cfg), n_attn_sites(cfg)
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * L, 2 * L
+    return L, 0 if cfg.sliding_window else L
 
 
 def sampled_power(fn):
@@ -782,7 +903,20 @@ SERVE_CELLS = [
     ("minitron-8b", ("bfloat16",), DENSE_TRAFFIC),
     ("h2o-danube-3-4b", ("bfloat16",), DENSE_TRAFFIC),
     ("command-r-35b", ("int8",), DENSE_TRAFFIC),
+    # the vlm (text only, as the reference serves it), SSM and hybrid
+    # families
+    ("phi-3-vision-4.2b", ("bfloat16",), DENSE_TRAFFIC),
+    ("mamba2-2.7b", ("bfloat16", "nf4"), DENSE_TRAFFIC),
+    ("zamba2-1.2b", ("bfloat16", "int8"), DENSE_TRAFFIC),
 ]
+# (arch, formats) driven through Model.prefill and Model.decode_step with
+# their stub inputs, 576 patches a request (vlm) or T_ENC frames (audio,
+# which no serving path carries: the reference's backend passes only
+# tokens), over DENSE_TRAFFIC's prompts, two at a time
+MODEL_CELLS = [("phi-3-vision-4.2b", ("bfloat16",)),
+               ("seamless-m4t-large-v2", ("bfloat16", "int8"))]
+MODEL_TRAFFIC = DENSE_TRAFFIC
+MODEL_PAIR = 2
 
 
 def _run_tokens(res, mode, max_batch) -> list:
@@ -801,10 +935,9 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
     """The launch checks of one served run (the counts set to 0 before
     it): every token in the vocabulary and every request complete; the
     quant kernels in their formats only (the grouped ones only for MoE),
-    each launch on the loop its rows choose; one flash launch per layer
-    and prefill, one paged launch per layer and decode step (none for a
-    windowed model, whose decode takes the masked path). Returns (launch
-    counts, quant loops)."""
+    each launch on the loop its rows choose; the attention launches of
+    :func:`attention_launches` per prefill and decode step. Returns
+    (launch counts, quant loops)."""
     counts = read_launches(mods)
     for r in res.requests:
         if len(r.generated) != r.max_new_tokens:
@@ -824,16 +957,24 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
                               _run_tokens(res, mode, max_batch), mode)
     if mode == "continuous":
         phases = [p.phase for p in res.engine.phases]
-        for name, phase, per in (
-                ("flash_attention", "prefill", cfg.num_layers),
-                ("paged_attention", "decode",
-                 0 if cfg.sliding_window else cfg.num_layers)):
-            want = per * phases.count(phase)
-            if counts[name] != want:
-                raise SystemExit(f"{cfg.name} {fmt}: {name} launched "
-                                 f"{counts[name]} times, not {per} per "
-                                 f"{phase} ({want})")
+        check_attention_launches(cfg, fmt, counts,
+                                 phases.count("prefill"),
+                                 phases.count("decode"))
     return counts, loops
+
+
+def check_attention_launches(cfg, fmt, counts, prefills, steps) -> None:
+    """Fail unless the attention kernels launched
+    :func:`attention_launches` times over ``prefills`` prefill phases
+    and ``steps`` decode steps."""
+    for name, phase, per, n in zip(("flash_attention", "paged_attention"),
+                                   ("prefill", "decode"),
+                                   attention_launches(cfg),
+                                   (prefills, steps)):
+        if counts[name] != per * n:
+            raise SystemExit(f"{cfg.name} {fmt}: {name} launched "
+                             f"{counts[name]} times, not {per} per "
+                             f"{phase} ({per * n})")
 
 
 def _logit_check(torch, cfg, fmt, con, seq) -> float:
@@ -954,6 +1095,153 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     return counts
 
 
+def _stub_inputs(torch, cfg, req_id: int):
+    """A request's seeded stub input on the card: its (num_patches, D)
+    patch embeddings (vlm) or (T_ENC, D) frame embeddings (audio), f32
+    times 0.1; None for the other families."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + req_id)
+    rows = {"vlm": cfg.num_patches, "audio": T_ENC}.get(cfg.family)
+    if rows is None:
+        return None
+    return torch.randn((rows, cfg.d_model), generator=gen,
+                       device="cuda") * 0.1
+
+
+def _model_prefill(torch, model, params, reqs, stubs):
+    """One prefill of ``reqs``, right-padded to a multiple of 8 with
+    ``lengths``, their stubs stacked in front (vlm) or as the encoder's
+    input (audio), with a ring of the padded length (stubs included) plus
+    9 slots rounded up to 64: the prefill stays within the ring and the
+    decode takes the paged kernel. Returns (logits, cache, rows x padded
+    tokens, encoder rows)."""
+    cfg = model.cfg
+    pad = -(-max(r.prompt_len for r in reqs) // 8) * 8
+    toks = torch.zeros((len(reqs), pad), dtype=torch.long, device="cuda")
+    for j, r in enumerate(reqs):
+        toks[j, :r.prompt_len] = torch.as_tensor(r.prompt, device="cuda")
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.stack(stubs)
+    enc_rows = []
+    if cfg.family == "audio":
+        batch["frames"] = torch.stack(stubs)
+        enc_rows = [len(reqs) * T_ENC]
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    buf_len = -(-(prefix + pad + 9) // 64) * 64
+    lengths = torch.as_tensor([r.prompt_len for r in reqs],
+                              dtype=torch.int32, device="cuda")
+    logits, cache = model.prefill(params, batch, buf_len=buf_len,
+                                  lengths=lengths)
+    return logits, cache, len(reqs) * (prefix + pad), enc_rows
+
+
+def model_cell(torch, mods, cfg, fmt) -> dict:
+    """One format of a MODEL_CELLS config at full width and depth, weights
+    from seed 0: MODEL_TRAFFIC's prompts, MODEL_PAIR at a time, each
+    request with its own stub input, a prefill and new_tokens greedy
+    decode steps, under the launch checks (flash per prefill and paged
+    per step of :func:`attention_launches`, the quant loops); then each
+    request's own prefill, whose logits the batched prefill must match
+    within PREFILL_LOGIT_TOL. Prints the model line (host wall times,
+    tokens/s, peak memory); returns the batched run's launch counts."""
+    from repro_torch.launch.serve import build_params, make_requests
+    from repro_torch.models.api import build_model
+    kw = MODEL_TRAFFIC
+    t0 = time.perf_counter()
+    model = build_model(cfg, fmt=fmt, device="cuda")
+    params = build_params(model, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = make_requests(cfg.vocab_size, kw["n"], kw["seed"],
+                         kw["prompt_len"], kw["new_tokens"])
+    stubs = [_stub_inputs(torch, cfg, r.req_id) for r in reqs]
+    steps = kw["new_tokens"][1]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    tokens, enc_rows, pre_s, dec_s, first = [], [], [], [], []
+    t_run = time.perf_counter()
+    for i in range(0, len(reqs), MODEL_PAIR):
+        pair = reqs[i:i + MODEL_PAIR]
+        t0 = time.perf_counter()
+        logits, cache, n_tok, enc = _model_prefill(
+            torch, model, params, pair, stubs[i:i + MODEL_PAIR])
+        tok = torch.argmax(logits, -1)[:, None]
+        for j, r in enumerate(pair):
+            r.generated = [int(tok[j, 0])]
+        pre_s.append(time.perf_counter() - t0)
+        first.append(logits.float().cpu())
+        tokens.append(n_tok)
+        enc_rows += enc
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = torch.argmax(logits, -1)[:, None]
+            for j, r in enumerate(pair):
+                r.generated.append(int(tok[j, 0]))
+            dec_s.append(time.perf_counter() - t0)
+            tokens.append(len(pair))
+        del cache
+    wall_s = time.perf_counter() - t_run
+    counts = read_launches(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_attention_launches(cfg, fmt, counts, len(pre_s), len(dec_s))
+    loops = {"batched": check_quant_loops(cfg, fmt, read_loops(mods[0]),
+                                          tokens, "batched", enc_rows)}
+    for r in reqs:
+        if len(r.generated) != steps + 1 or not all(
+                0 <= t < cfg.vocab_size for t in r.generated):
+            raise SystemExit(f"{cfg.name} {fmt}: request {r.req_id} got "
+                             f"{r.generated}")
+    # each request's own prefill against its row of the batched one
+    reset_launches(mods)
+    worst, own_tokens, own_enc = 0.0, [], []
+    for i, r in enumerate(reqs):
+        logits, _, n_tok, enc = _model_prefill(torch, model, params, [r],
+                                               [stubs[i]])
+        own_tokens.append(n_tok)
+        own_enc += enc
+        a = first[i // MODEL_PAIR][i % MODEL_PAIR]
+        b = logits[0].float().cpu()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise SystemExit(f"{cfg.name} {fmt}: non-finite prefill logits")
+        worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
+    check_attention_launches(cfg, fmt, read_launches(mods), len(reqs), 0)
+    loops["own_prefill"] = check_quant_loops(
+        cfg, fmt, read_loops(mods[0]), own_tokens, "own prefill", own_enc)
+    if not worst <= PREFILL_LOGIT_TOL[fmt]:
+        raise SystemExit(f"{cfg.name} {fmt}: batched prefill logits differ "
+                         f"from each request's own prefill by {worst} > "
+                         f"{PREFILL_LOGIT_TOL[fmt]}")
+    n_tok = sum(len(r.generated) for r in reqs)
+    emit({"phase": "model", "fmt": fmt, "model": cfg.name,
+          "family": cfg.family, "layers": cfg.num_layers,
+          "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+          "stub_rows": stubs[0].shape[0], "requests": len(reqs),
+          "batch": MODEL_PAIR,
+          "prompt_lens": [r.prompt_len for r in reqs],
+          "generated_tokens": n_tok, "init_s": init_s, "wall_s": wall_s,
+          "tokens_per_s": n_tok / wall_s, "prefill_phases": len(pre_s),
+          "prefill_ms_mean": 1e3 * sum(pre_s) / len(pre_s),
+          "decode_steps": len(dec_s),
+          "decode_ms_per_step": 1e3 * sum(dec_s) / len(dec_s),
+          "peak_mem_gb": peak_gb, "launches": counts, "quant_loops": loops,
+          "prefill_logit_rel_err": worst,
+          "prefill_logit_tol": PREFILL_LOGIT_TOL[fmt]})
+    del model, params, stubs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def model_phase(torch, mods) -> dict:
+    """Every MODEL_CELLS config in each of its formats; the batched runs'
+    launch counts by (arch, format, "model")."""
+    from repro_torch.launch.serve import arch_config
+    return {(arch, fmt, "model"): model_cell(torch, mods, arch_config(arch),
+                                             fmt)
+            for arch, formats in MODEL_CELLS for fmt in formats}
+
+
 def serve_phase(torch, mods) -> dict:
     """Every SERVE_CELLS config in each of its formats; the timed runs'
     launch counts by (arch, format)."""
@@ -985,7 +1273,8 @@ def main() -> int:
           "libraries": [p.name for p in libs]})
 
     from repro_torch.launch.serve import arch_config
-    configs = {arch: arch_config(arch) for arch, _, _ in SERVE_CELLS}
+    configs = {arch: arch_config(arch)
+               for arch in [a for a, *_ in SERVE_CELLS + MODEL_CELLS]}
     check_attention_cells(configs)
     two_d, grouped = quant_cells(configs)
     rows = kernel_phase(torch, K, two_d)
@@ -993,6 +1282,7 @@ def main() -> int:
     rows["flash_attention"] = flash_phase(torch, FK)
     rows["paged_attention"] = paged_phase(torch, PK)
     launches = serve_phase(torch, mods)
+    launches.update(model_phase(torch, mods))
 
     kernels = []
     for name in K.ENTRY_POINTS:

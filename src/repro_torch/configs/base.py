@@ -3,8 +3,8 @@
 The fields, the ``head_dim`` derivation, ``reduced()`` and
 ``param_count`` are the reference's, so a config means the same model in
 both packages, and so are the ten architecture ids (:data:`ARCH_IDS`,
-:func:`get_config`), each a module of this package. The ``dense`` and
-``moe`` families run in the port so far (ROADMAP A4 holds the others).
+:func:`get_config`), each a module of this package. All six families
+run in the port.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 [hf:microsoft/Phi-3-vision-128k-instruct].
 
 The reference stubs the vision encoder and projector: the decoder takes
-pre-projected patch embeddings of shape (batch, num_patches, d_model).
-The port does not run the vlm family yet (ROADMAP A4).
+pre-projected patch embeddings of shape (batch, num_patches, d_model),
+in front of the prompt; the serving path is text only.
 """
 from repro_torch.configs.base import ModelConfig
 

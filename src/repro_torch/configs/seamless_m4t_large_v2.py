@@ -2,8 +2,8 @@
 
 The reference stubs the audio frontend (mel-spectrogram and conv
 feature extractor): the encoder takes precomputed frame embeddings
-(batch, seq_len // enc_frames_ratio, d_model). The port does not run the
-audio family yet (ROADMAP A4).
+(batch, seq_len // enc_frames_ratio, d_model). The serving path carries
+no frames, so the model runs through ``Model.prefill``/``decode_step``.
 """
 from repro_torch.configs.base import ModelConfig
 

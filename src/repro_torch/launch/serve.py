@@ -1,5 +1,7 @@
 """Serving launcher: random-weight greedy serving of a paper-zoo model or
-one of the architectures of ``ARCH_IDS`` (dense and MoE).
+one of the architectures of ``ARCH_IDS`` (all but the audio one, whose
+prefill needs frames the serving path does not carry; vlm serves text
+only).
 
 Counterpart of ``repro.launch.serve``'s default (executed) mode. Builds
 the model, draws its weights from a seeded ``torch.Generator`` on the

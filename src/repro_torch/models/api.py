@@ -1,22 +1,34 @@
-"""Model facade for the dense and MoE decoder families.
+"""Unified model facade over the six architecture families.
 
-Counterpart of ``repro.models.api`` for ``family`` "dense" and "moe". A
-:class:`Model` bundles (config, precision policy, device) and exposes
+Counterpart of ``repro.models.api``. A :class:`Model` bundles (config,
+precision policy, device) and exposes
 
 * ``init(generator, quantize=False)``      -> params tree
 * ``quantize(params)``                     -> params with int8/nf4 leaves
 * ``prefill(params, batch, buf_len, lengths, with_aux=False)``
                                            -> (last logits, cache[, aux])
 * ``decode_step(params, tokens, cache)``   -> (logits, cache)
-* ``init_cache(batch, buf_len)``           -> empty decode cache
+* ``init_cache(batch, buf_len, enc_len=0)`` -> empty decode cache
 * ``logits(params, hidden)``               -> LM-head projection
+
+Families: dense, moe and vlm share the decoder stack
+(:mod:`repro_torch.models.transformer`); audio adds a bidirectional
+encoder and cross-attention; ssm is the Mamba2 stack
+(:mod:`repro_torch.models.ssm`); hybrid is Mamba2 with one shared
+attention block (:mod:`repro_torch.models.hybrid`). The vlm patch
+embeddings (``batch["patches"]``, (B, num_patches, D), optional) and the
+audio frame embeddings (``batch["frames"]``, (B, T_enc, D), required)
+are stub inputs, as in the reference.
 
 The params tree is a dict: ``embed`` (V, D), ``final_norm`` (D,),
 ``lm_head`` (D, V) and ``layers``, a list of per-layer dicts (an MoE
 layer's ``moe`` entry holds the router and the experts' stacked
-projections). ``prefill(..., with_aux=True)`` also returns the layer
-means of the MoE router metrics of that forward (zeros for a dense
-model). Other families raise NotImplementedError (ROADMAP A4).
+projections; an audio decoder layer's ``cross`` the cross-attention);
+audio adds ``enc_layers`` and ``enc_norm``, hybrid ``shared``, one
+decoder layer. ``prefill(..., with_aux=True)`` also returns the layer
+means of the MoE router metrics of that forward (zeros for every family
+without experts). ``kv_quant`` applies to the attention families' self-
+attention caches (dense, moe, vlm, audio), as in the reference.
 """
 from __future__ import annotations
 
@@ -27,13 +39,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy, make_policy
+from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (PREFILL_PAST_RING, embed,
                                        init_kv_cache, rms_norm,
                                        slot_positions_after_prefill)
 from repro_torch.quant.apply import linear_apply, quantize_params
 
-PORTED_FAMILIES = ("dense", "moe")
+#: the families whose decode cache is a self-attention KV ring per layer
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 @dataclasses.dataclass
@@ -47,10 +62,6 @@ class Model:
     device: torch.device = torch.device("cuda")
 
     def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet "
-                f"(ROADMAP A4); the port runs {PORTED_FAMILIES}")
         self.device = torch.device(self.device)
 
     @property
@@ -76,28 +87,109 @@ class Model:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg, dtype = self.cfg, self.policy.param_dtype
+        dev = generator.device
         table = torch.randn((cfg.vocab_size, cfg.d_model),
                             generator=generator, dtype=torch.float32,
-                            device=generator.device)
+                            device=dev)
         params: Dict[str, Any] = {
             "embed": (table * 0.02).to(dtype),
             "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
-                                     device=generator.device),
+                                     device=dev),
             "lm_head": tfm.linear_init(generator, cfg.d_model,
                                        cfg.vocab_size, dtype),
         }
         del table
-        params["layers"] = []
-        for _ in range(cfg.num_layers):
-            layer = tfm.init_decoder_layer(generator, cfg, dtype)
-            params["layers"].append(quantize_params(layer, self.policy)
-                                    if quantize else layer)
-            del layer
+
+        def prepare(layer):
+            return quantize_params(layer, self.policy) if quantize else layer
+
+        def stack(n, draw):
+            return [prepare(draw()) for _ in range(n)]
+
+        if cfg.family in ("dense", "moe", "vlm"):
+            params["layers"] = stack(cfg.num_layers, lambda: (
+                tfm.init_decoder_layer(generator, cfg, dtype)))
+        elif cfg.family == "audio":
+            params["enc_layers"] = stack(cfg.enc_layers, lambda: (
+                tfm.init_decoder_layer(generator, cfg, dtype)))
+            params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                            device=dev)
+            params["layers"] = stack(cfg.num_layers, lambda: (
+                tfm.init_decoder_layer(generator, cfg, dtype,
+                                       cross_attention=True)))
+        elif cfg.family == "ssm":
+            params["layers"] = stack(cfg.num_layers, lambda: (
+                ssm_mod.init_mamba_layer(generator, cfg, dtype)))
+        elif cfg.family == "hybrid":
+            params.update(hybrid_mod.init_params(generator, cfg, dtype,
+                                                 prepare))
+        else:
+            raise ValueError(cfg.family)
         return params
 
     def quantize(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Post-training quantization under the model's policy."""
         return quantize_params(params, self.policy)
+
+    # ------------------------------------------------------------------
+    def _embed_inputs(self, params, batch: Dict[str, torch.Tensor]):
+        """Token embeddings; for vlm, the patch embeddings in front."""
+        x = embed(batch["tokens"], params["embed"], self.adt)
+        if self.cfg.family == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(x.device, self.adt), x],
+                          dim=1)
+        return x
+
+    def _encode_audio(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The bidirectional encoder over the stub frame embeddings."""
+        h, _, _ = tfm.decoder_forward_seq(
+            params["enc_layers"], frames.to(self.device, self.adt),
+            self.cfg, self.policy, causal=False)
+        return rms_norm(h, params["enc_norm"])
+
+    def _cross_kv(self, params, enc_out: torch.Tensor):
+        """Each decoder layer's cross-attention K/V from the encoder
+        output, stacked: two (L, B, T_enc, Kv, hd)."""
+        cfg = self.cfg
+        B, T = enc_out.shape[0], enc_out.shape[1]
+        ks, vs = [], []
+        for lp in params["layers"]:
+            ks.append(linear_apply(lp["cross"]["wk"], enc_out, self.policy)
+                      .reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
+            vs.append(linear_apply(lp["cross"]["wv"], enc_out, self.policy)
+                      .reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
+        return torch.stack(ks), torch.stack(vs)
+
+    def _ssm_forward(self, params, x: torch.Tensor,
+                     lengths: torch.Tensor):
+        """The Mamba2 stack over a right-padded sequence; returns (hidden,
+        cache with ``ssm_state``, ``conv`` and ``pos`` = lengths)."""
+        dims = ssm_mod.ssm_dims(self.cfg)
+        B, S = x.shape[0], x.shape[1]
+        h0 = torch.zeros((B, dims["nheads"], dims["headdim"],
+                          dims["dstate"]), dtype=torch.float32,
+                         device=x.device)
+        seq_mask = (torch.arange(S, device=x.device)[None, :]
+                    < lengths[:, None]).float()
+        hs, tails = [], []
+        for lp in params["layers"]:
+            x, h, tail = ssm_mod.mamba_block(lp, x, self.cfg, self.policy,
+                                             h0, seq_mask=seq_mask)
+            hs.append(h)
+            tails.append(tail)
+        return x, {"ssm_state": torch.stack(hs), "conv": torch.stack(tails),
+                   "pos": lengths.to(torch.int32)}
+
+    def _ssm_decode(self, params, x2d: torch.Tensor, cache) -> torch.Tensor:
+        """One token through the Mamba2 stack; the cache in place."""
+        for i, lp in enumerate(params["layers"]):
+            x2d, h, conv = ssm_mod.mamba_block_decode(
+                lp, x2d, self.cfg, self.policy, cache["ssm_state"][i],
+                cache["conv"][i])
+            cache["ssm_state"][i] = h
+            cache["conv"][i] = conv
+        cache["pos"] = cache["pos"] + 1
+        return x2d
 
     # ------------------------------------------------------------------
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -110,25 +202,52 @@ class Model:
         """Forward over the prompt, build the decode cache.
 
         ``lengths``: (B,) true prompt lengths when the batch is
-        right-padded; defaults to the full width. Returns
+        right-padded; defaults to the full width (for vlm, the patch
+        prefix counts toward every row's length). Returns
         (last_token_logits (B, V) f32, cache) with logits taken at each
         row's final *real* token; with ``with_aux``, (logits, cache, aux),
-        aux the layer-mean MoE router metrics of the forward."""
+        aux the layer-mean MoE router metrics of the forward (zeros
+        without experts)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed(tokens, params["embed"], self.adt)
-        B, S = x.shape[0], x.shape[1]
+        B, T = tokens.shape
         if lengths is None:
-            lengths = torch.full((B,), S, dtype=torch.int32,
-                                 device=x.device)
+            lengths = torch.full((B,), T, dtype=torch.int32)
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                  device=x.device)
-        buf = self._buf_len(S, buf_len)
-        h, kv, aux = tfm.decoder_forward_seq(
-            params["layers"], x, self.cfg, self.policy, causal=True,
-            window=self.window, collect_kv=True)
-        cache = self._kv_cache_from_prefill(kv, S, buf, lengths)
+                                  device=tokens.device)
+        aux = {k: torch.zeros((), dtype=torch.float32, device=tokens.device)
+               for k in tfm.MOE_AUX}
+        if cfg.family in ("dense", "moe", "vlm"):
+            x = self._embed_inputs(params, batch)
+            S = x.shape[1]
+            lengths = lengths + (S - T)
+            h, kv, aux = tfm.decoder_forward_seq(
+                params["layers"], x, cfg, self.policy, causal=True,
+                window=self.window, collect_kv=True)
+            cache = self._kv_cache_from_prefill(kv, S, self._buf_len(
+                S, buf_len), lengths)
+        elif cfg.family == "audio":
+            enc_kv = self._cross_kv(
+                params, self._encode_audio(params, batch["frames"]))
+            x = embed(tokens, params["embed"], self.adt)
+            h, kv, aux = tfm.decoder_forward_seq(
+                params["layers"], x, cfg, self.policy, causal=True,
+                window=self.window, collect_kv=True, enc_kv=enc_kv)
+            cache = self._kv_cache_from_prefill(kv, T, self._buf_len(
+                T, buf_len), lengths)
+            cache["enc_k"], cache["enc_v"] = enc_kv
+        elif cfg.family == "ssm":
+            x = embed(tokens, params["embed"], self.adt)
+            h, cache = self._ssm_forward(params, x, lengths)
+        elif cfg.family == "hybrid":
+            x = embed(tokens, params["embed"], self.adt)
+            h, cache = hybrid_mod.forward_seq(
+                params, x, cfg, self.policy, collect_cache=True,
+                buf_len=self._buf_len(T, buf_len), lengths=lengths)
+        else:
+            raise ValueError(cfg.family)
         h = rms_norm(h, params["final_norm"])
-        last = h[torch.arange(B, device=x.device), lengths.long() - 1]
+        last = h[torch.arange(B, device=h.device), lengths.long() - 1]
         logits = self.logits(params, last)
         return (logits, cache, aux) if with_aux else (logits, cache)
 
@@ -163,28 +282,66 @@ class Model:
     def decode_step(self, params, tokens: torch.Tensor, cache):
         """tokens: (B, 1). Returns (logits (B, V) f32, cache); the cache
         is updated in place and returned for symmetry with prefill."""
+        cfg = self.cfg
         x = embed(tokens, params["embed"], self.adt)
-        h = tfm.decoder_decode_step(params["layers"], x, cache, self.cfg,
-                                    self.policy, window=self.window)
+        if cfg.family in ATTENTION_FAMILIES:
+            cross = ({"enc_kv": (cache["enc_k"], cache["enc_v"])}
+                     if cfg.family == "audio" else {})
+            h = tfm.decoder_decode_step(params["layers"], x, cache, cfg,
+                                        self.policy, window=self.window,
+                                        **cross)
+        elif cfg.family == "ssm":
+            h = self._ssm_decode(params, x[:, 0, :], cache)[:, None, :]
+        elif cfg.family == "hybrid":
+            h = hybrid_mod.decode_step(params, x, cache, cfg, self.policy)
+        else:
+            raise ValueError(cfg.family)
         h = rms_norm(h, params["final_norm"])
         return self.logits(params, h[:, -1]), cache
 
-    def init_cache(self, batch: int, buf_len: int) -> Dict[str, Any]:
-        cfg = self.cfg
+    def init_cache(self, batch: int, buf_len: int,
+                   enc_len: int = 0) -> Dict[str, Any]:
+        """The empty decode cache of ``batch`` lanes and a ring of
+        ``buf_len`` slots (at most the window); audio also holds encoder
+        K/V of ``enc_len`` frames."""
+        cfg, dev, adt = self.cfg, self.device, self.adt
         W = min(buf_len, self.window) if self.window else buf_len
-        c = init_kv_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
-                          cfg.head_dim, self.adt, self.device)
-        if self.kv_quant:
-            c["k"] = torch.zeros(c["k"].shape, dtype=torch.int8,
-                                 device=self.device)
-            c["v"] = torch.zeros(c["v"].shape, dtype=torch.int8,
-                                 device=self.device)
-            c["k_scale"] = torch.zeros(c["k"].shape[:-1],
-                                       dtype=torch.float32,
-                                       device=self.device)
-            c["v_scale"] = torch.zeros(c["v"].shape[:-1],
-                                       dtype=torch.float32,
-                                       device=self.device)
+        if cfg.family in ATTENTION_FAMILIES:
+            c = init_kv_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
+                              cfg.head_dim, adt, dev)
+            if self.kv_quant:
+                c["k"] = torch.zeros(c["k"].shape, dtype=torch.int8,
+                                     device=dev)
+                c["v"] = torch.zeros(c["v"].shape, dtype=torch.int8,
+                                     device=dev)
+                c["k_scale"] = torch.zeros(c["k"].shape[:-1],
+                                           dtype=torch.float32, device=dev)
+                c["v_scale"] = torch.zeros(c["v"].shape[:-1],
+                                           dtype=torch.float32, device=dev)
+            if cfg.family == "audio":
+                c["enc_k"] = torch.zeros(
+                    (cfg.num_layers, batch, enc_len, cfg.num_kv_heads,
+                     cfg.head_dim), dtype=adt, device=dev)
+                c["enc_v"] = torch.zeros_like(c["enc_k"])
+            return c
+        dims = ssm_mod.ssm_dims(cfg)
+        c = {
+            "ssm_state": torch.zeros(
+                (cfg.num_layers, batch, dims["nheads"], dims["headdim"],
+                 dims["dstate"]), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((cfg.num_layers, batch,
+                                 cfg.ssm_conv_width - 1,
+                                 dims["conv_channels"]), dtype=adt,
+                                device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        }
+        if cfg.family == "hybrid":
+            kv = (hybrid_mod.n_attn_sites(cfg), batch, W, cfg.num_kv_heads,
+                  cfg.head_dim)
+            c["shared_k"] = torch.zeros(kv, dtype=adt, device=dev)
+            c["shared_v"] = torch.zeros(kv, dtype=adt, device=dev)
+            c["slot_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
+                                       device=dev)
         return c
 
 

@@ -262,6 +262,16 @@ def ring_cache_pages(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
     return k_pages, v_pages, page_table, seq_lens
 
 
+def encoder_kv_pages(k: torch.Tensor, v: torch.Tensor):
+    """The encoder K/V (..., B, T_enc, Kv, hd) as a page pool, a view
+    without a copy as :func:`ring_cache_pages` makes it, with
+    seq_lens = T_enc for every row: a decode step's cross-attention sees
+    every frame, as the reference's unmasked attention does."""
+    B, T = k.shape[-4], k.shape[-3]
+    return ring_cache_pages(k, v, torch.full((B,), T - 1, dtype=torch.int32,
+                                             device=k.device))
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
-"""The decoder stack of the dense and MoE families: init, attention and
-FFN blocks (a gated MLP, or the MoE FFN of :mod:`repro_torch.models.moe`),
-full-sequence forward (prefill) and one-token decode against a
-ring-buffer KV cache.
+"""The decoder stack of the dense, MoE, vlm and audio families: init,
+attention, cross-attention and FFN blocks (a gated MLP, or the MoE FFN of
+:mod:`repro_torch.models.moe`), full-sequence forward (prefill, and the
+audio encoder) and one-token decode against a ring-buffer KV cache.
 
-Counterpart of the dense and MoE parts of ``repro.models.transformer``. The
-reference scans over layers stacked on a leading axis; here the layers
-are a list of per-layer parameter dicts and a Python loop walks them.
-Decode writes the cache in place. Prefill attention, at every length,
-is the flash attention kernel, which computes what the reference's
-``attention``/``chunked_attention`` compute; decode attention is the
-paged attention kernel over the ring cache viewed as pages, except for
-windowed and int8-KV models (see :func:`decoder_decode_step`).
-Cross-attention waits for ROADMAP A4.
+Counterpart of ``repro.models.transformer``. The reference scans over
+layers stacked on a leading axis; here the layers are a list of
+per-layer parameter dicts and a Python loop walks them. Decode writes
+the cache in place. Prefill attention, at every length, is the flash
+attention kernel, which computes what the reference's
+``attention``/``chunked_attention`` compute, causal in a decoder and not
+in the audio encoder or a cross-attention; decode attention is the paged
+attention kernel over the ring cache viewed as pages, except for
+windowed and int8-KV models (see :func:`decoder_decode_step`), and a
+decode step's cross-attention is the paged kernel over the encoder K/V
+viewed as pages (:func:`repro_torch.models.layers.encoder_kv_pages`).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.layers import (apply_rope, attention,
                                        cache_write_decode,
-                                       decode_attention_mask, gated_mlp,
+                                       decode_attention_mask,
+                                       encoder_kv_pages, gated_mlp,
                                        PREFILL_PAST_RING, ring_cache_pages,
                                        rms_norm)
 from repro_torch.quant.apply import linear_apply
@@ -98,7 +101,10 @@ def init_moe_params(generator: torch.Generator, cfg: ModelConfig,
 
 
 def init_decoder_layer(generator: torch.Generator, cfg: ModelConfig,
-                       dtype) -> Dict[str, Any]:
+                       dtype, cross_attention: bool = False
+                       ) -> Dict[str, Any]:
+    """One decoder layer; with ``cross_attention`` (the audio decoder)
+    also ``cross_norm`` and the cross-attention projections ``cross``."""
     dev = generator.device
     p = {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
@@ -109,6 +115,10 @@ def init_decoder_layer(generator: torch.Generator, cfg: ModelConfig,
         p["moe"] = init_moe_params(generator, cfg, dtype)
     else:
         p["mlp"] = init_mlp_params(generator, cfg, dtype)
+    if cross_attention:
+        p["cross_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                     device=dev)
+        p["cross"] = init_attn_params(generator, cfg, dtype)
     return p
 
 
@@ -147,6 +157,27 @@ def attn_block_seq(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     o = flash_attention(q, k, v, causal=causal, window=window)
     o = linear_apply(p["attn"]["wo"], o.reshape(B, S, -1), policy)
     return x + o, k, v
+
+
+def cross_attn_block(p: Dict[str, Any], x: torch.Tensor,
+                     enc_k: Optional[torch.Tensor],
+                     enc_v: Optional[torch.Tensor], cfg: ModelConfig,
+                     policy: PrecisionPolicy, *, pages=None) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (B, T_enc, Kv, hd),
+    no rope, every frame visible: the flash kernel, non-causal. With
+    ``pages`` (k_pages, v_pages, page_table, seq_lens of
+    :func:`~repro_torch.models.layers.encoder_kv_pages`, one layer's) a
+    one-token x attends through the paged kernel instead, and
+    enc_k/enc_v are not read."""
+    B, S = x.shape[0], x.shape[1]
+    xn = rms_norm(x, p["cross_norm"])
+    q = linear_apply(p["cross"]["wq"], xn, policy) \
+        .reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if pages is None:
+        o = flash_attention(q, enc_k, enc_v, causal=False)
+    else:
+        o = paged_attention(q[:, 0], *pages)[:, None]
+    return x + linear_apply(p["cross"]["wo"], o.reshape(B, S, -1), policy)
 
 
 def ffn_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
@@ -191,19 +222,26 @@ def decoder_forward_seq(layers: List[Dict[str, Any]], x: torch.Tensor,
                         cfg: ModelConfig, policy: PrecisionPolicy, *,
                         causal: bool = True,
                         window: Optional[int] = None,
-                        collect_kv: bool = False):
+                        collect_kv: bool = False,
+                        enc_kv: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None):
     """Run the decoder stack over a full sequence.
 
     Returns (hidden, (k, v) stacked as (L, B, S, Kv, hd) or None, aux):
     aux is the layer mean of the MoE router metrics (zeros for a dense
     stack), summed layer by layer and divided once, as the reference's
-    scan does."""
+    scan does. ``enc_kv``: the encoder K/V of every layer, each
+    (L, B, T_enc, Kv, hd), for a cross-attention after each layer's
+    self-attention."""
     ks, vs = [], []
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in MOE_AUX}
-    for lp in layers:
+    for i, lp in enumerate(layers):
         x, k, v = attn_block_seq(lp, x, cfg, policy, causal=causal,
                                  window=window)
+        if enc_kv is not None:
+            x = cross_attn_block(lp, x, enc_kv[0][i], enc_kv[1][i], cfg,
+                                 policy)
         x, a = ffn_block(lp, x, cfg, policy)
         if cfg.is_moe:
             aux = {key: aux[key] + a[key] for key in aux}
@@ -217,11 +255,16 @@ def decoder_forward_seq(layers: List[Dict[str, Any]], x: torch.Tensor,
 def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
                         cache: Dict[str, Any], cfg: ModelConfig,
                         policy: PrecisionPolicy, *,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        enc_kv: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                        ) -> torch.Tensor:
     """One-token decode. x: (B, 1, D). ``cache`` (see
     ``layers.init_kv_cache``; int8 K/V when it holds ``k_scale``) is
     updated in place: this token's K/V and slot position are written and
-    ``pos`` advances by one. Returns the hidden state (B, 1, D)."""
+    ``pos`` advances by one. ``enc_kv``: the encoder K/V of every layer
+    (L, B, T_enc, Kv, hd), which each layer's cross-attention reads
+    through the paged kernel. Returns the hidden state (B, 1, D)."""
     pos = cache["pos"]                                         # (B,)
     W = cache["k"].shape[2]
     B = x.shape[0]
@@ -246,6 +289,8 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
     else:
         allow = decode_attention_mask(cache["slot_pos"], pos, window)
         mask = allow[:, None, :]                               # (B, 1, W)
+    if enc_kv is not None:
+        ek_pages, ev_pages, enc_table, enc_lens = encoder_kv_pages(*enc_kv)
     pos1 = pos[:, None]
     for i, lp in enumerate(layers):
         ck, cv = cache["k"][i], cache["v"][i]
@@ -271,6 +316,10 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
             else:
                 o = attention(q, ck, cv, mask=mask)
         x = x + linear_apply(lp["attn"]["wo"], o.reshape(B, 1, -1), policy)
+        if enc_kv is not None:
+            x = cross_attn_block(lp, x, None, None, cfg, policy,
+                                 pages=(ek_pages[i], ev_pages[i], enc_table,
+                                        enc_lens))
         x, _ = ffn_block(lp, x, cfg, policy, with_aux=False)
     cache["pos"] = pos + 1
     return x

@@ -358,7 +358,10 @@ class ExecutedBackend(AnalyticBackend):
     phases are priced for unless ``cost_cfg`` names another (a reduced
     model priced at full width). ``record_logits``:
     keep each request's first-token logits (f32, on the host) in
-    ``first_logits[req_id]``, for checks against a sequential run.
+    ``first_logits[req_id]``, for checks against a sequential run. An
+    audio model is refused: the serving path carries no frames (the
+    reference's backend fails on it at its first prefill with
+    ``KeyError: 'frames'``).
     ``prefill_shapes`` holds the (rows, padded length) of each batched
     prefill, in order, and for an MoE model ``prefill_aux`` its
     layer-mean router metrics (``dropped_fraction`` among them)."""
@@ -368,6 +371,12 @@ class ExecutedBackend(AnalyticBackend):
     def __init__(self, model, params, *, max_batch: int,
                  buf_len: int = 256, record_logits: bool = False,
                  cost_cfg: Optional[ModelConfig] = None, **analytic_kw):
+        if model.cfg.family == "audio":
+            raise ValueError(
+                f"{model.cfg.name}: the serving path carries no frames, and "
+                f"an audio model's prefill needs batch['frames'] (the "
+                f"reference's ExecutedBackend raises KeyError: 'frames'); "
+                f"run it through Model.prefill and Model.decode_step")
         super().__init__(cost_cfg or model.cfg, policy=model.policy,
                          **analytic_kw)
         self.model = model

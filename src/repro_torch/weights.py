@@ -5,9 +5,9 @@ reference's ``save_checkpoint`` writes an npz whose keys are the
 parameter paths joined with ``//``; quantized leaves add a
 ``@Int8Weight.<field>`` / ``@NF4Weight.<field>`` component, and bf16
 arrays are stored as their uint16 view under a key ending in ``@bf16``.
-The reference stacks the decoder layers on a leading axis; the port keeps
-a list of per-layer dicts, so that axis is unstacked here, quantized
-leaves included.
+The reference stacks the decoder (or Mamba) layers and the audio
+encoder's layers on a leading axis; the port keeps a list of per-layer
+dicts, so that axis is unstacked here, quantized leaves included.
 """
 from __future__ import annotations
 
@@ -22,6 +22,9 @@ from repro_torch.quant.nf4 import NF4Weight
 _SEP = "//"
 _TYPES = {"Int8Weight": Int8Weight, "NF4Weight": NF4Weight}
 _BF16_TAG = "@bf16"
+#: the stacked layer trees: the decoder (or Mamba) layers, and the audio
+#: encoder's; hybrid's ``shared`` is one layer and stays a dict
+_STACKS = ("layers", "enc_layers")
 
 
 def _tensor(key: str, arr: np.ndarray, device) -> torch.Tensor:
@@ -79,12 +82,13 @@ def params_from_numpy(flat: Mapping[str, np.ndarray],
             node = node.setdefault(p, {})
         node[parts[-1]] = _tensor(key, arr, device)
     params = _rebuild(tree)
-    if "layers" in params:
-        first = params["layers"]
-        while isinstance(first, dict):
-            first = next(iter(first.values()))
-        n = (first[0] if isinstance(first, tuple) else first).shape[0]
-        params["layers"] = _unstack(params["layers"], n)
+    for key in _STACKS:
+        if key in params:
+            first = params[key]
+            while isinstance(first, dict):
+                first = next(iter(first.values()))
+            n = (first[0] if isinstance(first, tuple) else first).shape[0]
+            params[key] = _unstack(params[key], n)
     return params
 
 

@@ -1,7 +1,7 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
 package: moving arrays across as numpy, carrying a JAX model's weights
 into the port through the reference's npz checkpoint, and compiling the
-reference's int8 MoE layer on the CPU."""
+reference's int8 MoE, SSM and hybrid models on the CPU."""
 import os
 
 import jax
@@ -61,3 +61,22 @@ def host_expert_product(monkeypatch):
                                  w, x)
 
     monkeypatch.setattr(jax_moe, "_expert_dense", called_back)
+
+
+def host_int8_matmul(monkeypatch):
+    """Run the reference's 2-D int8 product (``repro.quant.apply``'s
+    ``int8_matmul``) op by op on the host, called back from the compiled
+    reference: XLA:CPU cannot compile it inside the SSM and hybrid
+    models' layer scans (DotThunk: BF16 x BF16 = F32)."""
+    from repro.quant import apply as jax_apply
+    int8_matmul = jax_apply.int8_matmul
+
+    def host(x, w, cd):
+        with jax.disable_jit():
+            return np.asarray(int8_matmul(x, w, cd))
+
+    def called_back(x, w, cd):
+        out = jax.ShapeDtypeStruct(x.shape[:-1] + (w.codes.shape[-1],), cd)
+        return jax.pure_callback(lambda x_, w_: host(x_, w_, cd), out, x, w)
+
+    monkeypatch.setattr(jax_apply, "int8_matmul", called_back)

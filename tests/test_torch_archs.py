@@ -1,11 +1,11 @@
-"""The port on the ARCH_IDS it builds (four dense, two MoE) against the JAX
-package, the torch twin of tests/test_arch_smoke.py: reduced configs,
-weights carried across through the reference's npz checkpoint, prefill
+"""The port's four dense and two MoE ARCH_IDS against the JAX package,
+the torch twin of tests/test_arch_smoke.py: reduced configs, weights
+carried across through the reference's npz checkpoint, prefill
 and 8 decode steps. float32 greedy tokens identical and logits within
 1e-5; bf16, int8 and nf4 teacher-forced within TEACHER_TOL; float32 with
 an int8 KV cache with identical tokens and its own stated logit bound.
-Also: each of the six serves through the port's engine, and the other
-families still raise.
+Also: each of the six serves through the port's engine. The other four
+ids are held in tests/test_torch_families.py.
 
 MoE runs record both packages' routing (the top-k expert ids of every
 token, layer and forward). A 16-bit step whose logits miss TEACHER_TOL is
@@ -29,7 +29,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import moe as jax_moe  # noqa: E402
 
-from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as pt_moe  # noqa: E402
@@ -39,7 +39,6 @@ from _torch_parity import (carry_params, host_expert_product,  # noqa: E402
 
 PORTED = ("stablelm-1.6b", "minitron-8b", "h2o-danube-3-4b",
           "command-r-35b", "qwen3-moe-30b-a3b", "granite-moe-1b-a400m")
-UNPORTED = tuple(a for a in ARCH_IDS if a not in PORTED)
 N_DECODE = 8
 # as tests/test_torch_model.py: 16-bit activations round at the same
 # points in both packages, but f32 sums in other orders can land one bf16
@@ -263,9 +262,3 @@ def test_serves_at_reduced_size(arch):
         assert aux and all(a["dropped_fraction"] == 0.0 for a in aux)
     else:
         assert aux == []
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        build_model(get_config(arch).reduced(), device="cpu")

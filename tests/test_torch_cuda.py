@@ -3,7 +3,10 @@ version: the quant_matmul kernels through every loop the launcher picks
 (the decode loop also row by row against M = 1 calls and under graph
 replay), their grouped launch over the experts of an MoE layer at
 qwen3-moe-30b-a3b's and granite-moe-1b-a400m's shapes, the attention
-kernels at ragged shapes. Imports no JAX,
+kernels at ragged shapes, and the attention uses of the vlm, audio and
+hybrid families (unmasked flash over S != T keys, paged attention over
+the encoder K/V, a hybrid decode step against the masked attention).
+Imports no JAX,
 so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
@@ -773,3 +776,120 @@ def test_cuda_grouped_bf16_refuses_what_no_loop_takes():
     with pytest.raises(ValueError, match="no grouped bf16 kernel"):
         K.int8_matmul_grouped(x, q8.codes, q8.scale)
     assert K.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the vlm, audio and hybrid families' attention uses
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T", [(256, 64), (37, 64), (64, 64), (1, 61)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_without_mask_at_seamless_heads(S, T, dtype):
+    """On the card: flash attention without a mask at
+    seamless-m4t-large-v2's heads (16/16/64), S queries over T keys: the
+    decoder's cross-attention (S other than T, T = 64 or 61 frames) and
+    the encoder (S = T). Row by row, tolerances as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    td = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(S * T)
+    q = torch.randn((2, S, 16, 64), generator=gen, device="cuda").to(td)
+    k, v = (torch.randn((2, T, 16, 64), generator=gen, device="cuda").to(td)
+            for _ in range(2))
+    before = FK.LAUNCHES["flash_attention"]
+    got = FK.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == before + 1
+    ref = FK.flash_attention_plain(q, k, v, causal=False)
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel(got, ref) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T_enc", [37, 61, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_over_encoder_kv(T_enc, dtype):
+    """On the card: a decode step's cross-attention, the paged kernel over
+    the encoder K/V (L, B, T_enc, Kv, hd) viewed as pages by
+    ``encoder_kv_pages`` (one page a row when T_enc is no multiple of 8,
+    seq_lens = T_enc for every row), layer by layer, against the plain
+    version and against the direct attention over every frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.models.layers import attention, encoder_kv_pages
+    td = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    L, B, Kv, hd = 2, 3, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(T_enc)
+    k, v = (torch.randn((L, B, T_enc, Kv, hd), generator=gen,
+                        device="cuda").to(td) for _ in range(2))
+    q = torch.randn((B, Kv, hd), generator=gen, device="cuda").to(td)
+    k_pages, v_pages, table, lens = encoder_kv_pages(k, v)
+    assert lens.tolist() == [T_enc] * B
+    assert k_pages.data_ptr() == k.data_ptr()          # a view, no copy
+    for i in range(L):
+        got = PK.paged_attention(q, k_pages[i], v_pages[i], table, lens)
+        ref = PK.paged_attention_plain(q, k_pages[i], v_pages[i], table,
+                                       lens)
+        direct = attention(q[:, None], k[i], v[i])[:, 0]
+        torch.cuda.synchronize()
+        assert _row_rel(got, ref) < tol
+        assert _row_rel(got, direct) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_decode_matches_masked_attention():
+    """On the card: reduced zamba2-1.2b in float32, a right-padded prefill
+    (lengths 12 and 9) with buf_len 8 (the rings take the prompt's 12 and
+    wrap), then 8 decode steps whose attention at each site is the paged
+    kernel over the site's ring, against the same steps from a copy of
+    the cache with the direct attention under the decode mask (what the
+    reference computes): logits within 2e-5 of their max |logit|, the
+    same greedy tokens, and the paged kernel launched once a site and
+    step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.models import build_model
+    from repro_torch.models import hybrid as phyb
+    from repro_torch.models.layers import attention, decode_attention_mask
+    cfg = get_config("zamba2-1.2b").reduced()
+    model = build_model(cfg, fmt="float32", device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                         device="cuda")
+    lengths = torch.tensor([12, 9], dtype=torch.int32, device="cuda")
+    _, cache = model.prefill(params, {"tokens": toks}, buf_len=8,
+                             lengths=lengths)
+    assert cache["shared_k"].shape[2] == 12
+    masked_cache = {k: v.clone() for k, v in cache.items()}
+
+    def masked(q, k_pages, v_pages, table, seq_lens):
+        B, W = masked_cache["slot_pos"].shape
+        k = k_pages.reshape(B, W, *k_pages.shape[2:])
+        v = v_pages.reshape(B, W, *v_pages.shape[2:])
+        allow = decode_attention_mask(masked_cache["slot_pos"],
+                                      masked_cache["pos"], None)
+        return attention(q[:, None], k, v, mask=allow[:, None, :])[:, 0]
+
+    tok = toks[:, -1:]
+    sites = phyb.n_attn_sites(cfg)
+    for _ in range(8):
+        before = PK.LAUNCHES["paged_attention"]
+        got, cache = model.decode_step(params, tok, cache)
+        assert PK.LAUNCHES["paged_attention"] == before + sites
+        paged = phyb.paged_attention
+        phyb.paged_attention = masked
+        try:
+            ref, masked_cache = model.decode_step(params, tok, masked_cache)
+        finally:
+            phyb.paged_attention = paged
+        torch.cuda.synchronize()
+        assert torch.equal(got.argmax(-1), ref.argmax(-1))
+        assert _rel(got, ref) < 2e-5
+        tok = ref.argmax(-1)[:, None]

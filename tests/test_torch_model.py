@@ -218,20 +218,6 @@ def test_teacher_forced_logits(fmt, kv_quant, tmp_path):
         assert rel_err(a, b) < TEACHER_TOL, f"step {i}"
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "phi-3-vision-4.2b"])
-def test_other_families_raise(arch):
-    """A family the port does not run yet (ssm, vlm) raises, naming the
-    ROADMAP item."""
-    from repro.configs import get_config
-    from repro_torch.configs.base import ModelConfig
-    import dataclasses
-    ref = get_config(arch).reduced()
-    cfg = ModelConfig(**{f.name: getattr(ref, f.name)
-                         for f in dataclasses.fields(ModelConfig)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        build_model(cfg, device="cpu")
-
-
 def test_config_parity():
     """The paper's zoo and every ARCH_IDS config: the same fields and
     param counts (total and active) in both packages, full and
