@@ -19,8 +19,8 @@ non-zero exit code:
    (2048, 8384), w_out (4096, 2048) and shared block in int8,
    seamless-m4t-large-v2's (1024, 1024), (1024, 8192) and (8192, 1024)
    in int8), at the rows the serve gives it (1 and 4 at decode, 512 at
-   prefill; 2 and 128 for the Model runs' decode pair and encoder), in
-   bf16, each row naming the loop
+   prefill; for the Model runs the rows their prefills, encoders and
+   decode pair give them), in bf16, each row naming the loop
    that ran: "decode" for M <= 8 (the TMA + tensor-core loop of
    ``qmm_wgmma.cuh`` at 8 rows of x, its K steps split evenly over one
    block per SM and the split tiles merged in the same launch), "wgmma"
@@ -30,19 +30,24 @@ non-zero exit code:
    heads (B, S) in {(1, 81), (2, 256), (1, 2048)} causal, one windowed
    cell and one at qwen2.5-0.5b's heads, and at head_dim 120
    (h2o-danube-3-4b: (2, 256) causal and a window of 4096 over S = 4608)
-   and 96 (phi-3-vision-4.2b: (2, 256) causal, and (2, 576 + 256), the
-   vlm prefill with patches), and (2, 256) at the
+   and 96 (phi-3-vision-4.2b: (2, 256) causal, and (2, 576 + 256)), and
+   (2, 256) at the
    heads of qwen3-moe-30b-a3b (32/4/64), stablelm-1.6b (32/32/64, also
    zamba2-1.2b's shared block), command-r-35b (64/8/128),
    granite-moe-1b-a400m (16/8/64) and seamless-m4t-large-v2 (16/16/64);
-   without a mask at seamless's heads (FLASH_FULL_CELLS: its encoder,
-   (2, 64) over 64 frames, and its cross-attention, 256 queries over 64
-   frames); paged attention at
+   paged attention at
    llama-3.1-8b's heads for B in {1, 4, 8} and ring lengths W in {261,
    512, 4096}, at the other seven heads for B = 4
-   over W = 512, and at seamless's for B = 2 over W = 64 (a decode
-   step's cross-attention over the encoder K/V, one page a row), with
-   ragged lengths and an unassigned page; the
+   over W = 512, with
+   ragged lengths and an unassigned page; and both at every shape the
+   Model runs (phase 8) give them (``model_attention_cells``, derived
+   from the runs' own padding and rings): flash causal over each
+   prefill (phi-3-vision: 576 patches and the padded prompt, S = 784 to
+   824; seamless's decoder, S = 208 to 248), unmasked over seamless's
+   encoder (64 over 64 frames) and cross-attention (the padded prompt
+   over 64 frames), paged over each decoded pair's ring (phi-3-vision
+   832 and 896, seamless 256 and 320) and seamless's encoder K/V (64,
+   one page a row); the
    attention cells in bf16 and
    f32, each checked row by row and beside a control (the plain version
    with its mask edge moved by one key) that the check must see. At each
@@ -205,9 +210,8 @@ SEAMLESS_HEADS = (16, 16, 64)       # seamless-m4t-large-v2 (MHA)
 # audio frames a request of the Model runs: fixed, so that a request's
 # encoder input does not depend on its batch
 T_ENC = 64
-# (B, S, heads, window): causal self-attention. (2, 832) at phi-3-vision's
-# heads: a pair of the vlm Model run's prefills, 576 patches and a prompt
-# padded to 256
+# (B, S, heads, window): causal self-attention. (2, 576 + 256) at
+# phi-3-vision's heads: 576 patches and a prompt of 256, 13 full key tiles
 FLASH_CELLS = [(1, 81, LLAMA_HEADS, None), (2, 256, LLAMA_HEADS, None),
                (1, 2048, LLAMA_HEADS, None), (1, 2048, LLAMA_HEADS, 512),
                (2, 256, QWEN_HEADS, None), (2, 256, H2O_HEADS, None),
@@ -217,21 +221,15 @@ FLASH_CELLS = [(1, 81, LLAMA_HEADS, None), (2, 256, LLAMA_HEADS, None),
                (2, 256, GRANITE_HEADS, None),
                (2, 256, SEAMLESS_HEADS, None),
                (2, 576 + 256, PHI3V_HEADS, None)]
-# (B, S, T, heads): attention without a mask, S queries over T keys: the
-# audio encoder over its T_ENC frames and the decoder's cross-attention
-# of a padded prompt over them
-FLASH_FULL_CELLS = [(2, T_ENC, T_ENC, SEAMLESS_HEADS),
-                    (2, 256, T_ENC, SEAMLESS_HEADS)]
 # 261: the sequential path's ring for a 228-token prompt (one page);
-# 512: the serve phase's buf_len; 4096: a long context. (B, W, heads);
-# (2, T_ENC): a decode step's cross-attention over the encoder K/V, one
-# page a row
+# 512: the serve phase's buf_len; 4096: a long context. (B, W, heads)
 PAGED_CELLS = [(B, W, LLAMA_HEADS) for B in (1, 4, 8)
                for W in (261, 512, 4096)] \
     + [(4, 512, h) for h in (H2O_HEADS, PHI3V_HEADS, QWEN3_HEADS,
                              STABLELM_HEADS, COMMAND_R_HEADS,
-                             GRANITE_HEADS, SEAMLESS_HEADS)] \
-    + [(2, T_ENC, SEAMLESS_HEADS)]
+                             GRANITE_HEADS, SEAMLESS_HEADS)]
+# the Model runs' attention calls join these at the shapes they run:
+# model_attention_cells
 # the card's power draw in W, one line every 100 ms, over the serve runs
 POWER_SAMPLER = ["nvidia-smi", "--query-gpu=power.draw",
                  "--format=csv,noheader,nounits", "-lms", "100"]
@@ -322,9 +320,10 @@ def quant_cells(configs) -> tuple:
     config makes in each quantized format it serves: its 2-D projections
     at 1 row (a sequential decode step), max_batch rows (a continuous
     one) and max_prefill_batch times the longest prompt (a batched
-    prefill); every MODEL_CELLS config's at the same rows and at the
-    pair's rows (a decode step) and its encoder rows (MODEL_PAIR *
-    T_ENC); and for MoE its grouped expert products (E, C, K, N) at the
+    prefill); every MODEL_CELLS config's at the rows its run gives them
+    (:func:`model_prefills`: each prefill's rows times its padded length,
+    stubs included, an audio encoder's rows times T_ENC, and a decoded
+    pair's rows); and for MoE its grouped expert products (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
     top_k) of the logit pair. ``configs`` maps an arch to its config.
@@ -345,22 +344,28 @@ def quant_cells(configs) -> tuple:
     for arch, E, C, Kd, N in GROUPED_SHAPES:
         for name in ("int8_matmul", "nf4_matmul"):
             add(grouped, (name + "_grouped", E, Kd, N), [C], arch)
-    cells = [(arch, formats, kw, [1, kw["max_batch"]])
-             for arch, formats, kw in SERVE_CELLS] \
-        + [(arch, formats, MODEL_TRAFFIC,
-            [1, MODEL_TRAFFIC["max_batch"], MODEL_PAIR, MODEL_PAIR * T_ENC])
-           for arch, formats in MODEL_CELLS]
-    for arch, formats, kw, small in cells:
+    cells = [(arch, formats, kw, [1, kw["max_batch"],
+                                  kw["max_prefill_batch"]
+                                  * kw["prompt_len"][1]])
+             for arch, formats, kw in SERVE_CELLS]
+    for arch, formats in MODEL_CELLS:
+        runs = model_prefills(configs[arch])
+        audio = configs[arch].family == "audio"
+        rows = sorted({B * (prefix + pad) for B, pad, prefix, _, _ in runs}
+                      | {B * T_ENC for B, *_ in runs if audio}
+                      | {B for B, *_, decoded in runs if decoded})
+        cells.append((arch, formats, None, rows))
+    for arch, formats, kw, rows in cells:
         cfg = configs[arch]
-        batched = kw["max_prefill_batch"] * kw["prompt_len"][1]
         for fmt in formats:
             name = {"int8": "int8_matmul", "nf4": "nf4_matmul"}.get(fmt)
             if name is None:
                 continue
             for Kd, N in serve_projections(cfg):
-                add(two_d, (name, Kd, N), small + [batched], arch)
+                add(two_d, (name, Kd, N), rows, arch)
             if not cfg.is_moe:
                 continue
+            batched = kw["max_prefill_batch"] * kw["prompt_len"][1]
             E, k = cfg.num_experts, cfg.experts_per_token
             cs = sorted({expert_capacity(T, E, k, cf)
                          for T in (kw["max_batch"], kw["prompt_len"][1],
@@ -514,23 +519,85 @@ def grouped_phase(torch, K, cells):
     return rows
 
 
-def check_attention_cells(configs) -> None:
-    """Fail unless the heads (H, Kv, head_dim) of every SERVE_CELLS and
-    MODEL_CELLS config with attention are among FLASH_CELLS' and, unless
-    it is windowed (its decode takes the masked path), among
-    PAGED_CELLS'; an audio config's also among FLASH_FULL_CELLS' (its
-    encoder and cross-attention). An attention-free config needs none."""
-    flash = {h for _, _, h, _ in FLASH_CELLS}
-    full = {h for _, _, _, h in FLASH_FULL_CELLS}
-    paged = {h for _, _, h in PAGED_CELLS}
-    for arch in [a for a, *_ in SERVE_CELLS] + [a for a, _ in MODEL_CELLS]:
+def _model_geometry(cfg, lens) -> tuple:
+    """(padded prompt length, stub prefix, ring length) of a Model run's
+    prefill of prompts of ``lens`` tokens: right-padded to a multiple of
+    8, the patches (vlm) in front, and a ring of the padded length (stubs
+    included) plus 9 slots rounded up to 64, so that the prefill stays
+    within the ring and the decode takes the paged kernel."""
+    pad = -(-max(lens) // 8) * 8
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    return pad, prefix, -(-(prefix + pad + 9) // 64) * 64
+
+
+def model_prefills(cfg) -> list:
+    """(rows, padded length, stub prefix, ring length, decoded) of each
+    prefill a MODEL_CELLS run of ``cfg`` makes: MODEL_TRAFFIC's prompts
+    MODEL_PAIR at a time, each pair then decoded, and each prompt on its
+    own (the logit check; not decoded)."""
+    from repro_torch.launch.serve import make_requests
+    kw = MODEL_TRAFFIC
+    lens = [r.prompt_len for r in make_requests(
+        cfg.vocab_size, kw["n"], kw["seed"], kw["prompt_len"],
+        kw["new_tokens"])]
+    pairs = [lens[i:i + MODEL_PAIR] for i in range(0, len(lens),
+                                                   MODEL_PAIR)]
+    return [(len(g), *_model_geometry(cfg, g), decoded)
+            for groups, decoded in ((pairs, True), ([[n] for n in lens],
+                                                    False))
+            for g in groups]
+
+
+def model_attention_cells(configs) -> tuple:
+    """Every attention call of the MODEL_CELLS runs at the shape it runs
+    (:func:`model_prefills`): flash, causal, over each prefill (B, prefix
+    + pad) and, for audio, unmasked over its encoder (B, T_ENC over
+    T_ENC) and its cross-attention (B, pad over T_ENC); paged over each
+    decoded pair's ring (B, ring) and, for audio, over the encoder K/V of
+    its cross-attention (B, T_ENC). Returns (causal, unmasked, paged)
+    cells, laid out as FLASH_CELLS' (B, S, heads, window), (B, S, T,
+    heads) and PAGED_CELLS' (B, W, heads)."""
+    causal, full, paged = [], [], []
+    for arch, _ in MODEL_CELLS:
+        cfg = configs[arch]
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        audio = cfg.family == "audio"
+        for B, pad, prefix, ring, decoded in model_prefills(cfg):
+            causal.append((B, prefix + pad, heads, cfg.sliding_window))
+            if audio:
+                full += [(B, T_ENC, T_ENC, heads), (B, pad, T_ENC, heads)]
+            if decoded:
+                paged += [(B, ring, heads)] + ([(B, T_ENC, heads)]
+                                               if audio else [])
+    return causal, full, paged
+
+
+def attention_cells(configs) -> tuple:
+    """(causal flash, unmasked flash, paged) cells of the attention
+    phases: FLASH_CELLS and PAGED_CELLS and the Model runs' calls
+    (:func:`model_attention_cells`), each cell once."""
+    model = model_attention_cells(configs)
+    return tuple(list(dict.fromkeys(fixed + extra))
+                 for fixed, extra in zip((FLASH_CELLS, [], PAGED_CELLS),
+                                         model))
+
+
+def check_attention_cells(configs, cells) -> None:
+    """Fail unless the heads (H, Kv, head_dim) of every SERVE_CELLS
+    config with attention are among the causal flash ``cells``' and,
+    unless it is windowed (its decode takes the masked path), among the
+    paged ones'. An attention-free config needs none. (The Model runs'
+    calls are among the cells at their own shapes:
+    :func:`model_attention_cells`.)"""
+    flash = {h for _, _, h, _ in cells[0]}
+    paged = {h for _, _, h in cells[2]}
+    for arch, *_ in SERVE_CELLS:
         cfg = configs[arch]
         if not cfg.has_attention:
             continue
         heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
         if heads not in flash or (not cfg.sliding_window
-                                  and heads not in paged) \
-                or (cfg.family == "audio" and heads not in full):
+                                  and heads not in paged):
             raise SystemExit(f"{arch}: its heads {heads} are missing from "
                              f"the attention cells")
 
@@ -623,17 +690,18 @@ def _raise_faults(rows) -> None:
         raise SystemExit("\n".join(f for f in faults if f))
 
 
-def flash_phase(torch, FK):
-    """Flash attention against its plain version at FLASH_CELLS (causal,
-    S = T) and FLASH_FULL_CELLS (no mask, S queries over T keys); the
+def flash_phase(torch, FK, causal_cells, full_cells):
+    """Flash attention against its plain version at ``causal_cells``
+    (S = T, laid out as FLASH_CELLS) and ``full_cells`` (no mask, S
+    queries over T keys; (B, S, T, heads)); the
     library time is scaled_dot_product_attention on the same q, k, v laid
     out (B, H, S, d) beforehand, causal (with the window as a boolean
     mask) or unmasked."""
     from repro_torch.models.layers import attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cells = [(B, S, S, h, w, True) for B, S, h, w in FLASH_CELLS] \
-        + [(B, S, T, h, None, False) for B, S, T, h in FLASH_FULL_CELLS]
+    cells = [(B, S, S, h, w, True) for B, S, h, w in causal_cells] \
+        + [(B, S, T, h, None, False) for B, S, T, h in full_cells]
     rows = []
     for dtype in ATTN_DTYPES:
         td = getattr(torch, dtype)
@@ -699,8 +767,9 @@ def flash_phase(torch, FK):
     return rows
 
 
-def paged_phase(torch, PK):
-    """Paged attention against its plain version over a ring cache viewed
+def paged_phase(torch, PK, cells):
+    """Paged attention against its plain version at ``cells`` (laid out
+    as PAGED_CELLS) over a ring cache viewed
     as pages, as the decode step does, with ragged lengths and (where a
     row has more than one page) an unassigned page in the last row. The
     library time is scaled_dot_product_attention over the same cache laid
@@ -715,7 +784,7 @@ def paged_phase(torch, PK):
     for dtype in ATTN_DTYPES:
         td = getattr(torch, dtype)
         es = torch.finfo(td).bits // 8
-        for B, W, (H, Kv, d) in PAGED_CELLS:
+        for B, W, (H, Kv, d) in cells:
             lens = rng.integers(W // 2, W + 1, B)
             lens[0] = W
             cache_bytes = 2 * B * W * Kv * d * es
@@ -1108,14 +1177,13 @@ def _stub_inputs(torch, cfg, req_id: int):
 
 
 def _model_prefill(torch, model, params, reqs, stubs):
-    """One prefill of ``reqs``, right-padded to a multiple of 8 with
-    ``lengths``, their stubs stacked in front (vlm) or as the encoder's
-    input (audio), with a ring of the padded length (stubs included) plus
-    9 slots rounded up to 64: the prefill stays within the ring and the
-    decode takes the paged kernel. Returns (logits, cache, rows x padded
-    tokens, encoder rows)."""
+    """One prefill of ``reqs`` with ``lengths``, their stubs stacked in
+    front (vlm) or as the encoder's input (audio), padded and with the
+    ring of :func:`_model_geometry`. Returns (logits, cache, (rows, padded
+    length, stub prefix, the cache's ring length), encoder rows)."""
     cfg = model.cfg
-    pad = -(-max(r.prompt_len for r in reqs) // 8) * 8
+    pad, prefix, buf_len = _model_geometry(cfg, [r.prompt_len
+                                                 for r in reqs])
     toks = torch.zeros((len(reqs), pad), dtype=torch.long, device="cuda")
     for j, r in enumerate(reqs):
         toks[j, :r.prompt_len] = torch.as_tensor(r.prompt, device="cuda")
@@ -1126,13 +1194,12 @@ def _model_prefill(torch, model, params, reqs, stubs):
     if cfg.family == "audio":
         batch["frames"] = torch.stack(stubs)
         enc_rows = [len(reqs) * T_ENC]
-    prefix = cfg.num_patches if cfg.family == "vlm" else 0
-    buf_len = -(-(prefix + pad + 9) // 64) * 64
     lengths = torch.as_tensor([r.prompt_len for r in reqs],
                               dtype=torch.int32, device="cuda")
     logits, cache = model.prefill(params, batch, buf_len=buf_len,
                                   lengths=lengths)
-    return logits, cache, len(reqs) * (prefix + pad), enc_rows
+    return (logits, cache, (len(reqs), pad, prefix, cache["k"].shape[2]),
+            enc_rows)
 
 
 def model_cell(torch, mods, cfg, fmt) -> dict:
@@ -1142,8 +1209,10 @@ def model_cell(torch, mods, cfg, fmt) -> dict:
     decode steps, under the launch checks (flash per prefill and paged
     per step of :func:`attention_launches`, the quant loops); then each
     request's own prefill, whose logits the batched prefill must match
-    within PREFILL_LOGIT_TOL. Prints the model line (host wall times,
-    tokens/s, peak memory); returns the batched run's launch counts."""
+    within PREFILL_LOGIT_TOL. Its prefills' shapes and rings must be
+    :func:`model_prefills`', at which the kernel phase held the kernels.
+    Prints the model line (host wall times, tokens/s, peak memory);
+    returns the batched run's launch counts."""
     from repro_torch.launch.serve import build_params, make_requests
     from repro_torch.models.api import build_model
     kw = MODEL_TRAFFIC
@@ -1159,18 +1228,20 @@ def model_cell(torch, mods, cfg, fmt) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches(mods)
     tokens, enc_rows, pre_s, dec_s, first = [], [], [], [], []
+    ran = []
     t_run = time.perf_counter()
     for i in range(0, len(reqs), MODEL_PAIR):
         pair = reqs[i:i + MODEL_PAIR]
         t0 = time.perf_counter()
-        logits, cache, n_tok, enc = _model_prefill(
+        logits, cache, geom, enc = _model_prefill(
             torch, model, params, pair, stubs[i:i + MODEL_PAIR])
         tok = torch.argmax(logits, -1)[:, None]
         for j, r in enumerate(pair):
             r.generated = [int(tok[j, 0])]
         pre_s.append(time.perf_counter() - t0)
         first.append(logits.float().cpu())
-        tokens.append(n_tok)
+        ran.append((*geom, True))
+        tokens.append(geom[0] * (geom[1] + geom[2]))
         enc_rows += enc
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -1196,9 +1267,10 @@ def model_cell(torch, mods, cfg, fmt) -> dict:
     reset_launches(mods)
     worst, own_tokens, own_enc = 0.0, [], []
     for i, r in enumerate(reqs):
-        logits, _, n_tok, enc = _model_prefill(torch, model, params, [r],
-                                               [stubs[i]])
-        own_tokens.append(n_tok)
+        logits, _, geom, enc = _model_prefill(torch, model, params, [r],
+                                              [stubs[i]])
+        ran.append((*geom, False))
+        own_tokens.append(geom[0] * (geom[1] + geom[2]))
         own_enc += enc
         a = first[i // MODEL_PAIR][i % MODEL_PAIR]
         b = logits[0].float().cpu()
@@ -1206,6 +1278,10 @@ def model_cell(torch, mods, cfg, fmt) -> dict:
             raise SystemExit(f"{cfg.name} {fmt}: non-finite prefill logits")
         worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
     check_attention_launches(cfg, fmt, read_launches(mods), len(reqs), 0)
+    if ran != model_prefills(cfg):
+        raise SystemExit(f"{cfg.name} {fmt}: the run's prefills {ran} are "
+                         f"not those the attention and quant cells were "
+                         f"derived from, {model_prefills(cfg)}")
     loops["own_prefill"] = check_quant_loops(
         cfg, fmt, read_loops(mods[0]), own_tokens, "own prefill", own_enc)
     if not worst <= PREFILL_LOGIT_TOL[fmt]:
@@ -1275,12 +1351,13 @@ def main() -> int:
     from repro_torch.launch.serve import arch_config
     configs = {arch: arch_config(arch)
                for arch in [a for a, *_ in SERVE_CELLS + MODEL_CELLS]}
-    check_attention_cells(configs)
+    causal, full, paged = attention_cells(configs)
+    check_attention_cells(configs, (causal, full, paged))
     two_d, grouped = quant_cells(configs)
     rows = kernel_phase(torch, K, two_d)
     rows.update(grouped_phase(torch, K, grouped))
-    rows["flash_attention"] = flash_phase(torch, FK)
-    rows["paged_attention"] = paged_phase(torch, PK)
+    rows["flash_attention"] = flash_phase(torch, FK, causal, full)
+    rows["paged_attention"] = paged_phase(torch, PK, paged)
     launches = serve_phase(torch, mods)
     launches.update(model_phase(torch, mods))
 

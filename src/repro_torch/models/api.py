@@ -8,7 +8,7 @@ precision policy, device) and exposes
 * ``prefill(params, batch, buf_len, lengths, with_aux=False)``
                                            -> (last logits, cache[, aux])
 * ``decode_step(params, tokens, cache)``   -> (logits, cache)
-* ``init_cache(batch, buf_len, enc_len=0)`` -> empty decode cache
+* ``init_cache(batch, buf_len)``           -> empty decode cache (not audio)
 * ``logits(params, hidden)``               -> LM-head projection
 
 Families: dense, moe and vlm share the decoder stack
@@ -160,37 +160,6 @@ class Model:
                       .reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
         return torch.stack(ks), torch.stack(vs)
 
-    def _ssm_forward(self, params, x: torch.Tensor,
-                     lengths: torch.Tensor):
-        """The Mamba2 stack over a right-padded sequence; returns (hidden,
-        cache with ``ssm_state``, ``conv`` and ``pos`` = lengths)."""
-        dims = ssm_mod.ssm_dims(self.cfg)
-        B, S = x.shape[0], x.shape[1]
-        h0 = torch.zeros((B, dims["nheads"], dims["headdim"],
-                          dims["dstate"]), dtype=torch.float32,
-                         device=x.device)
-        seq_mask = (torch.arange(S, device=x.device)[None, :]
-                    < lengths[:, None]).float()
-        hs, tails = [], []
-        for lp in params["layers"]:
-            x, h, tail = ssm_mod.mamba_block(lp, x, self.cfg, self.policy,
-                                             h0, seq_mask=seq_mask)
-            hs.append(h)
-            tails.append(tail)
-        return x, {"ssm_state": torch.stack(hs), "conv": torch.stack(tails),
-                   "pos": lengths.to(torch.int32)}
-
-    def _ssm_decode(self, params, x2d: torch.Tensor, cache) -> torch.Tensor:
-        """One token through the Mamba2 stack; the cache in place."""
-        for i, lp in enumerate(params["layers"]):
-            x2d, h, conv = ssm_mod.mamba_block_decode(
-                lp, x2d, self.cfg, self.policy, cache["ssm_state"][i],
-                cache["conv"][i])
-            cache["ssm_state"][i] = h
-            cache["conv"][i] = conv
-        cache["pos"] = cache["pos"] + 1
-        return x2d
-
     # ------------------------------------------------------------------
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return linear_apply(params["lm_head"], hidden, self.policy).float()
@@ -238,12 +207,13 @@ class Model:
             cache["enc_k"], cache["enc_v"] = enc_kv
         elif cfg.family == "ssm":
             x = embed(tokens, params["embed"], self.adt)
-            h, cache = self._ssm_forward(params, x, lengths)
+            h, cache = ssm_mod.forward_seq(params["layers"], x, cfg,
+                                           self.policy, lengths)
         elif cfg.family == "hybrid":
             x = embed(tokens, params["embed"], self.adt)
             h, cache = hybrid_mod.forward_seq(
-                params, x, cfg, self.policy, collect_cache=True,
-                buf_len=self._buf_len(T, buf_len), lengths=lengths)
+                params, x, cfg, self.policy, self._buf_len(T, buf_len),
+                lengths)
         else:
             raise ValueError(cfg.family)
         h = rms_norm(h, params["final_norm"])
@@ -291,7 +261,8 @@ class Model:
                                         self.policy, window=self.window,
                                         **cross)
         elif cfg.family == "ssm":
-            h = self._ssm_decode(params, x[:, 0, :], cache)[:, None, :]
+            h = ssm_mod.decode_step(params["layers"], x[:, 0, :], cache,
+                                    cfg, self.policy)[:, None, :]
         elif cfg.family == "hybrid":
             h = hybrid_mod.decode_step(params, x, cache, cfg, self.policy)
         else:
@@ -299,12 +270,16 @@ class Model:
         h = rms_norm(h, params["final_norm"])
         return self.logits(params, h[:, -1]), cache
 
-    def init_cache(self, batch: int, buf_len: int,
-                   enc_len: int = 0) -> Dict[str, Any]:
+    def init_cache(self, batch: int, buf_len: int) -> Dict[str, Any]:
         """The empty decode cache of ``batch`` lanes and a ring of
-        ``buf_len`` slots (at most the window); audio also holds encoder
-        K/V of ``enc_len`` frames."""
+        ``buf_len`` slots (at most the window). An audio cache holds its
+        encoder's K/V, which only :meth:`prefill` computes: it has no
+        empty form, and asking for one raises."""
         cfg, dev, adt = self.cfg, self.device, self.adt
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.name}: an audio decode cache holds the "
+                             f"encoder K/V of its frames; build it with "
+                             f"prefill")
         W = min(buf_len, self.window) if self.window else buf_len
         if cfg.family in ATTENTION_FAMILIES:
             c = init_kv_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
@@ -318,11 +293,6 @@ class Model:
                                            dtype=torch.float32, device=dev)
                 c["v_scale"] = torch.zeros(c["v"].shape[:-1],
                                            dtype=torch.float32, device=dev)
-            if cfg.family == "audio":
-                c["enc_k"] = torch.zeros(
-                    (cfg.num_layers, batch, enc_len, cfg.num_kv_heads,
-                     cfg.head_dim), dtype=adt, device=dev)
-                c["enc_v"] = torch.zeros_like(c["enc_k"])
             return c
         dims = ssm_mod.ssm_dims(cfg)
         c = {

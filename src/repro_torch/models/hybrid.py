@@ -20,7 +20,7 @@ from a prefill keeps the property.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -58,51 +58,40 @@ def _shared_attn_seq(shared: Dict[str, Any], x: torch.Tensor,
 
 
 def forward_seq(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-                policy: PrecisionPolicy, *, collect_cache: bool = False,
-                buf_len: Optional[int] = None, ssd_chunk: int = 64,
-                lengths: Optional[torch.Tensor] = None):
-    """Full-sequence forward. x: (B, S, D).
+                policy: PrecisionPolicy, buf_len: int,
+                lengths: torch.Tensor):
+    """Full-sequence forward over a right-padded x (B, S, D) whose rows
+    hold ``lengths`` real tokens: the Mamba2 stack
+    (:func:`repro_torch.models.ssm.forward_seq`) with the shared block
+    after every ``attn_period``-th layer.
 
-    Returns (hidden, cache or None). The cache:
-    ``ssm_state`` (L, B, nh, hd, ds) f32, ``conv`` (L, B, K-1, C),
-    ``shared_k``/``shared_v`` (n_sites, B, buf, Kv, hd), ``slot_pos``
-    (B, buf) and ``pos`` (B,). ``buf_len``: the ring length for the
+    Returns (hidden, cache). The cache is the stack's (``ssm_state``,
+    ``conv``, ``pos``) and ``shared_k``/``shared_v`` (n_sites, B, buf,
+    Kv, hd), ``slot_pos`` (B, buf). ``buf_len``: the ring length for the
     decode that follows; buf = max(buf_len, S), so a prompt is never cut
     to the ring (module docstring)."""
     B, S, _ = x.shape
-    dims = ssm_mod.ssm_dims(cfg)
     period = cfg.attn_period
-    shared = params["shared"]
-    buf = max(buf_len or S, S)
+    buf = max(buf_len, S)
     kv_shape = (n_attn_sites(cfg), B, buf, cfg.num_kv_heads, cfg.head_dim)
     kbuf = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
     vbuf = torch.zeros_like(kbuf)
-    h0 = torch.zeros((B, dims["nheads"], dims["headdim"], dims["dstate"]),
-                     dtype=torch.float32, device=x.device)
-    if lengths is None:
-        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    seq_mask = (torch.arange(S, device=x.device)[None, :]
-                < lengths[:, None]).float()
-    hs, convs = [], []
-    for i, lp in enumerate(params["layers"]):
-        x, h, tail = ssm_mod.mamba_block(lp, x, cfg, policy, h0,
-                                         chunk=ssd_chunk, seq_mask=seq_mask)
-        if (i + 1) % period == 0:
-            x, k, v = _shared_attn_seq(shared, x, cfg, policy)
-            kbuf[i // period, :, :S] = k
-            vbuf[i // period, :, :S] = v
-        hs.append(h)
-        convs.append(tail)
-    if not collect_cache:
-        return x, None
+
+    def site(i, x):
+        if (i + 1) % period:
+            return x
+        x, k, v = _shared_attn_seq(params["shared"], x, cfg, policy)
+        kbuf[i // period, :, :S] = k
+        vbuf[i // period, :, :S] = v
+        return x
+
+    x, cache = ssm_mod.forward_seq(params["layers"], x, cfg, policy,
+                                   lengths, after_layer=site)
     idx = torch.arange(buf, device=x.device)[None, :]
-    cache = {
-        "ssm_state": torch.stack(hs), "conv": torch.stack(convs),
-        "shared_k": kbuf, "shared_v": vbuf,
-        "slot_pos": torch.where(idx < lengths[:, None], idx,
-                                torch.full_like(idx, -1)).to(torch.int32),
-        "pos": lengths.to(torch.int32),
-    }
+    cache.update(
+        shared_k=kbuf, shared_v=vbuf,
+        slot_pos=torch.where(idx < lengths[:, None], idx,
+                             torch.full_like(idx, -1)).to(torch.int32))
     return x, cache
 
 
@@ -123,37 +112,33 @@ def decode_step(params: Dict[str, Any], x: torch.Tensor,
     k_pages, v_pages, page_table, seq_lens = ring_cache_pages(
         cache["shared_k"], cache["shared_v"], pos)
     pos1 = pos[:, None]
-    x2d = x[:, 0, :]
-    for i, lp in enumerate(params["layers"]):
-        x2d, h, conv = ssm_mod.mamba_block_decode(
-            lp, x2d, cfg, policy, cache["ssm_state"][i], cache["conv"][i])
-        cache["ssm_state"][i] = h
-        cache["conv"][i] = conv
+
+    def site(i, x2d):
         if (i + 1) % period:
-            continue
-        site = i // period
+            return x2d
+        s = i // period
         xn = rms_norm(x2d[:, None, :], shared["attn_norm"])
         q, k, v = _project_qkv(shared["attn"], xn, cfg, policy)
         q = apply_rope(q, pos1, cfg.rope_theta)
         k = apply_rope(k, pos1, cfg.rope_theta)
-        cache_write_decode(cache["shared_k"][site], cache["shared_v"][site],
+        cache_write_decode(cache["shared_k"][s], cache["shared_v"][s],
                            k, v, pos)
-        o = paged_attention(q[:, 0], k_pages[site], v_pages[site],
-                            page_table, seq_lens)
+        o = paged_attention(q[:, 0], k_pages[s], v_pages[s], page_table,
+                            seq_lens)
         x2d = x2d + linear_apply(shared["attn"]["wo"], o.reshape(B, -1),
                                  policy)
         xn = rms_norm(x2d, shared["mlp_norm"])
-        x2d = x2d + gated_mlp(shared["mlp"], xn, policy)
-    cache["pos"] = pos + 1
-    return x2d[:, None, :]
+        return x2d + gated_mlp(shared["mlp"], xn, policy)
+
+    return ssm_mod.decode_step(params["layers"], x[:, 0, :], cache, cfg,
+                               policy, after_layer=site)[:, None, :]
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, dtype,
-                prepare: Callable[[Any], Any] = lambda layer: layer
-                ) -> Dict[str, Any]:
+                prepare: Callable[[Any], Any]) -> Dict[str, Any]:
     """``layers``, a list of Mamba layers, and ``shared``, one decoder
-    layer, drawn in that order; ``prepare`` (for example quantization)
-    takes each layer as soon as it is drawn."""
+    layer, drawn in that order; ``prepare`` (quantization, or the
+    identity) takes each layer as soon as it is drawn."""
     layers = [prepare(ssm_mod.init_mamba_layer(generator, cfg, dtype))
               for _ in range(cfg.num_layers)]
     return {"layers": layers,

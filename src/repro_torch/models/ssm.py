@@ -5,6 +5,9 @@ Counterpart of ``repro.models.ssm``. Prefill runs the chunked SSD form:
 attention-like products within a chunk of the sequence, then a
 recurrence over the chunks' states (a Python loop here, a ``lax.scan``
 in the reference). Decode is the O(1) recurrent update of one token.
+:func:`forward_seq` and :func:`decode_step` run a stack of these blocks,
+for the SSM family and, with the shared attention block hooked in after
+its layers, for the hybrid (:mod:`repro_torch.models.hybrid`).
 The reference has no Pallas kernel on this path, so these are plain
 torch ops; the two projections of a block, ``w_in`` and ``w_out``, go
 through :func:`repro_torch.quant.apply.linear_apply` and so reach the
@@ -26,7 +29,7 @@ Layer parameter layout::
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +38,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models.layers import rms_norm
 from repro_torch.quant.apply import linear_apply
+
+#: the SSD scan's chunk length, the reference's; a sequence it does not
+#: divide is one chunk
+SSD_CHUNK = 64
 
 
 def ssm_dims(cfg: ModelConfig) -> Dict[str, int]:
@@ -86,21 +93,19 @@ def conv_step(x_t: torch.Tensor, conv_cache: torch.Tensor, conv_w,
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                h0: torch.Tensor, chunk: int = 64
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
     x (b, S, nh, hd) post-conv inputs; dt (b, S, nh) post-softplus; A
     (nh,) negative decay rates; B, C (b, S, ng, ds); D (nh,) skip; h0
     (b, nh, hd, ds) incoming state. Returns (y (b, S, nh, hd) in x's
-    dtype, final state f32). A sequence that ``chunk`` does not divide
+    dtype, final state f32). A sequence that SSD_CHUNK does not divide
     is one chunk of S, as in the reference. The decay exp(l_i - l_j) is
     infinite above the diagonal of a long chunk; it is dropped by a
     select, never multiplied by a 0/1 mask (inf * 0 would be NaN)."""
     b, S, nh, hd = x.shape
     ng, ds = B.shape[2], B.shape[3]
-    if S % chunk:
-        chunk = S
+    chunk = S if S % SSD_CHUNK else SSD_CHUNK
     nc = S // chunk
     rep = nh // ng
 
@@ -182,8 +187,7 @@ def _gated_out(p: Dict[str, Any], y: torch.Tensor, z: torch.Tensor,
 
 def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                 policy: PrecisionPolicy, h0: torch.Tensor,
-                chunk: int = 64,
-                seq_mask: Optional[torch.Tensor] = None
+                seq_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full Mamba2 block over a sequence. x: (B, S, D).
 
@@ -200,10 +204,7 @@ def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     z, xBC, dt = _split_in_proj(zxbcdt, cfg)
     K = cfg.ssm_conv_width
     b, S = x.shape[0], x.shape[1]
-    if seq_mask is not None:
-        row_len = seq_mask.sum(dim=1).to(torch.int64)           # (B,)
-    else:
-        row_len = torch.full((b,), S, dtype=torch.int64, device=x.device)
+    row_len = seq_mask.sum(dim=1).to(torch.int64)               # (B,)
     idx = row_len[:, None] - (K - 1) \
         + torch.arange(K - 1, device=x.device)[None, :]
     valid = (idx >= 0) & (idx < S)
@@ -213,11 +214,10 @@ def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     tail = tail * valid[:, :, None].to(tail.dtype)
     xs, Bs, Cs = _heads(causal_conv(xBC, p["conv_w"], p["conv_b"]), d,
                         (b, S))
-    dt = _softplus(dt.float() + p["dt_bias"].float())
-    if seq_mask is not None:
-        dt = dt * seq_mask[..., None].float()
+    dt = _softplus(dt.float() + p["dt_bias"].float()) \
+        * seq_mask[..., None].float()
     A = -torch.exp(p["A_log"].float())
-    y, h = ssd_chunked(xs, dt, A, Bs, Cs, p["D"].float(), h0, chunk)
+    y, h = ssd_chunked(xs, dt, A, Bs, Cs, p["D"].float(), h0)
     out = _gated_out(p, y.reshape(b, S, d["d_inner"]), z, policy)
     return res + out, h, tail
 
@@ -241,6 +241,54 @@ def mamba_block_decode(p: Dict[str, Any], x: torch.Tensor,
     y, h = ssd_decode_step(xs, dt, A, Bs, Cs, p["D"].float(), h)
     out = _gated_out(p, y.reshape(b, d["d_inner"]), z, policy)
     return res + out, h, conv_cache
+
+
+#: ``after_layer(i, x) -> x``: what a stack runs after its layer i (the
+#: hybrid's shared attention block at its sites)
+AfterLayer = Optional[Callable[[int, torch.Tensor], torch.Tensor]]
+
+
+def forward_seq(layers, x: torch.Tensor, cfg: ModelConfig,
+                policy: PrecisionPolicy, lengths: torch.Tensor,
+                after_layer: AfterLayer = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The Mamba2 stack over a right-padded sequence x (B, S, D) whose
+    rows hold ``lengths`` real tokens. Returns (hidden, the decode cache:
+    ``ssm_state`` (L, B, nh, hd, ds) f32, ``conv`` (L, B, K-1, C) and
+    ``pos`` = lengths)."""
+    dims = ssm_dims(cfg)
+    B, S = x.shape[0], x.shape[1]
+    h0 = torch.zeros((B, dims["nheads"], dims["headdim"], dims["dstate"]),
+                     dtype=torch.float32, device=x.device)
+    seq_mask = (torch.arange(S, device=x.device)[None, :]
+                < lengths[:, None]).float()
+    hs, tails = [], []
+    for i, lp in enumerate(layers):
+        x, h, tail = mamba_block(lp, x, cfg, policy, h0, seq_mask)
+        hs.append(h)
+        tails.append(tail)
+        if after_layer is not None:
+            x = after_layer(i, x)
+    return x, {"ssm_state": torch.stack(hs), "conv": torch.stack(tails),
+               "pos": lengths.to(torch.int32)}
+
+
+def decode_step(layers, x2d: torch.Tensor, cache: Dict[str, Any],
+                cfg: ModelConfig, policy: PrecisionPolicy,
+                after_layer: AfterLayer = None) -> torch.Tensor:
+    """One token x2d (B, D) through the Mamba2 stack. ``cache`` (see
+    :func:`forward_seq`) is updated in place, ``pos`` advanced by one.
+    Returns the hidden state (B, D)."""
+    for i, lp in enumerate(layers):
+        x2d, h, conv = mamba_block_decode(lp, x2d, cfg, policy,
+                                          cache["ssm_state"][i],
+                                          cache["conv"][i])
+        cache["ssm_state"][i] = h
+        cache["conv"][i] = conv
+        if after_layer is not None:
+            x2d = after_layer(i, x2d)
+    cache["pos"] = cache["pos"] + 1
+    return x2d
 
 
 def init_mamba_layer(generator: torch.Generator, cfg: ModelConfig,

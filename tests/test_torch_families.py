@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 
+from repro_torch.batching.continuous import CACHE_BATCH_AXIS  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
@@ -145,3 +146,27 @@ def test_every_arch_builds_and_steps(arch):
         logits, cache = m.decode_step(p, logits.argmax(-1)[:, None], cache)
         assert logits.shape == (2, cfg.vocab_size)
         assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_cache_has_the_prefill_cache_layout(arch):
+    """The serving backend slots prefill caches into init_cache's lanes:
+    the empty cache has the keys, dtypes and per-lane shapes of a
+    prefill's. An audio cache holds the encoder K/V of its frames and has
+    no empty form: init_cache refuses it."""
+    cfg = get_config(arch).reduced()
+    m = build_model(cfg, fmt="bfloat16", device="cpu")
+    if cfg.family == "audio":
+        with pytest.raises(ValueError, match="prefill"):
+            m.init_cache(2, 48)
+        return
+    p = m.init(torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 10))
+    _, cache = m.prefill(p, {"tokens": torch.from_numpy(toks)}, buf_len=48)
+    empty = m.init_cache(3, 48)
+    assert set(empty) == set(cache)
+    for k, v in cache.items():
+        assert empty[k].dtype == v.dtype, k
+        lane = CACHE_BATCH_AXIS[k]
+        want = v.shape[:lane] + (3,) + v.shape[lane + 1:]
+        assert empty[k].shape == want, k

@@ -233,8 +233,8 @@ def test_hybrid_forward_seq_and_decode(buf_len, tmp_path, monkeypatch):
         p, x, JHYB_CFG, JPOL, collect_cache=True, buf_len=buf_len,
         lengths=l))(jparams, jnp.asarray(x), jnp.asarray(lengths))
     t_h, t_cache = phyb.forward_seq(
-        tparams, torch.from_numpy(x), HYB_CFG, TPOL, collect_cache=True,
-        buf_len=buf_len, lengths=torch.from_numpy(lengths))
+        tparams, torch.from_numpy(x), HYB_CFG, TPOL, buf_len,
+        torch.from_numpy(lengths))
     _close(t_h, j_h)
     assert set(t_cache) == set(j_cache)
     assert t_cache["shared_k"].shape[2] == max(buf_len, S)

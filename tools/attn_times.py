@@ -8,7 +8,8 @@ one NVIDIA GPU, at the cells of ``chip_smoke.py``.
 timed (default: this checkout's), so that one call can time two commits
 in turns, each from its own ``git archive``. For flash attention at
 every ``FLASH_CELLS`` cell and paged attention at every ``PAGED_CELLS``
-cell, in bf16 and f32, it prints one JSON line through
+cell, and both at the Model runs' shapes (``attention_cells``), in bf16
+and f32, it prints one JSON line through
 ``chip_smoke.py``'s own attention phases: the kernel's, the plain
 version's and ``scaled_dot_product_attention``'s times (the last a
 yardstick the port never calls), the bound (the larger of the bytes
@@ -56,10 +57,13 @@ def main() -> int:
     # one (its paged call merged the splits in a second kernel)
     chip_smoke.check_one_launch = (
         lambda torch_, name, fn: len(chip_smoke.graph_nodes(torch_, fn)))
+    from repro_torch.launch.serve import arch_config
+    causal, full, paged = chip_smoke.attention_cells(
+        {arch: arch_config(arch) for arch, _ in chip_smoke.MODEL_CELLS})
     if args.only != "paged":
-        chip_smoke.flash_phase(torch, FK)
+        chip_smoke.flash_phase(torch, FK, causal, full)
     if args.only != "flash":
-        chip_smoke.paged_phase(torch, PK)
+        chip_smoke.paged_phase(torch, PK, paged)
     return 0
 
 
