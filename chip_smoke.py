@@ -114,6 +114,27 @@ non-zero exit code:
    cross; under int8 432 quant launches a prefill and 216 a step), and
    each request's batched prefill logits against its own prefill. Prints
    a model line of host wall times, tokens/s and peak memory.
+9. arrival: llama-3.1-8b at full width and depth in bfloat16 and int8,
+   12 requests of the paper's prompts (``paper_requests``: 200-4000
+   tokens, outputs cut to 10-64) through ``ServeEngine`` on the
+   ``ExecutedBackend`` with ``SlotCountPolicy(max_batch=8,
+   max_prefill_batch=4)`` over rings of 4096 slots: bf16 in a burst,
+   every 50 ms, Poisson at 20/s, the burst under
+   ``PacedScheduler(rate_per_s=10)`` and the 50 ms pattern under
+   ``ChunkedPrefillPolicy(chunk_tokens=1024)``; int8 in a burst and every
+   50 ms (``ARRIVAL_RUNS``). Each run's launch checks count executed
+   prefills (a chunk before a prompt's last runs no model); every
+   request is done; its prefills, report, per-request times and energies
+   and power trace equal those of the analytic engine on the same
+   requests (``arrival_plan``, from which the kernel phase's cells at
+   these runs' shapes are derived: ``arrival_cells``) float for float,
+   and the trace covers the report's energy. The bf16 burst's and 50 ms
+   run's first-token logits are held against each request's own prefill.
+   Prints an arrival line a run: host wall ms per executed prefill and
+   decode step, peak memory, and the analytic J/request, idle and gated
+   energy and mean batch beside the analytic naive sequential
+   J/request of the same requests (the idle gaps are simulated, not
+   slept: no energy of this phase is measured).
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -128,6 +149,7 @@ two formats each, with the same traffic. Weights are random.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -323,7 +345,9 @@ def quant_cells(configs) -> tuple:
     prefill); every MODEL_CELLS config's at the rows its run gives them
     (:func:`model_prefills`: each prefill's rows times its padded length,
     stubs included, an audio encoder's rows times T_ENC, and a decoded
-    pair's rows); and for MoE its grouped expert products (E, C, K, N) at the
+    pair's rows); llama-3.1-8b's at the rows of each quantized arrival
+    run (:func:`arrival_cells`); and for MoE its grouped expert products
+    (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
     top_k) of the logit pair. ``configs`` maps an arch to its config.
@@ -355,6 +379,8 @@ def quant_cells(configs) -> tuple:
                       | {B * T_ENC for B, *_ in runs if audio}
                       | {B for B, *_, decoded in runs if decoded})
         cells.append((arch, formats, None, rows))
+    for fmt, rows in arrival_cells()[2].items():
+        cells.append((ARRIVAL_ARCH, (fmt,), None, sorted(rows)))
     for arch, formats, kw, rows in cells:
         cfg = configs[arch]
         for fmt in formats:
@@ -574,12 +600,15 @@ def model_attention_cells(configs) -> tuple:
 
 def attention_cells(configs) -> tuple:
     """(causal flash, unmasked flash, paged) cells of the attention
-    phases: FLASH_CELLS and PAGED_CELLS and the Model runs' calls
-    (:func:`model_attention_cells`), each cell once."""
-    model = model_attention_cells(configs)
+    phases: FLASH_CELLS and PAGED_CELLS, the Model runs' calls
+    (:func:`model_attention_cells`) and the arrival runs'
+    (:func:`arrival_cells`), each cell once."""
+    causal, full, paged = model_attention_cells(configs)
+    a_causal, a_paged, _ = arrival_cells()
     return tuple(list(dict.fromkeys(fixed + extra))
                  for fixed, extra in zip((FLASH_CELLS, [], PAGED_CELLS),
-                                         model))
+                                         (causal + a_causal, full,
+                                          paged + a_paged)))
 
 
 def check_attention_cells(configs, cells) -> None:
@@ -986,14 +1015,42 @@ MODEL_CELLS = [("phi-3-vision-4.2b", ("bfloat16",)),
                ("seamless-m4t-large-v2", ("bfloat16", "int8"))]
 MODEL_TRAFFIC = DENSE_TRAFFIC
 MODEL_PAIR = 2
+# the arrival phase: llama-3.1-8b at full width and depth, 12 requests of
+# the paper's prompts (200-4000 tokens, log-uniform) with outputs cut
+# from the paper's 10-300 to 10-64 for the time limit; prompt + output
+# stays within buf_len, so no prompt is truncated
+ARRIVAL_ARCH = "llama-3.1-8b"
+ARRIVAL = dict(n=12, seed=0, max_batch=8, max_prefill_batch=4, buf_len=4096,
+               prompt_range=(200, 4000), output_range=(10, 64))
+# (run, format, arrival pattern, scheduler, batch policy): the pattern's
+# times are burst (all at t = 0), fixed_50ms (every 50 ms) or poisson_20
+# (20 a second, seed 0); scheduler and policy are (registry name,
+# parameters), None for none and for SlotCountPolicy
+ARRIVAL_RUNS = [
+    ("burst", "bfloat16", "burst", None, None),
+    ("fixed_50ms", "bfloat16", "fixed_50ms", None, None),
+    ("poisson_20", "bfloat16", "poisson_20", None, None),
+    ("burst_paced_10", "bfloat16", "burst", ("paced", {"rate_per_s": 10.0}),
+     None),
+    ("fixed_50ms_chunked_1024", "bfloat16", "fixed_50ms", None,
+     ("chunked_prefill", {"chunk_tokens": 1024})),
+    ("burst", "int8", "burst", None, None),
+    ("fixed_50ms", "int8", "fixed_50ms", None, None),
+]
+# the runs whose first-token logits are held against each request's own
+# prefill: the 50 ms run prefills each request alone, the burst in
+# batches of up to 4 padded rows
+ARRIVAL_LOGIT_RUNS = (("fixed_50ms", "bfloat16"), ("burst", "bfloat16"))
 
 
 def _run_tokens(res, mode, max_batch) -> list:
     """The tokens each phase of a served run routed: continuous, each
-    batched prefill's rows times its padded length and max_batch lanes a
-    decode step; sequential, each prompt, then one token a step."""
+    executed batched prefill's rows times its padded length and
+    max_batch lanes a decode step; sequential, each prompt, then one
+    token a step."""
     if mode == "continuous":
-        steps = [p.phase for p in res.engine.phases].count("decode")
+        steps = [p.phase
+                 for p in res.engine.backend.phases].count("decode")
         return ([b * s for b, s in res.engine.backend.prefill_shapes]
                 + [max_batch] * steps)
     return ([r.prompt_len for r in res.requests]
@@ -1025,9 +1082,21 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
     loops = check_quant_loops(cfg, fmt, read_loops(mods[0]),
                               _run_tokens(res, mode, max_batch), mode)
     if mode == "continuous":
-        phases = [p.phase for p in res.engine.phases]
-        check_attention_launches(cfg, fmt, counts,
-                                 phases.count("prefill"),
+        # a chunk before a prompt's last is costed only: the executed
+        # prefills are those with a host wall time, one a prefill shape,
+        # and without chunks every prefill phase
+        backend = res.engine.backend
+        phases = [p.phase for p in backend.phases]
+        executed = sum(p.phase == "prefill" and p.wall_s is not None
+                       for p in backend.phases)
+        if executed != len(backend.prefill_shapes) or (
+                not res.report.prefill_chunks
+                and executed != phases.count("prefill")):
+            raise SystemExit(f"{cfg.name} {fmt}: {executed} executed "
+                             f"prefills of {phases.count('prefill')} "
+                             f"phases, {len(backend.prefill_shapes)} "
+                             f"prefill shapes")
+        check_attention_launches(cfg, fmt, counts, executed,
                                  phases.count("decode"))
     return counts, loops
 
@@ -1127,8 +1196,9 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     n_tok = sum(len(r.generated) for r in con.requests)
     # host wall times of the executed phases (latency_s is the analytic
     # clock)
-    pre = [p.wall_s for p in con.engine.phases if p.phase == "prefill"]
-    dec = [p.wall_s for p in con.engine.phases if p.phase == "decode"]
+    phases = con.engine.backend.phases
+    pre = [p.wall_s for p in phases if p.phase == "prefill"]
+    dec = [p.wall_s for p in phases if p.phase == "decode"]
     rep = con.report
     analytic = {"j_per_token": 3600.0 * rep.mean_energy_per_token_wh,
                 "total_energy_j": rep.total_energy_j,
@@ -1326,6 +1396,259 @@ def serve_phase(torch, mods) -> dict:
             for arch, formats, kw in SERVE_CELLS for fmt in formats}
 
 
+def arrival_requests(cfg, pattern: str) -> list:
+    """ARRIVAL's requests (``paper_requests``, prompt ids from seed + 1)
+    arriving in ``pattern``."""
+    from repro_torch.serving.arrival import (fixed_arrivals, paper_requests,
+                                             poisson_arrivals)
+    n = ARRIVAL["n"]
+    times = {"burst": lambda: [0.0] * n,
+             "fixed_50ms": lambda: fixed_arrivals(n, 0.05),
+             "poisson_20": lambda: poisson_arrivals(n, 20.0, seed=0)}
+    return paper_requests(n, times[pattern](), seed=ARRIVAL["seed"],
+                          prompt_range=ARRIVAL["prompt_range"],
+                          output_range=ARRIVAL["output_range"],
+                          vocab_size=cfg.vocab_size)
+
+
+def arrival_engine(cfg, fmt, policy, **kw):
+    """A ServeEngine of ``cfg`` under ``fmt`` with ARRIVAL's batch limits
+    and the run's batch ``policy``."""
+    from repro_torch.batching.policy import make_batch_policy
+    from repro_torch.serving.engine import ServeEngine
+    name, params = policy or ("slot_count", {})
+    return ServeEngine(cfg, fmt=fmt, batch_policy=make_batch_policy(
+        name, max_batch=ARRIVAL["max_batch"],
+        max_prefill_batch=ARRIVAL["max_prefill_batch"], **params), **kw)
+
+
+def arrival_scheduler(spec):
+    from repro_torch.serving.scheduler import make_scheduler
+    return make_scheduler(spec[0], **spec[1]) if spec else None
+
+
+@functools.lru_cache(maxsize=None)
+def arrival_plan() -> dict:
+    """Each ARRIVAL_RUNS run served on the analytic backend alone (no
+    card): {(run, fmt): (report, power trace, the (rows, padded length)
+    of each prefill the executed backend runs, the naive sequential
+    report of the same requests)}. The executed run must give the same
+    report, trace and prefills: the kernel phase holds the kernels at
+    these shapes."""
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.serving.backend import (AnalyticBackend,
+                                             executed_prefill_shape)
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.trace import PowerTrace
+
+    class Shapes(AnalyticBackend):
+        def start(self):
+            self.shapes = []
+
+        def prefill(self, batch):
+            shape = executed_prefill_shape(batch, ARRIVAL["buf_len"])
+            if shape is not None:
+                self.shapes.append(shape)
+            return super().prefill(batch)
+
+    cfg = arch_config(ARRIVAL_ARCH)
+    plan = {}
+    for run, fmt, pattern, sched, policy in ARRIVAL_RUNS:
+        backend, trace = Shapes(cfg, fmt=fmt), PowerTrace()
+        rep = arrival_engine(cfg, fmt, policy, backend=backend).run(
+            arrival_requests(cfg, pattern),
+            scheduler=arrival_scheduler(sched), trace=trace)
+        naive = ServeEngine(cfg, fmt=fmt, mode="sequential").run(
+            arrival_requests(cfg, pattern))
+        plan[(run, fmt)] = (rep, trace, backend.shapes, naive)
+    return plan
+
+
+def arrival_cells() -> tuple:
+    """(flash causal cells, paged cells, {fmt: quant rows}) of the
+    arrival runs (:func:`arrival_plan`): flash over each executed prefill
+    (B, padded length) and each request's own prefill of the logit runs
+    (1, its prompt rounded up to 8); paged over max_batch lanes of
+    buf_len slots; the quant projections at each prefill's rows times
+    its length and at max_batch rows."""
+    from repro_torch.launch.serve import arch_config
+    cfg = arch_config(ARRIVAL_ARCH)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    plan = arrival_plan()
+    flash, rows = [], {}
+    for (run, fmt), (_, _, shapes, _) in plan.items():
+        flash += [(B, S, heads, None) for B, S in shapes]
+        rows.setdefault(fmt, set()).update(
+            [B * S for B, S in shapes] + [ARRIVAL["max_batch"]])
+    flash += [(1, -(-r.prompt_len // 8) * 8, heads, None)
+              for run in ARRIVAL_LOGIT_RUNS
+              for r in plan[run][0].requests]
+    paged = [(ARRIVAL["max_batch"], ARRIVAL["buf_len"], heads)]
+    return list(dict.fromkeys(flash)), paged, rows
+
+
+def _report_fields(rep) -> tuple:
+    """Every energy, clock and count field of a ServeReport, and each
+    request's id, times, energy and tokens, in request order."""
+    return (rep.total_energy_j, rep.busy_energy_j, rep.idle_energy_j,
+            rep.gated_energy_j, rep.wall_time_s, rep.busy_time_s,
+            rep.idle_time_s, rep.gated_time_s, rep.mean_batch,
+            rep.n_prefill_batches, rep.n_decode_steps,
+            rep.prefill_computed_tokens, rep.prefill_effective_tokens,
+            rep.prefill_chunks,
+            tuple((r.req_id, r.t_prefill_start, r.t_first_token, r.t_done,
+                   r.energy_j, r.tokens_generated) for r in rep.requests))
+
+
+def _own_prefill_check(torch, model, params, res) -> float:
+    """Each request's batched first-token logits against its own prefill
+    (one row, padded to a multiple of 8, the backend's ring): the worst
+    max |diff| over max |logit|, within PREFILL_LOGIT_TOL."""
+    fmt = model.policy.fmt
+    worst = 0.0
+    for r in res.requests:
+        pad = -(-r.prompt_len // 8) * 8
+        toks = torch.zeros((1, pad), dtype=torch.long, device="cuda")
+        toks[0, :r.prompt_len] = torch.as_tensor(r.prompt, device="cuda")
+        lengths = torch.tensor([r.prompt_len], dtype=torch.int32,
+                               device="cuda")
+        logits, _ = model.prefill(params, {"tokens": toks},
+                                  buf_len=ARRIVAL["buf_len"],
+                                  lengths=lengths)
+        a = res.engine.backend.first_logits[r.req_id]
+        b = logits[0].float().cpu()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise SystemExit(f"arrival {fmt}: non-finite prefill logits")
+        worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
+    if not worst <= PREFILL_LOGIT_TOL[fmt]:
+        raise SystemExit(f"arrival {fmt}: batched prefill logits differ "
+                         f"from each request's own prefill by {worst} > "
+                         f"{PREFILL_LOGIT_TOL[fmt]}")
+    return worst
+
+
+def arrival_cell(torch, mods, cfg, fmt) -> dict:
+    """ARRIVAL_RUNS' runs of ``fmt`` on llama-3.1-8b at full width and
+    depth, weights from seed 0: each run through a ServeEngine on the
+    ExecutedBackend with a PowerTrace, under :func:`_check_run`'s
+    launch checks. Each request must be DONE; the run's prefill shapes,
+    report and per-request times and energies must equal its
+    :func:`arrival_plan` (the analytic backend's) float for float, its
+    power trace must equal the analytic run's segment for segment and
+    cover the report's total energy (1.0 within 1e-12: the trace sums
+    its merged segments in another order than the report). Prints an
+    arrival line a run; returns each run's launch counts."""
+    from repro_torch.launch.serve import ServeResult, build_params
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.backend import ExecutedBackend
+    from repro_torch.serving.requests import RequestStatus
+    from repro_torch.serving.trace import PowerTrace
+    t0 = time.perf_counter()
+    model = build_model(cfg, fmt=fmt, device="cuda")
+    params = build_params(model, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {}
+    for run, run_fmt, pattern, sched, policy in ARRIVAL_RUNS:
+        if run_fmt != fmt:
+            continue
+        want, want_trace, shapes, naive = arrival_plan()[(run, fmt)]
+        reqs = arrival_requests(cfg, pattern)
+        backend = ExecutedBackend(
+            cfg, model, params, max_batch=ARRIVAL["max_batch"],
+            buf_len=ARRIVAL["buf_len"],
+            record_logits=(run, fmt) in ARRIVAL_LOGIT_RUNS)
+        eng = arrival_engine(cfg, fmt, policy, backend=backend)
+        trace = PowerTrace()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        rep = eng.run(reqs, scheduler=arrival_scheduler(sched), trace=trace)
+        torch.cuda.synchronize()
+        res = ServeResult(requests=reqs, engine=eng, model=model,
+                          params=params, wall_s=time.perf_counter() - t0,
+                          report=rep)
+        counts, loops = _check_run(torch, mods, cfg, fmt, res, "continuous",
+                                   ARRIVAL["max_batch"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        name = f"{run} {fmt}"
+        if any(r.status is not RequestStatus.DONE for r in reqs):
+            raise SystemExit(f"arrival {name}: a request is not done")
+        if [tuple(x) for x in backend.prefill_shapes] != shapes:
+            raise SystemExit(f"arrival {name}: prefills "
+                             f"{backend.prefill_shapes}, not those the "
+                             f"kernel cells were derived from, {shapes}")
+        if (_report_fields(rep) != _report_fields(want)
+                or trace.as_dict() != want_trace.as_dict()):
+            raise SystemExit(f"arrival {name}: the executed report or "
+                             f"trace is not the analytic engine's")
+        coverage = trace.coverage(rep.total_energy_j)
+        if not abs(coverage - 1.0) <= 1e-12:
+            raise SystemExit(f"arrival {name}: trace coverage {coverage}")
+        worst = (_own_prefill_check(torch, model, params, res)
+                 if (run, fmt) in ARRIVAL_LOGIT_RUNS else None)
+        phases = backend.phases
+        pre = [p.wall_s for p in phases
+               if p.phase == "prefill" and p.wall_s is not None]
+        dec = [p.wall_s for p in phases if p.phase == "decode"]
+        n = len(reqs)
+        j_req = rep.total_energy_j / n
+        naive_j = naive.total_energy_j / n
+        emit({"phase": "arrival", "run": run, "fmt": fmt,
+              "model": cfg.name, "layers": cfg.num_layers,
+              "d_model": cfg.d_model, "pattern": pattern,
+              "scheduler": sched,
+              "batch_policy": policy or ("slot_count", {}), **ARRIVAL,
+              "init_s": init_s,
+              "arrivals_s": [r.arrival_time for r in reqs],
+              "prompt_lens": [r.prompt_len for r in reqs],
+              "new_tokens": [r.max_new_tokens for r in reqs],
+              "prefill_shapes": [list(x) for x in backend.prefill_shapes],
+              "prefill_phases": rep.n_prefill_batches,
+              "prefill_chunks": rep.prefill_chunks,
+              "decode_steps": len(dec), "host_wall_s": res.wall_s,
+              "prefill_ms_mean": 1e3 * sum(pre) / len(pre),
+              "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+              "peak_mem_gb": peak_gb,
+              # the idle gaps are simulated, not slept on the card: every
+              # energy and clock here is the analytic model's
+              "analytic": {
+                  "j_per_request": j_req,
+                  "total_energy_j": rep.total_energy_j,
+                  "busy_energy_j": rep.busy_energy_j,
+                  "idle_energy_j": rep.idle_energy_j,
+                  "gated_energy_j": rep.gated_energy_j,
+                  "clock_s": rep.wall_time_s,
+                  "mean_batch": rep.mean_batch,
+                  "mean_ttft_s": rep.mean_ttft_s,
+                  "naive_sequential_j_per_request": naive_j,
+                  "naive_over_run": naive_j / j_req},
+              "report_equals_analytic_engine": True,
+              "trace_segments": len(trace.segments),
+              "trace_coverage": coverage,
+              "launches": counts, "quant_loops": loops,
+              "prefill_logit_rel_err": worst})
+        out[(cfg.name, fmt, run)] = counts
+        del backend, eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def arrival_phase(torch, mods) -> dict:
+    """The arrival runs in each format; launch counts by (arch, format,
+    run)."""
+    from repro_torch.launch.serve import arch_config
+    cfg = arch_config(ARRIVAL_ARCH)
+    out = {}
+    for fmt in dict.fromkeys(fmt for _, fmt, *_ in ARRIVAL_RUNS):
+        out.update(arrival_cell(torch, mods, cfg, fmt))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1360,6 +1683,7 @@ def main() -> int:
     rows["paged_attention"] = paged_phase(torch, PK, paged)
     launches = serve_phase(torch, mods)
     launches.update(model_phase(torch, mods))
+    launches.update(arrival_phase(torch, mods))
 
     kernels = []
     for name in K.ENTRY_POINTS:

@@ -3,37 +3,48 @@ one of the architectures of ``ARCH_IDS`` (all but the audio one, whose
 prefill needs frames the serving path does not carry; vlm serves text
 only).
 
-Counterpart of ``repro.launch.serve``'s default (executed) mode. Builds
-the model, draws its weights from a seeded ``torch.Generator`` on the
-device, quantizing each layer under ``--fmt`` as it is drawn, and serves
-``--n`` requests
-(random prompts from ``--seed``, all arriving at t=0) through
+Counterpart of ``repro.launch.serve``. The default (executed) mode
+builds the model, draws its weights from a seeded ``torch.Generator`` on
+the device, quantizing each layer under ``--fmt`` as it is drawn, and
+serves ``--n`` requests (random prompts from ``--seed``) arriving in
+``--pattern`` (``burst``: all at t=0; ``fixed``: every
+``--interval-ms``; ``random``: gaps uniform in [0, 2 x interval];
+``poisson``: at 1 / interval a second) through
 :class:`~repro_torch.serving.engine.ServeEngine`, and prints the host
 wall time beside the analytic report's ``summary()`` (clock and energy
 of the H100 SXM energy model), as the JAX launcher prints its summary.
+``--sim`` serves the full-width config on the analytic backend alone (no
+weights, no device): the paper's request distribution
+(:func:`~repro_torch.serving.arrival.paper_requests`) in the pattern.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --full --fmt int8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --full --fmt nf4
+    PYTHONPATH=src python -m repro_torch.launch.serve --sim \
+        --pattern fixed --interval-ms 50 --n 500
 
 Without ``--full`` the config is the reduced variant, as in the JAX
-launcher. The arrival patterns other than ``burst`` and ``--sim`` wait
-for ROADMAP A4(a), ``--dry`` for A7.
+launcher. ``--dry`` waits for ROADMAP A7.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.batching.policy import SlotCountPolicy
 from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config
 from repro_torch.configs.paper_zoo import PAPER_MODELS
 from repro_torch.models.api import Model, build_model
+from repro_torch.serving.arrival import (fixed_arrivals, paper_requests,
+                                         poisson_arrivals,
+                                         uniform_random_arrivals)
+from repro_torch.serving.backend import ExecutedBackend
 from repro_torch.serving.engine import ServeEngine, ServeReport
 from repro_torch.serving.requests import Request
 
@@ -50,10 +61,12 @@ class ServeResult:
 
 def make_requests(vocab_size: int, n: int, seed: int,
                   prompt_len: Tuple[int, int] = (8, 24),
-                  new_tokens: Tuple[int, int] = (4, 12)) -> List[Request]:
+                  new_tokens: Tuple[int, int] = (4, 12),
+                  arrivals: Optional[Sequence[float]] = None
+                  ) -> List[Request]:
     """``n`` requests with prompt lengths and output lengths drawn
     uniformly from the inclusive ranges, tokens uniform over the
-    vocabulary, all arriving at t=0."""
+    vocabulary, arriving at ``arrivals`` (all at t=0 by default)."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
@@ -64,8 +77,28 @@ def make_requests(vocab_size: int, n: int, seed: int,
             prompt_len=plen,
             max_new_tokens=int(rng.integers(new_tokens[0],
                                             new_tokens[1] + 1)),
-            arrival_time=0.0))
+            arrival_time=0.0 if arrivals is None else float(arrivals[i])))
     return reqs
+
+
+PATTERNS = ("burst", "fixed", "random", "poisson")
+
+
+def pattern_arrivals(pattern: str, n: int, interval_s: float
+                     ) -> List[float]:
+    """The reference launcher's arrival patterns: ``burst`` (all at
+    t=0), ``fixed`` (every ``interval_s``), ``random`` (gaps uniform in
+    [0, 2 x interval_s]) and ``poisson`` (at 1 / interval_s a
+    second)."""
+    if pattern == "burst":
+        return [0.0] * n
+    if pattern == "fixed":
+        return fixed_arrivals(n, interval_s)
+    if pattern == "random":
+        return uniform_random_arrivals(n, 0.0, 2 * interval_s)
+    if pattern == "poisson":
+        return poisson_arrivals(n, 1.0 / max(interval_s, 1e-6))
+    raise ValueError(f"unknown pattern {pattern!r}; known: {PATTERNS}")
 
 
 def arch_config(arch: str) -> ModelConfig:
@@ -93,8 +126,10 @@ def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
           new_tokens: Tuple[int, int] = (4, 12),
           record_logits: bool = False,
           model: Optional[Model] = None,
-          params: Optional[Dict[str, Any]] = None) -> ServeResult:
-    """Serve ``n`` random requests on ``arch`` under ``fmt``.
+          params: Optional[Dict[str, Any]] = None,
+          arrivals: Optional[Sequence[float]] = None) -> ServeResult:
+    """Serve ``n`` random requests on ``arch`` under ``fmt``, arriving at
+    ``arrivals`` (all at t=0 by default), priced for the served config.
 
     Pass ``model`` and ``params`` from an earlier result to serve again
     on the same weights (for example the same requests in the other
@@ -107,10 +142,13 @@ def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
     elif params is None:
         raise ValueError("model= needs params=")
     reqs = make_requests(model.cfg.vocab_size, n, seed, prompt_len,
-                         new_tokens)
-    eng = ServeEngine(model, params, mode=mode, max_batch=max_batch,
-                      max_prefill_batch=max_prefill_batch, buf_len=buf_len,
-                      record_logits=record_logits)
+                         new_tokens, arrivals)
+    backend = ExecutedBackend(model.cfg, model, params, max_batch=max_batch,
+                              buf_len=buf_len, record_logits=record_logits)
+    eng = ServeEngine(model.cfg, mode=mode, backend=backend,
+                      batch_policy=SlotCountPolicy(
+                          max_batch=max_batch,
+                          max_prefill_batch=max_prefill_batch))
     t0 = time.perf_counter()
     report = eng.run(reqs)
     if model.device.type == "cuda":
@@ -125,8 +163,8 @@ def main() -> None:
     ap.add_argument("--arch", default="llama-3.1-8b",
                     choices=sorted(PAPER_MODELS) + list(ARCH_IDS))
     ap.add_argument("--n", type=int, default=24)
-    ap.add_argument("--pattern", default="burst", choices=["burst"],
-                    help="arrival pattern; all requests arrive at t=0")
+    ap.add_argument("--pattern", default="burst", choices=PATTERNS)
+    ap.add_argument("--interval-ms", type=float, default=20.0)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--fmt", default="bfloat16")
     ap.add_argument("--mode", default="continuous",
@@ -136,14 +174,31 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true",
                     help="serve the full-width config (on the card)")
+    ap.add_argument("--sim", action="store_true",
+                    help="the analytic backend alone at full width: no "
+                         "weights, no device")
     args = ap.parse_args()
+    arrivals = pattern_arrivals(args.pattern, args.n,
+                                args.interval_ms / 1e3)
+
+    if args.sim:
+        cfg = arch_config(args.arch)
+        reqs = paper_requests(args.n, arrivals, seed=args.seed)
+        rep = ServeEngine(cfg, fmt=args.fmt, mode=args.mode,
+                          batch_policy=SlotCountPolicy(
+                              max_batch=args.max_batch)).run(reqs)
+        print(f"model                  {cfg.name} (analytic, h100-sxm "
+              f"energy model)")
+        for k, v in rep.summary().items():
+            print(f"{k:22s} {v:.6g}")
+        return
 
     res = serve(args.arch, args.fmt, n=args.n, max_batch=args.max_batch,
                 mode=args.mode, kv_quant=args.kv_quant, device=args.device,
                 seed=args.seed, reduced=not args.full,
-                buf_len=512 if args.full else 64)
+                buf_len=512 if args.full else 64, arrivals=arrivals)
     tokens = sum(len(r.generated) for r in res.requests)
-    phases = res.engine.phases
+    phases = res.engine.backend.phases
     pre = [p.wall_s for p in phases
            if p.phase == "prefill" and p.wall_s is not None]
     dec = [p.wall_s for p in phases

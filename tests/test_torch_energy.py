@@ -28,6 +28,8 @@ from repro.serving import engine as jax_engine  # noqa: E402
 from repro.serving import slo as jax_slo  # noqa: E402
 from repro.serving.scheduler import HorizonStop  # noqa: E402
 
+from repro_torch.batching.policy import (  # noqa: E402
+    SlotCountPolicy as PtSlotCountPolicy)
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.paper_zoo import PAPER_MODELS  # noqa: E402
 from repro_torch.core import energy as pt_energy  # noqa: E402
@@ -440,9 +442,11 @@ def test_serve_report_matches_reference_engine(weights, mode):
                                                        max_prefill_batch=2)
                           ).run(jreqs)
     treqs = _reqs(Request)
-    eng = ServeEngine(build_model(CFG, fmt=fmt, device="cpu"), tparams,
-                      mode=mode, max_batch=4, max_prefill_batch=2,
-                      buf_len=64, fmt=fmt)
+    eng = ServeEngine(CFG, fmt=fmt, mode=mode, execute=True,
+                      model=build_model(CFG, fmt=fmt, device="cpu"),
+                      params=tparams, buf_len=64,
+                      batch_policy=PtSlotCountPolicy(max_batch=4,
+                                                     max_prefill_batch=2))
     got = eng.run(treqs)
     assert len(got.requests) == 8
     assert all(a is b for a, b in zip(got.requests, treqs))
@@ -458,8 +462,9 @@ def test_serve_report_matches_reference_engine(weights, mode):
         if fmt == "float32":
             assert a.generated == b.generated, a.req_id
     assert got.total_energy_j > 0 and got.idle_energy_j == 0.0
-    phases = [p for p in eng.phases if p.phase in ("prefill", "decode")]
-    assert len(phases) == len(eng.phases)
+    phases = [p for p in eng.backend.phases
+              if p.phase in ("prefill", "decode")]
+    assert len(phases) == len(eng.backend.phases)
     if mode == "continuous":
         assert [p.phase for p in phases].count("decode") \
             == want.n_decode_steps
@@ -470,10 +475,14 @@ def test_serve_report_matches_reference_engine(weights, mode):
 
 def test_executed_decode_run_steps_the_model(weights):
     """ExecutedBackend.decode_run runs the model once a step (a token per
-    live slot each step) and returns the analytic fused run."""
+    live slot each step) and returns the analytic fused run. A chunked
+    prefill is costed a chunk at a time, as the analytic backend costs
+    it, and runs the model once, on the final chunk, over the whole
+    prompt."""
     fmt, _, _, tparams = weights
     model = build_model(CFG, fmt=fmt, device="cpu")
-    b = pt_backend.ExecutedBackend(model, tparams, max_batch=2, buf_len=32)
+    b = pt_backend.ExecutedBackend(CFG, model, tparams, max_batch=2,
+                                   buf_len=32)
     reqs = [r for _, r in _picks(Request, [5, 9])]
     for r in reqs:
         r.prompt = np.arange(r.prompt_len) % CFG.vocab_size
@@ -484,27 +493,60 @@ def test_executed_decode_run_steps_the_model(weights):
     fused = pt_backend.AnalyticBackend(CFG, policy=model.policy) \
         .decode_run(batch, 4, t_start=1.5)
     assert _run(run) == _run(fused)
-    with pytest.raises(ValueError, match="chunked"):
-        b.prefill(pt_backend.PrefillBatch([(0, reqs[0])], 16, "fused", 0, 4))
+    analytic = pt_backend.AnalyticBackend(CFG, policy=model.policy)
+    b.start()
+    r = reqs[1]                         # 9 prompt tokens: chunks 4, 4, 1
+    for start, n in ((0, 4), (4, 4), (8, 1)):
+        chunk = pt_backend.PrefillBatch([(1, r)], n, "fused", start, n)
+        got = b.prefill(chunk)
+        assert _phase(got) == _phase(analytic.prefill(chunk))
+        final = start + n == r.prompt_len
+        assert (got.wall_s is not None) == final
+        assert b.prefill_shapes == ([(1, 16)] if final else [])
+    assert len(r.generated) == 1
+    if fmt == "float32":
+        own = model.prefill(tparams, {"tokens": torch.as_tensor(
+            r.prompt[None, :])})[0]
+        assert r.generated[0] == int(torch.argmax(own, -1)[0])
 
 
 def test_engine_refuses_a_late_arrival_and_another_format(weights):
+    """Another format than the model's is refused. A request arriving
+    after t=0 is served: the analytic clock idles until it arrives, as
+    the reference's engine does (the executed report equals the
+    reference's analytic one float for float)."""
     fmt, _, _, tparams = weights
     model = build_model(CFG, fmt=fmt, device="cpu")
     other = "bfloat16" if fmt == "float32" else "float32"
     with pytest.raises(ValueError, match="conflicts"):
-        ServeEngine(model, tparams, fmt=other)
-    reqs = _reqs(Request)
-    reqs[3].arrival_time = 0.5
-    with pytest.raises(ValueError, match="arrive after"):
-        ServeEngine(model, tparams).run(reqs)
+        ServeEngine(CFG, fmt=other, execute=True, model=model,
+                    params=tparams)
+    reqs, jreqs = _reqs(Request), _reqs(JaxRequest)
+    for rs in (reqs, jreqs):
+        rs[3].arrival_time = 0.5
+    got = ServeEngine(CFG, execute=True, model=model, params=tparams,
+                      buf_len=64,
+                      batch_policy=PtSlotCountPolicy(max_batch=4)).run(reqs)
+    want = JaxServeEngine(JCFG, fmt=fmt,
+                          batch_policy=SlotCountPolicy(max_batch=4)
+                          ).run(jreqs)
+    assert got.idle_energy_j > 0 and got.idle_time_s > 0
+    assert abs(reqs[3].t_prefill_start - 0.5) < 1e-12   # idled until it
+    for name in REPORT_FIELDS:
+        assert getattr(got, name) == getattr(want, name), name
+    for a, b in zip(got.requests, want.requests):
+        assert a.status is RequestStatus.DONE
+        assert len(a.generated) == a.max_new_tokens
+        for name in REQUEST_FIELDS:
+            assert getattr(a, name) == getattr(b, name), (a.req_id, name)
 
 
 def test_executed_backend_prices_phases_for_cost_cfg(weights):
-    """ExecutedBackend(cost_cfg=...) (ServeEngine's ``cost_cfg``) runs the
-    reduced model and prices its phases for the full-width config, as
-    the analytic backend of that config does; the prefill also returns
-    its router metrics (zeros for a dense model)."""
+    """ServeEngine(cfg, execute=True, model=...) with the full-width
+    config and a reduced model: the backend runs the reduced model and
+    prices its phases for the full-width config, as the analytic backend
+    of that config does; the prefill also returns its router metrics
+    (zeros for a dense model)."""
     fmt, _, _, tparams = weights
     full = PAPER_MODELS["llama-3.1-8b"]
     model = build_model(CFG, fmt=fmt, device="cpu")
@@ -514,8 +556,8 @@ def test_executed_backend_prices_phases_for_cost_cfg(weights):
     batch = pt_backend.PrefillBatch([(0, reqs[0]), (1, reqs[1])], 16)
     want = pt_backend.AnalyticBackend(full, policy=model.policy) \
         .prefill(batch)
-    eng = ServeEngine(model, tparams, max_batch=2, buf_len=32,
-                      cost_cfg=full)
+    eng = ServeEngine(full, execute=True, model=model, params=tparams,
+                      buf_len=32, batch_policy=PtSlotCountPolicy(max_batch=2))
     got = eng.backend.prefill(batch)
     assert (got.latency_s, got.energy_j) == (want.latency_s, want.energy_j)
     assert eng.backend.prefill_shapes == [(2, 16)]

@@ -16,6 +16,8 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving import Request as JaxRequest  # noqa: E402
 from repro.serving import ServeEngine as JaxServeEngine  # noqa: E402
 
+from repro_torch.batching.policy import (  # noqa: E402
+    SlotCountPolicy as PtSlotCountPolicy)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
@@ -57,10 +59,12 @@ def _engines(arch, fmt, mode, tmp_path):
                           params=jparams, buf_len=64,
                           batch_policy=SlotCountPolicy(max_batch=4,
                                                        max_prefill_batch=2))
-    got = ServeEngine(build_model(get_config(arch).reduced(), fmt=fmt,
-                                  device="cpu"),
-                      carry_params(jparams, tmp_path), mode=mode,
-                      max_batch=4, max_prefill_batch=2, buf_len=64, fmt=fmt)
+    cfg = get_config(arch).reduced()
+    got = ServeEngine(cfg, fmt=fmt, mode=mode, execute=True,
+                      model=build_model(cfg, fmt=fmt, device="cpu"),
+                      params=carry_params(jparams, tmp_path), buf_len=64,
+                      batch_policy=PtSlotCountPolicy(max_batch=4,
+                                                     max_prefill_batch=2))
     return want, got
 
 
@@ -113,6 +117,7 @@ def test_audio_is_refused_by_both_serving_paths(tmp_path):
                         device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="no frames"):
-        ExecutedBackend(model, params, max_batch=2)
+        ExecutedBackend(model.cfg, model, params, max_batch=2)
     with pytest.raises(ValueError, match="no frames"):
-        ServeEngine(model, params, max_batch=2)
+        ServeEngine(model.cfg, execute=True, model=model, params=params,
+                    batch_policy=PtSlotCountPolicy(max_batch=2))

@@ -16,6 +16,8 @@ from repro.serving import ServeEngine as JaxServeEngine  # noqa: E402
 
 from repro_torch.batching.continuous import (  # noqa: E402
     CACHE_BATCH_AXIS, evict_cache_slot, insert_cache_slot)
+from repro_torch.batching.policy import (  # noqa: E402
+    SlotCountPolicy as PtSlotCountPolicy)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import Request, RequestStatus, ServeEngine  # noqa: E402,E501
@@ -38,6 +40,12 @@ def _prompts(seed=0, n=6):
             .astype(np.int32) for _ in range(n)]
 
 
+def _engine(tm, tparams, buf_len, mode="continuous", **policy):
+    return ServeEngine(tm.cfg, mode=mode, execute=True, model=tm,
+                       params=tparams, buf_len=buf_len,
+                       batch_policy=PtSlotCountPolicy(**policy))
+
+
 def _reqs(cls, prompts, new=(5, 3, 7, 5, 1, 6)):
     return [cls(req_id=i, prompt=p, prompt_len=len(p),
                 max_new_tokens=new[i], arrival_time=0.0)
@@ -58,8 +66,7 @@ def test_tokens_match_jax_engine(weights, mode):
                          ).run(jreqs)
     treqs = _reqs(Request, prompts)
     tm = build_model(CFG, fmt="float32", device="cpu")
-    eng = ServeEngine(tm, tparams, mode=mode, max_batch=4,
-                      max_prefill_batch=2, buf_len=32)
+    eng = _engine(tm, tparams, 32, mode, max_batch=4, max_prefill_batch=2)
     report = eng.run(treqs)
     assert len(report.requests) == len(treqs)
     assert all(a is b for a, b in zip(report.requests, treqs))
@@ -70,10 +77,11 @@ def test_tokens_match_jax_engine(weights, mode):
         assert a.tokens_generated == a.max_new_tokens
     if mode == "continuous":
         # the same schedule: as many prefill phases and decode steps
-        kinds = [p.phase for p in eng.phases]
+        kinds = [p.phase for p in eng.backend.phases]
         assert kinds.count("prefill") == rep.n_prefill_batches
         assert kinds.count("decode") == rep.n_decode_steps
-        assert all(p.latency_s >= 0 and p.wall_s >= 0 for p in eng.phases)
+        assert all(p.latency_s >= 0 and p.wall_s >= 0
+                   for p in eng.backend.phases)
 
 
 def test_prefill_groups_by_length_bucket(weights):
@@ -86,10 +94,9 @@ def test_prefill_groups_by_length_bucket(weights):
                for n in lens]
     reqs = _reqs(Request, prompts, new=(2, 2, 2, 2))
     tm = build_model(CFG, fmt="float32", device="cpu")
-    eng = ServeEngine(tm, tparams, max_batch=4, max_prefill_batch=4,
-                      buf_len=256)
+    eng = _engine(tm, tparams, 256, max_batch=4, max_prefill_batch=4)
     eng.run(reqs)
-    prefills = [p for p in eng.phases if p.phase == "prefill"]
+    prefills = [p for p in eng.backend.phases if p.phase == "prefill"]
     assert [p.batch for p in prefills] == [3.0, 1.0]
 
 
@@ -153,8 +160,8 @@ def test_kv_quant_serves_prefills_smaller_than_max_batch(weights):
     prompts = [rng.integers(0, CFG.vocab_size, 8).astype(np.int32)
                for _ in range(4)]
     reqs = _reqs(Request, prompts, new=(3, 4, 2, 5))
-    report = ServeEngine(tm, tparams, max_batch=4, max_prefill_batch=2,
-                         buf_len=32).run(reqs)
+    report = _engine(tm, tparams, 32, max_batch=4,
+                     max_prefill_batch=2).run(reqs)
     assert [len(r.generated) for r in reqs] == [3, 4, 2, 5]
     assert report.n_prefill_batches == 2
     for value in (report.total_energy_j, report.busy_energy_j,
@@ -168,6 +175,6 @@ def test_engine_rejects_bad_arguments(weights):
     _, _, tparams = weights
     tm = build_model(CFG, fmt="float32", device="cpu")
     with pytest.raises(ValueError):
-        ServeEngine(tm, tparams, mode="static")
+        _engine(tm, tparams, 32, mode="static")
     with pytest.raises(ValueError):
-        ServeEngine(tm, tparams, max_batch=0)
+        _engine(tm, tparams, 32, max_batch=0)

@@ -8,10 +8,9 @@ chip_smoke's serve cells, on the CPU, without the card.
 The analytic clock and energy of a served run depend on the full-width
 config, the format and the phases the scheduler forms, and the phases
 depend only on the requests (every request runs to its
-``max_new_tokens``). So the tool serves chip_smoke's traffic with the
-reduced config on the CPU and prices it at full width: the engine's
-backend executes the reduced model and costs its phases for the
-full-width config (``ServeEngine(cost_cfg=...)``). It prints one JSON line per format: J/token, total J,
+``max_new_tokens``). So the tool serves chip_smoke's requests through a
+``ServeEngine`` on the analytic backend of the full-width config, which
+needs no weights. It prints one JSON line per format: J/token, total J,
 the analytic clock in s, the mean batch, and the phase counts, the
 numbers chip_smoke's ``analytic`` field reads on the card.
 """
@@ -32,38 +31,26 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
-    import torch
-
     import chip_smoke
+    from repro_torch.batching.policy import SlotCountPolicy
     from repro_torch.launch.serve import arch_config, make_requests
-    from repro_torch.models.api import build_model
     from repro_torch.serving.engine import ServeEngine
     kw = next(kw for arch, _, kw in chip_smoke.SERVE_CELLS
               if arch == args.arch)
     cfg = arch_config(args.arch)
     for fmt in args.fmt:
-        model = build_model(cfg.reduced(), fmt=fmt, device="cpu")
-        params = model.init(torch.Generator().manual_seed(0),
-                            quantize=True)
-        eng = ServeEngine(model, params, mode="continuous",
-                          max_batch=kw["max_batch"],
-                          max_prefill_batch=kw["max_prefill_batch"],
-                          buf_len=kw["buf_len"], cost_cfg=cfg)
-        # chip_smoke's requests (their lengths), with tokens folded into
-        # the reduced vocabulary
-        reqs = make_requests(cfg.vocab_size, kw["n"], kw["seed"],
-                             kw["prompt_len"], kw["new_tokens"])
-        for r in reqs:
-            r.prompt = r.prompt % model.cfg.vocab_size
-        rep = eng.run(reqs)
-        phases = [p.phase for p in eng.phases]
+        eng = ServeEngine(cfg, fmt=fmt, batch_policy=SlotCountPolicy(
+            max_batch=kw["max_batch"],
+            max_prefill_batch=kw["max_prefill_batch"]))
+        rep = eng.run(make_requests(cfg.vocab_size, kw["n"], kw["seed"],
+                                    kw["prompt_len"], kw["new_tokens"]))
         print(json.dumps({
             "model": cfg.name, "fmt": fmt,
             "j_per_token": 3600.0 * rep.mean_energy_per_token_wh,
             "total_energy_j": rep.total_energy_j,
             "wall_time_s": rep.wall_time_s, "mean_batch": rep.mean_batch,
-            "prefill_phases": phases.count("prefill"),
-            "decode_steps": phases.count("decode")}), flush=True)
+            "prefill_phases": rep.n_prefill_batches,
+            "decode_steps": rep.n_decode_steps}), flush=True)
     return 0
 
 

@@ -68,8 +68,12 @@ def main() -> int:
         params = build_params(model, seed=0)
         for rep in range(args.reps):
             res = serve(model=model, params=params, mode="continuous", **kw)
+            # the phase log is the backend's (an engine's before the
+            # serving simulator stack was ported)
+            phases = (getattr(res.engine.backend, "phases", None)
+                      or res.engine.phases)
             wall = {ph: [getattr(p, "wall_s", None) or p.latency_s
-                         for p in res.engine.phases if p.phase == ph]
+                         for p in phases if p.phase == ph]
                     for ph in ("prefill", "decode")}
             n_tok = sum(len(r.generated) for r in res.requests)
             dec = wall["decode"]
