@@ -135,6 +135,29 @@ non-zero exit code:
    energy and mean batch beside the analytic naive sequential
    J/request of the same requests (the idle gaps are simulated, not
    slept: no energy of this phase is measured).
+10. orchestration: llama-3.1-8b at full width and depth, weights from
+   seed 0, ``SlotCountPolicy(max_batch=8, max_prefill_batch=4)`` and
+   rings of 4096 slots on every replica (``ORCH_RUNS``): an
+   ``agent_loop`` workflow with prefix reuse (bf16) and a ``fan_out``
+   one (int8) on one engine; 2-replica clusters behind ``round_robin``
+   (Poisson 20/s), ``energy_aware_gated`` (every 100 ms) and
+   ``least_loaded`` with the agent workflow; a crash with backoff
+   retries on one engine (bf16) and of replica 1 for good on a cluster
+   (int8); an MPC controller on one engine. Replicas of a run share one
+   model, each with its own ``ExecutedBackend``. Each run's compared
+   fields (reports, per-request records, task reports, control
+   telemetry), power trace and each replica's prefill shapes must equal
+   its analytic twin's (``orch_plan``: the same engines on the analytic
+   backend, from which the kernel phase's cells are derived:
+   ``orch_cells``) float for float; launches are checked per executed
+   prefill and decode step summed over the run's backends; the fault
+   runs satisfy ``check_run_invariants``; the agent run's children
+   extend their parents' prompts and generations, and its first-token
+   logits match each request's own prefill. Prints an orchestration
+   line a run: host wall ms per executed prefill and decode step, peak
+   memory, the analytic J/request with idle, gated and wasted energy,
+   requests and utilisation per replica, prefix-reused tokens and task
+   latencies (energies analytic: gaps and downtime are simulated).
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -157,6 +180,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -346,7 +370,8 @@ def quant_cells(configs) -> tuple:
     (:func:`model_prefills`: each prefill's rows times its padded length,
     stubs included, an audio encoder's rows times T_ENC, and a decoded
     pair's rows); llama-3.1-8b's at the rows of each quantized arrival
-    run (:func:`arrival_cells`); and for MoE its grouped expert products
+    run (:func:`arrival_cells`) and orchestration run
+    (:func:`orch_cells`); and for MoE its grouped expert products
     (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
@@ -381,6 +406,8 @@ def quant_cells(configs) -> tuple:
         cells.append((arch, formats, None, rows))
     for fmt, rows in arrival_cells()[2].items():
         cells.append((ARRIVAL_ARCH, (fmt,), None, sorted(rows)))
+    for fmt, rows in orch_cells()[2].items():
+        cells.append((ORCH_ARCH, (fmt,), None, sorted(rows)))
     for arch, formats, kw, rows in cells:
         cfg = configs[arch]
         for fmt in formats:
@@ -601,14 +628,16 @@ def model_attention_cells(configs) -> tuple:
 def attention_cells(configs) -> tuple:
     """(causal flash, unmasked flash, paged) cells of the attention
     phases: FLASH_CELLS and PAGED_CELLS, the Model runs' calls
-    (:func:`model_attention_cells`) and the arrival runs'
-    (:func:`arrival_cells`), each cell once."""
+    (:func:`model_attention_cells`), the arrival runs'
+    (:func:`arrival_cells`) and the orchestration runs'
+    (:func:`orch_cells`), each cell once."""
     causal, full, paged = model_attention_cells(configs)
     a_causal, a_paged, _ = arrival_cells()
+    o_causal, o_paged, _ = orch_cells()
     return tuple(list(dict.fromkeys(fixed + extra))
                  for fixed, extra in zip((FLASH_CELLS, [], PAGED_CELLS),
-                                         (causal + a_causal, full,
-                                          paged + a_paged)))
+                                         (causal + a_causal + o_causal,
+                                          full, paged + a_paged + o_paged)))
 
 
 def check_attention_cells(configs, cells) -> None:
@@ -1072,13 +1101,7 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
         if not all(0 <= t < cfg.vocab_size for t in r.generated):
             raise SystemExit(f"{cfg.name} {fmt}: token out of the "
                              f"vocabulary")
-    for name, fmt_of in (("int8_matmul", "int8"), ("nf4_matmul", "nf4")):
-        for entry, want in ((name, fmt == fmt_of),
-                            (name + "_grouped", fmt == fmt_of
-                             and cfg.is_moe)):
-            if (counts[entry] > 0) != want:
-                raise SystemExit(f"{cfg.name} {fmt} {mode}: {entry} "
-                                 f"launched {counts[entry]} times")
+    check_quant_entries(cfg, fmt, counts, mode)
     loops = check_quant_loops(cfg, fmt, read_loops(mods[0]),
                               _run_tokens(res, mode, max_batch), mode)
     if mode == "continuous":
@@ -1099,6 +1122,18 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
         check_attention_launches(cfg, fmt, counts, executed,
                                  phases.count("decode"))
     return counts, loops
+
+
+def check_quant_entries(cfg, fmt, counts, run) -> None:
+    """Fail unless the quant kernels launched in their formats only,
+    the grouped ones only for MoE."""
+    for name, fmt_of in (("int8_matmul", "int8"), ("nf4_matmul", "nf4")):
+        for entry, want in ((name, fmt == fmt_of),
+                            (name + "_grouped", fmt == fmt_of
+                             and cfg.is_moe)):
+            if (counts[entry] > 0) != want:
+                raise SystemExit(f"{cfg.name} {fmt} {run}: {entry} "
+                                 f"launched {counts[entry]} times")
 
 
 def check_attention_launches(cfg, fmt, counts, prefills, steps) -> None:
@@ -1436,25 +1471,13 @@ def arrival_plan() -> dict:
     report, trace and prefills: the kernel phase holds the kernels at
     these shapes."""
     from repro_torch.launch.serve import arch_config
-    from repro_torch.serving.backend import (AnalyticBackend,
-                                             executed_prefill_shape)
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.trace import PowerTrace
-
-    class Shapes(AnalyticBackend):
-        def start(self):
-            self.shapes = []
-
-        def prefill(self, batch):
-            shape = executed_prefill_shape(batch, ARRIVAL["buf_len"])
-            if shape is not None:
-                self.shapes.append(shape)
-            return super().prefill(batch)
-
     cfg = arch_config(ARRIVAL_ARCH)
     plan = {}
     for run, fmt, pattern, sched, policy in ARRIVAL_RUNS:
-        backend, trace = Shapes(cfg, fmt=fmt), PowerTrace()
+        backend = _shape_backend(cfg, fmt, ARRIVAL["buf_len"])
+        trace = PowerTrace()
         rep = arrival_engine(cfg, fmt, policy, backend=backend).run(
             arrival_requests(cfg, pattern),
             scheduler=arrival_scheduler(sched), trace=trace)
@@ -1500,7 +1523,8 @@ def _report_fields(rep) -> tuple:
                    r.energy_j, r.tokens_generated) for r in rep.requests))
 
 
-def _own_prefill_check(torch, model, params, res) -> float:
+def _own_prefill_check(torch, model, params, res,
+                       name: str = "arrival") -> float:
     """Each request's batched first-token logits against its own prefill
     (one row, padded to a multiple of 8, the backend's ring): the worst
     max |diff| over max |logit|, within PREFILL_LOGIT_TOL."""
@@ -1518,10 +1542,10 @@ def _own_prefill_check(torch, model, params, res) -> float:
         a = res.engine.backend.first_logits[r.req_id]
         b = logits[0].float().cpu()
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise SystemExit(f"arrival {fmt}: non-finite prefill logits")
+            raise SystemExit(f"{name} {fmt}: non-finite prefill logits")
         worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
     if not worst <= PREFILL_LOGIT_TOL[fmt]:
-        raise SystemExit(f"arrival {fmt}: batched prefill logits differ "
+        raise SystemExit(f"{name} {fmt}: batched prefill logits differ "
                          f"from each request's own prefill by {worst} > "
                          f"{PREFILL_LOGIT_TOL[fmt]}")
     return worst
@@ -1649,6 +1673,420 @@ def arrival_phase(torch, mods) -> dict:
     return out
 
 
+# the orchestration phase: llama-3.1-8b at full width and depth, weights
+# from seed 0, every replica an ExecutedBackend with ORCH's batch limits
+# and rings of buf_len slots; replicas of one run share the weights, each
+# keeps its own decode cache
+ORCH_ARCH = "llama-3.1-8b"
+ORCH = dict(max_batch=8, max_prefill_batch=4, buf_len=4096)
+# the request runs' traffic: 16 of the paper's prompts (200-4000 tokens),
+# outputs cut from 10-300 to 10-64 for the time limit
+ORCH_REQUESTS = dict(n=16, seed=0, prompt_range=(200, 4000),
+                     output_range=(10, 64))
+# workflow traffic: (template, tasks, seconds between tasks, parameters),
+# cut from the templates' defaults (agent rounds 4 -> 3, base prompt
+# 3072 -> 2560, outputs 48-256 -> 32-96) so that every prompt plus its
+# outputs stays within buf_len and the phase within the time limit
+ORCH_WORKFLOWS = {
+    "agent": ("agent_loop", 4, 0.2, dict(rounds=3,
+                                         base_prompt=(1536, 2560),
+                                         round_out=(32, 96))),
+    "fanout": ("fan_out", 2, 0.5, dict(n=4, prompt=(512, 2048),
+                                       sample_out=(32, 96),
+                                       join_out=(32, 96))),
+}
+# (run, format, replicas, router, traffic, fault, controller): traffic is
+# a workflow of ORCH_WORKFLOWS or the requests arriving Poisson at 20/s
+# (seed 0) or every 100 ms; fault "crash_mid" crashes the one engine
+# halfway through its analytic run without faults for 0.5 s,
+# "crash_replica_1" crashes replica 1 halfway through the cluster's for
+# good, both under make_retry("backoff")
+ORCH_RUNS = [
+    ("wf-agent", "bfloat16", 1, None, "agent", None, None),
+    ("wf-fanout", "int8", 1, None, "fanout", None, None),
+    ("cluster-rr", "bfloat16", 2, "round_robin", "poisson_20", None, None),
+    ("cluster-gated", "bfloat16", 2, "energy_aware_gated", "fixed_100ms",
+     None, None),
+    ("cluster-wf", "bfloat16", 2, "least_loaded", "agent", None, None),
+    ("fault-retry", "bfloat16", 1, None, "poisson_20", "crash_mid", None),
+    ("cluster-fault", "int8", 2, "least_loaded", "poisson_20",
+     "crash_replica_1", None),
+    ("control-mpc", "bfloat16", 1, None, "poisson_20", None, "mpc"),
+]
+ORCH_CONTROL_INTERVAL_S = 0.5
+# the run whose children's prompts and first-token logits are checked
+ORCH_LOGIT_RUN = "wf-agent"
+
+
+def orch_traffic(cfg, traffic: str) -> tuple:
+    """Fresh (requests, workflow source or None) of one traffic."""
+    import numpy as np
+    from repro_torch.serving.arrival import (fixed_arrivals, paper_requests,
+                                             poisson_arrivals)
+    from repro_torch.workflows import WorkflowSource, make_workflow
+    if traffic in ORCH_WORKFLOWS:
+        template, n, gap, params = ORCH_WORKFLOWS[traffic]
+        rng = np.random.default_rng(0)
+        source = WorkflowSource(
+            [make_workflow(template, rng, **params) for _ in range(n)],
+            [gap * i for i in range(n)], reuse_prefix=True,
+            vocab_size=cfg.vocab_size, seed=0)
+        return source.initial(), source
+    n = ORCH_REQUESTS["n"]
+    times = {"poisson_20": lambda: poisson_arrivals(n, 20.0, seed=0),
+             "fixed_100ms": lambda: fixed_arrivals(n, 0.1)}[traffic]()
+    return paper_requests(n, times, seed=ORCH_REQUESTS["seed"],
+                          prompt_range=ORCH_REQUESTS["prompt_range"],
+                          output_range=ORCH_REQUESTS["output_range"],
+                          vocab_size=cfg.vocab_size), None
+
+
+def orch_serve(cfg, run_spec, backends, faults=None) -> dict:
+    """Serve one ORCH_RUNS run over ``backends`` (one a replica): a
+    ServeEngine, or a ClusterEngine behind the run's router, with the
+    run's source, controller and ``faults`` (a FaultSchedule) under
+    backoff retries, on a PowerTrace."""
+    from repro_torch.batching.policy import SlotCountPolicy
+    from repro_torch.control import make_controller
+    from repro_torch.faults import make_retry
+    from repro_torch.serving.cluster import ClusterEngine
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.router import make_router
+    from repro_torch.serving.trace import PowerTrace
+    run, fmt, n_rep, router, traffic, fault, control = run_spec
+    reqs, source = orch_traffic(cfg, traffic)
+    engines = [ServeEngine(cfg, backend=b, batch_policy=SlotCountPolicy(
+        max_batch=ORCH["max_batch"],
+        max_prefill_batch=ORCH["max_prefill_batch"])) for b in backends]
+    target = (engines[0] if router is None
+              else ClusterEngine(engines, make_router(router)))
+    trace = PowerTrace()
+    kw = {}
+    if control is not None:
+        kw.update(controller=make_controller(control),
+                  control_interval_s=ORCH_CONTROL_INTERVAL_S)
+    if faults is not None:
+        kw.update(faults=faults, retry=make_retry("backoff"))
+    t0 = time.perf_counter()
+    rep = target.run(reqs, source=source, trace=trace, **kw)
+    return {"report": rep, "trace": trace, "engines": engines,
+            "wall_s": time.perf_counter() - t0, "requests": rep.requests,
+            "retry": kw.get("retry")}
+
+
+def _shape_backend(cfg, fmt, buf_len):
+    """An AnalyticBackend that also records the (rows, padded length) of
+    each prefill the ExecutedBackend would run (``shapes``, per run)."""
+    from repro_torch.serving.backend import (AnalyticBackend,
+                                             executed_prefill_shape)
+
+    class Shapes(AnalyticBackend):
+        def start(self):
+            self.shapes = []
+
+        def prefill(self, batch):
+            shape = executed_prefill_shape(batch, buf_len)
+            if shape is not None:
+                self.shapes.append(shape)
+            return super().prefill(batch)
+
+    return Shapes(cfg, fmt=fmt)
+
+
+@functools.lru_cache(maxsize=None)
+def orch_plan() -> dict:
+    """Each ORCH_RUNS run on analytic replicas alone (no card): {run:
+    (compared fields, power trace, each replica's executed prefill
+    shapes, the fault schedule, the report)}. A fault's instant comes
+    from the same run without faults. The executed run must give the
+    same fields, trace and prefills: the kernel phase holds the kernels
+    at these shapes."""
+    from repro_torch.faults import FaultSchedule
+    from repro_torch.launch.serve import arch_config
+    cfg = arch_config(ORCH_ARCH)
+    plan = {}
+    for spec in ORCH_RUNS:
+        run, fmt, n_rep, _, _, fault, _ = spec
+        faults = None
+        if fault is not None:
+            calm = orch_serve(cfg, spec, [
+                _shape_backend(cfg, fmt, ORCH["buf_len"])
+                for _ in range(n_rep)])["report"]
+            t = 0.5 * calm.wall_time_s
+            faults = FaultSchedule([
+                dict(t=t, kind="crash", downtime_s=0.5)
+                if fault == "crash_mid" else
+                dict(t=t, kind="crash", replica=1, downtime_s=math.inf)])
+        backends = [_shape_backend(cfg, fmt, ORCH["buf_len"])
+                    for _ in range(n_rep)]
+        res = orch_serve(cfg, spec, backends, faults)
+        plan[run] = (_orch_fields(res["report"]), res["trace"].as_dict(),
+                     [list(b.shapes) for b in backends], faults,
+                     res["report"])
+    return plan
+
+
+def orch_cells() -> tuple:
+    """(flash causal cells, paged cells, {fmt: quant rows}) of the
+    orchestration runs (:func:`orch_plan`): flash over each executed
+    prefill (B, padded length) of every replica and each request's own
+    prefill of ORCH_LOGIT_RUN (1, its prompt rounded up to 8); paged
+    over max_batch lanes of buf_len slots; the quant projections at each
+    prefill's rows times its length and at max_batch rows."""
+    from repro_torch.launch.serve import arch_config
+    cfg = arch_config(ORCH_ARCH)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    plan = orch_plan()
+    flash, rows = [], {}
+    for run, fmt, *_ in ORCH_RUNS:
+        shapes = [s for per in plan[run][2] for s in per]
+        flash += [(B, S, heads, None) for B, S in shapes]
+        rows.setdefault(fmt, set()).update(
+            [B * S for B, S in shapes] + [ORCH["max_batch"]])
+    flash += [(1, -(-r.prompt_len // 8) * 8, heads, None)
+              for r in plan[ORCH_LOGIT_RUN][4].requests]
+    paged = [(ORCH["max_batch"], ORCH["buf_len"], heads)]
+    return list(dict.fromkeys(flash)), paged, rows
+
+
+def _orch_fields(rep) -> tuple:
+    """Every compared field of a ServeReport or a ClusterReport: the
+    energies, clocks and counts, the fault counters, the summaries, each
+    request's times, energies, status, attempts and workflow step, the
+    task reports and the control telemetry without its host time."""
+    import dataclasses
+
+    def requests(reqs):
+        return tuple((r.req_id, r.status.name, r.arrival_time,
+                      r.release_time, r.t_prefill_start, r.t_first_token,
+                      r.t_done, r.energy_j, r.wasted_energy_j,
+                      r.tokens_generated, r.prefilled_tokens, r.n_attempts,
+                      r.fail_reason, r.hedge_of, r.task_id, r.step,
+                      r.kv_parent) for r in reqs)
+
+    def serve(r):
+        control = None if r.control is None else {
+            k: v for k, v in r.control.items()
+            if k != "controller_overhead_s"}
+        return (_report_fields(r), r.n_failures, r.n_retries,
+                r.wasted_energy_j, r.down_time_s, r.prefix_reused_tokens,
+                r.n_relayed, r.summary(), requests(r.requests),
+                requests(r.shed), control)
+
+    tasks = tuple(dataclasses.astuple(t) for t in rep.tasks)
+    if not hasattr(rep, "replica_reports"):
+        return serve(rep), tasks
+    return (tuple(serve(r) for r in rep.replica_reports), rep.summary(),
+            rep.per_replica_summary(), rep.wall_time_s,
+            rep.handoff_energy_j, rep.n_handoffs, requests(rep.failed),
+            tasks)
+
+
+def _check_orch_run(torch, mods, cfg, fmt, run, res) -> tuple:
+    """The launch checks of one orchestration run (the counts set to 0
+    before it), summed over its replicas' backends: every done request
+    carries max_new_tokens tokens in the vocabulary; the quant kernel of
+    the format only (:func:`check_quant_entries`), each launch on the
+    loop its rows choose; one flash
+    launch per layer and executed prefill, one paged per layer and
+    decode step. Returns (launch counts, quant loops, host wall s of the
+    executed prefills, of the decode steps)."""
+    from repro_torch.serving.requests import RequestStatus
+    counts = read_launches(mods)
+    for r in res["requests"]:
+        if r.status is not RequestStatus.DONE:
+            continue
+        if len(r.generated) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.generated):
+            raise SystemExit(f"orchestration {run}: request {r.req_id} "
+                             f"got {len(r.generated)} tokens of "
+                             f"{r.max_new_tokens}, or one out of the "
+                             f"vocabulary")
+    check_quant_entries(cfg, fmt, counts, run)
+    tokens, pre, dec, n_shapes = [], [], [], 0
+    for eng in res["engines"]:
+        b = eng.backend
+        steps = [p for p in b.phases if p.phase == "decode"]
+        tokens += ([B * S for B, S in b.prefill_shapes]
+                   + [ORCH["max_batch"]] * len(steps))
+        pre += [p.wall_s for p in b.phases if p.phase == "prefill"]
+        dec += [p.wall_s for p in steps]
+        n_shapes += len(b.prefill_shapes)
+    # no chunked policy: every prefill phase runs the model, one shape each
+    if None in pre or len(pre) != n_shapes:
+        raise SystemExit(f"orchestration {run}: {len(pre)} prefill phases, "
+                         f"{n_shapes} executed prefill shapes")
+    loops = check_quant_loops(cfg, fmt, read_loops(mods[0]), tokens, run)
+    check_attention_launches(cfg, fmt, counts, len(pre), len(dec))
+    return counts, loops, pre, dec
+
+
+def _prefix_parent(step: str):
+    """The step a workflow step extends (``prefix_of`` in
+    ORCH_WORKFLOWS' templates): an agent round its previous round, a
+    fan-out join its first sample; None for a root."""
+    if step == "join":
+        return "sample_0"
+    if step.startswith("round_") and step != "round_0":
+        return f"round_{int(step[len('round_'):]) - 1}"
+    return None
+
+
+def _check_children(run, res) -> int:
+    """Each workflow child's prompt starts with its parent's prompt and
+    greedy generation (a child extends its prefix parent's context).
+    Returns the children checked."""
+    steps = {(r.task_id, r.step): r for r in res["requests"]}
+    n = 0
+    for r in res["requests"]:
+        parent = _prefix_parent(r.step)
+        if parent is None:
+            continue
+        p = steps[(r.task_id, parent)]
+        ctx = list(p.prompt) + list(p.generated)
+        if list(r.prompt[:len(ctx)]) != ctx:
+            raise SystemExit(f"orchestration {run}: request {r.req_id}'s "
+                             f"prompt does not extend its parent's "
+                             f"prompt and generation")
+        n += 1
+    return n
+
+
+def orch_cell(torch, mods, cfg, fmt) -> dict:
+    """ORCH_RUNS' runs of ``fmt`` on llama-3.1-8b at full width and depth:
+    each run on ExecutedBackend replicas that share one model, under
+    :func:`_check_orch_run`'s launch checks. Its compared fields, power
+    trace and each replica's prefill shapes must equal its analytic twin's
+    (:func:`orch_plan`) float for float, the trace must cover the
+    report's energy, a fault run must satisfy check_run_invariants, and
+    ORCH_LOGIT_RUN's children must extend their parents and its
+    first-token logits match each request's own prefill. Prints an
+    orchestration line a run; returns each run's launch counts."""
+    from repro_torch.faults import check_run_invariants
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.backend import ExecutedBackend
+    t0 = time.perf_counter()
+    model = build_model(cfg, fmt=fmt, device="cuda")
+    params = build_params(model, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {}
+    for spec in ORCH_RUNS:
+        run, run_fmt, n_rep, router, traffic, fault, control = spec
+        if run_fmt != fmt:
+            continue
+        want, want_trace, shapes, faults, twin = orch_plan()[run]
+        backends = [ExecutedBackend(cfg, model, params,
+                                    max_batch=ORCH["max_batch"],
+                                    buf_len=ORCH["buf_len"],
+                                    record_logits=run == ORCH_LOGIT_RUN)
+                    for _ in range(n_rep)]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        res = orch_serve(cfg, spec, backends, faults)
+        torch.cuda.synchronize()
+        rep, trace = res["report"], res["trace"]
+        counts, loops, pre, dec = _check_orch_run(torch, mods, cfg, fmt,
+                                                  run, res)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        got_shapes = [[tuple(x) for x in b.prefill_shapes]
+                      for b in backends]
+        if got_shapes != shapes:
+            raise SystemExit(f"orchestration {run}: prefills {got_shapes}, "
+                             f"not those the kernel cells were derived "
+                             f"from, {shapes}")
+        if (_orch_fields(rep) != want
+                or trace.as_dict() != want_trace):
+            raise SystemExit(f"orchestration {run}: the executed report, "
+                             f"requests, tasks or trace are not the "
+                             f"analytic twin's")
+        coverage = trace.coverage(rep.total_energy_j)
+        if not abs(coverage - 1.0) <= 1e-12:
+            raise SystemExit(f"orchestration {run}: trace coverage "
+                             f"{coverage}")
+        if faults is not None:
+            check_run_invariants(rep, engines=res["engines"],
+                                 retry=res["retry"], trace=trace)
+            if not rep.n_failures:
+                raise SystemExit(f"orchestration {run}: the crash failed "
+                                 f"no request")
+        children = worst = None
+        if run == ORCH_LOGIT_RUN:
+            children = _check_children(run, res)
+            worst = _own_prefill_check(
+                torch, model, params, SimpleNamespace(
+                    requests=res["requests"],
+                    engine=SimpleNamespace(backend=backends[0])),
+                name=f"orchestration {run}")
+        cluster = hasattr(rep, "replica_reports")
+        reports = rep.replica_reports if cluster else [rep]
+        n = rep.n
+        line = {
+            "phase": "orchestration", "run": run, "fmt": fmt,
+            "model": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "replicas": n_rep, "router": router,
+            "traffic": traffic, "fault": fault, "controller": control,
+            **ORCH, "init_s": init_s, "requests": n,
+            "prompt_lens": [r.prompt_len for r in res["requests"]],
+            "new_tokens": [r.max_new_tokens for r in res["requests"]],
+            "prefill_shapes": [[list(x) for x in s] for s in got_shapes],
+            "prefill_phases": len(pre), "decode_steps": len(dec),
+            "host_wall_s": res["wall_s"],
+            "prefill_ms_mean": 1e3 * sum(pre) / len(pre),
+            "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+            "peak_mem_gb": peak_gb,
+            # idle gaps and downtime are simulated, not slept on the
+            # card: every energy and clock here is the analytic model's
+            "analytic": {
+                "j_per_request": rep.total_energy_j / n,
+                "total_energy_j": rep.total_energy_j,
+                "busy_energy_j": rep.busy_energy_j,
+                "idle_energy_j": rep.idle_energy_j,
+                "gated_energy_j": rep.gated_energy_j,
+                "wasted_energy_j": rep.wasted_energy_j,
+                "clock_s": rep.wall_time_s,
+                "n_completed": rep.n_completed,
+                "n_failures": rep.n_failures,
+                "n_retries": rep.n_retries,
+                "down_time_s": rep.down_time_s},
+            "equals_analytic_twin": True, "trace_coverage": coverage,
+            "launches": counts, "quant_loops": loops}
+        if cluster:
+            line["requests_per_replica"] = rep.requests_per_replica
+            line["utilization_per_replica"] = rep.utilization_per_replica
+        if rep.tasks:
+            line["prefix_reused_tokens"] = rep.prefix_reused_tokens
+            line["task_latency_s"] = [t.latency_s for t in rep.tasks]
+            line["tasks_completed"] = sum(t.completed for t in rep.tasks)
+        if rep.control is not None:
+            line["control"] = {k: rep.control[k] for k in
+                               ("n_control_actions", "mean_freq_scale")}
+        if children is not None:
+            line["children_extend_parents"] = children
+            line["prefill_logit_rel_err"] = worst
+        emit(line)
+        out[(cfg.name, fmt, run)] = counts
+        del backends, res, reports
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def orchestration_phase(torch, mods) -> dict:
+    """The orchestration runs in each format; launch counts by (arch,
+    format, run)."""
+    from repro_torch.launch.serve import arch_config
+    cfg = arch_config(ORCH_ARCH)
+    out = {}
+    for fmt in dict.fromkeys(fmt for _, fmt, *_ in ORCH_RUNS):
+        out.update(orch_cell(torch, mods, cfg, fmt))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1684,6 +2122,7 @@ def main() -> int:
     launches = serve_phase(torch, mods)
     launches.update(model_phase(torch, mods))
     launches.update(arrival_phase(torch, mods))
+    launches.update(orchestration_phase(torch, mods))
 
     kernels = []
     for name in K.ENTRY_POINTS:

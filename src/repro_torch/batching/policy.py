@@ -37,9 +37,7 @@ per engine replica — sharing an instance across engines shares its
 state.  ``make_batch_policy(name, **params)`` is the registry entry
 point.
 
-The port's own copy of ``repro.batching.policy``; the adoption path
-(``_adopt``) serves the reference's disaggregated handoff, which waits
-for ROADMAP A4(b) in the port.
+The port's own copy of ``repro.batching.policy``.
 """
 from __future__ import annotations
 

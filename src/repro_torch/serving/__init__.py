@@ -1,5 +1,4 @@
-"""The port's serving stack: the reference's exports, except the router
-and the cluster, which wait for ROADMAP A4(b)."""
+"""The port's serving stack: the reference's exports."""
 from repro_torch.serving.requests import Request, RequestStatus  # noqa: F401
 from repro_torch.serving.arrival import (fixed_arrivals,  # noqa: F401
                                          uniform_random_arrivals,
@@ -11,6 +10,14 @@ from repro_torch.serving.backend import (InferenceBackend, PhaseResult,  # noqa:
                                          ReplayBackend, RecordingBackend,
                                          make_backend, BACKENDS)
 from repro_torch.serving.engine import ServeEngine, ServeReport  # noqa: F401
+from repro_torch.serving.router import (Router, RoundRobinRouter,  # noqa: F401
+                                        LeastLoadedRouter,
+                                        ShortestWorkRouter,
+                                        EnergyAwareRouter,
+                                        CarbonAwareRouter, PriceAwareRouter,
+                                        make_router, POLICIES, GEO_POLICIES)
+from repro_torch.serving.cluster import (ClusterEngine, ClusterReport,  # noqa: F401
+                                         make_cluster)
 from repro_torch.serving.scheduler import (Scheduler, ScheduleResult,  # noqa: F401
                                            PassthroughScheduler,
                                            PacedScheduler, WindowScheduler,

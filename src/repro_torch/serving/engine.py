@@ -26,15 +26,20 @@ n_requests, so arrival shaping shows its full effect.
 Decode runs macro-step to the next event horizon (a completion, KV-page
 exhaustion or the next release), folding the per-step additions in the
 single-step loop's order (:func:`_fold`), so a report equals its
-``macro_step=False`` twin, and the reference's, float for float. The
-reference's workflow (``source=``), closed-loop control
-(``controller=``), fault (``faults=``, ``retry=``) and disaggregated
-(``pool=``) paths wait for ROADMAP A4(b).
+``macro_step=False`` twin, and the reference's, float for float.
+``run`` also takes the reference's workflow source (``source=``),
+closed-loop controller (``controller=``) and fault schedule with its
+retry policy (``faults=``, ``retry=``); ``pool=`` names a replica's role
+in a disaggregated :class:`~repro_torch.serving.cluster.ClusterEngine`.
+An executed replica is refused in a disaggregated pool: the decode pool
+would need the prefill pool's KV cache and first token, which no
+backend hands over (ROADMAP C6).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from bisect import bisect_right as _bisect_right
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -54,8 +59,11 @@ from repro_torch.serving.scheduler import (HorizonStop, Scheduler,
                                            apply_schedule)
 from repro_torch.serving.trace import PowerTrace
 
-#: the reference's engine paths that wait for ROADMAP A4(b) in the port
-A4B = "waits for ROADMAP A4(b) (workflows, control, faults, cluster)"
+#: why an executed replica cannot serve a disaggregated pool (ROADMAP C6)
+C6 = ("an executed replica cannot serve a disaggregated pool: the decode "
+      "pool never receives the prefill pool's KV cache or first token "
+      "(no KV handoff between backends; ROADMAP C6), so its tokens would "
+      "not be the request's own")
 
 
 def _fold(init: float, values: np.ndarray) -> float:
@@ -281,8 +289,8 @@ class _StreamState:
 
     ``run()`` drives the engine through this state via the ``stream_*``
     primitives, so one replica can be advanced phase by phase against an
-    external arrival clock (the reference's cluster co-simulation, which
-    waits for ROADMAP A4(b) in the port).
+    external (shared) arrival clock: the single-engine ``run()`` and the
+    cluster co-simulation both drive it.
     """
 
     now: float = 0.0
@@ -306,11 +314,14 @@ class _StreamState:
     prefill_chunks: int = 0
     n_relayed: int = 0
     prefix_reused: int = 0         # prompt tokens served from forked KV
-    # fault injection (repro.faults)
+    # fault injection (repro_torch.faults)
     wasted_e: float = 0.0          # joules billed to failed attempts
     down_t: float = 0.0            # wall-clock dead (zero power draw)
     n_failures: int = 0
     n_retries: int = 0
+    # disaggregated serving: prefill-complete requests awaiting pickup
+    # by the cluster loop (stream_take_handoffs drains this)
+    handoffs: List[Request] = dataclasses.field(default_factory=list)
 
 
 class ServeEngine:
@@ -332,8 +343,13 @@ class ServeEngine:
     :class:`~repro_torch.batching.policy.BatchPolicy` (``batch_policy=``,
     :class:`~repro_torch.batching.policy.SlotCountPolicy` by default),
     over a KV page pool of ``kv_pages`` pages of ``page_size`` tokens.
-    ``pool`` must be ``"mixed"``: the disaggregated pools are reached
-    through the cluster, which waits for ROADMAP A4(b).
+
+    ``pool`` names this engine's role in a disaggregated cluster:
+    ``"mixed"`` (default) serves both phases; ``"prefill"`` relays each
+    request to ``stream_take_handoffs()`` the moment its prompt is
+    prefilled; ``"decode"`` adopts handed-off requests (prefill already
+    billed elsewhere) and decodes them to completion. Both run on
+    analytic or replayed backends only (ROADMAP C6).
     """
 
     def __init__(self, cfg: ModelConfig, *, fmt: Optional[str] = None,
@@ -349,15 +365,22 @@ class ServeEngine:
                  macro_step: bool = True):
         if mode not in ("continuous", "sequential"):
             raise ValueError(mode)
-        if pool != "mixed":
-            raise ValueError(f"pool={pool!r}: the disaggregated pools "
-                             f"{A4B}")
+        if pool not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"unknown pool {pool!r}; "
+                             "known: ['mixed', 'prefill', 'decode']")
+        if pool != "mixed" and mode != "continuous":
+            raise ValueError("disaggregated pools require "
+                             "mode='continuous'")
+        if pool != "mixed" and (execute
+                                or isinstance(backend, ExecutedBackend)):
+            raise ValueError(f"pool={pool!r}: {C6}")
         # event-horizon macro-stepping (equal to single-stepping float
         # for float; macro_step=False forces the per-token loop)
         self.macro_step = macro_step
         self.cfg = cfg
         self.n_chips = n_chips
         self.mode = mode
+        self.pool = pool
         self.stack = "fused" if mode == "continuous" else "eager"
         if batch_policy is not None:
             if (mode == "sequential"
@@ -424,36 +447,120 @@ class ServeEngine:
         self._trace_replica: int = 0
 
     # ------------------------------------------------------------------
+    def set_freq_scale(self, target: float) -> None:
+        """Re-target the DVFS operating point mid-run (the closed-loop
+        control actuator). Delegates to the backend's actuator, then
+        refreshes the engine-side device/pricing handles so gap pricing
+        and router predictions follow the new clock."""
+        actuate = getattr(self.backend, "set_freq_scale", None)
+        if actuate is None:
+            raise ValueError(
+                f"{type(self.backend).__name__} exposes no DVFS "
+                "actuator (set_freq_scale); closed-loop frequency "
+                "control needs an analytic or replay backend")
+        actuate(target)
+        self.device = getattr(self.backend, "device", None) or self.device
+        self.energy = getattr(self.backend, "energy", None) or self.energy
+        self.freq_scale = float(target)
+
+    # ------------------------------------------------------------------
     def run(self, requests: List[Request], *,
             scheduler: Optional[Scheduler] = None,
             trace: Optional[PowerTrace] = None,
-            source: Optional[object] = None,
-            controller: Optional[object] = None,
-            faults: Optional[object] = None,
-            retry: Optional[object] = None) -> ServeReport:
-        """Serve a request list, optionally shaped and admitted by a
-        :class:`~repro_torch.serving.scheduler.Scheduler` and recorded
-        onto a :class:`~repro_torch.serving.trace.PowerTrace` timeline.
-        Requests may arrive at any time: the device idles (or, in a gap
-        the scheduler planned, power-gates) until the next release.
-        ``source``, ``controller``, ``faults`` and ``retry`` are refused:
-        they wait for ROADMAP A4(b)."""
-        for name, arg in (("source", source), ("controller", controller),
-                          ("faults", faults), ("retry", retry)):
-            if arg is not None:
-                raise ValueError(f"{name}= {A4B}")
+            source: Optional["object"] = None,
+            controller: Optional["object"] = None,
+            control_interval_s: float = 1.0,
+            faults: Optional["object"] = None,
+            retry: Optional["object"] = None) -> ServeReport:
+        """Serve a request list, optionally shaped/admitted by a
+        :class:`~repro_torch.serving.scheduler.Scheduler` and recorded onto a
+        :class:`~repro_torch.serving.trace.PowerTrace` timeline.
+
+        ``source`` is a :class:`~repro_torch.workflows.WorkflowSource`: each
+        completion is reported back to it and any dependent requests it
+        releases join the arrival stream at their release times.
+
+        ``controller`` is a :class:`~repro_torch.control.Controller`: it
+        observes/plans/acts every ``control_interval_s`` of simulated
+        time, actuating DVFS (``set_freq_scale``) and admission (a live
+        token bucket gating releases into the batcher). With no
+        controller the legacy event loop runs — no ``control`` stops
+        are ever constructed, so results stay bit-identical.
+
+        ``faults`` is a :class:`~repro_torch.faults.FaultSchedule` whose
+        boundaries become horizon stops: crashes/preemptions fail
+        in-flight work into ``RequestStatus.FAILED`` (joules move to
+        ``wasted_energy_j``), slowdowns/power caps re-target DVFS for
+        a window. ``retry`` (a :class:`~repro_torch.faults.RetryPolicy`)
+        re-queues failures with exponential backoff until the budget
+        is exhausted. With no schedule the fault path is never
+        constructed and results stay bit-identical."""
+        if faults is not None:
+            if self.mode != "continuous":
+                raise ValueError("faults= requires mode='continuous'")
+            if controller is not None:
+                raise ValueError("faults= cannot be combined with "
+                                 "controller= (controlling a faulty "
+                                 "replica is future work)")
+            if self.pool != "mixed":
+                raise ValueError("single-engine fault injection needs "
+                                 "pool='mixed'; drive disaggregated "
+                                 "faults through ClusterEngine")
+            if faults.has_kind("link_degrade"):
+                raise ValueError("link_degrade faults only apply to "
+                                 "disaggregated cluster runs")
+            if faults.max_replica > 0:
+                raise ValueError(
+                    f"fault schedule names replica "
+                    f"{faults.max_replica} but this is a "
+                    "single-replica run")
+            if any(not math.isfinite(e.downtime_s)
+                   for e in faults.events
+                   if e.kind in ("crash", "preempt")):
+                raise ValueError("single-replica fault injection "
+                                 "needs finite downtime (nothing else "
+                                 "can serve the retries)")
+        if retry is not None and faults is None:
+            raise ValueError("retry= without faults= has no effect; "
+                             "attach a FaultSchedule")
+        if controller is not None:
+            if self.mode != "continuous":
+                raise ValueError("controller= requires "
+                                 "mode='continuous'")
+            if source is not None:
+                raise ValueError("controller= cannot be combined with "
+                                 "a workflow source (control the "
+                                 "workflow run's engine instead)")
         reqs, shed = apply_schedule(requests, scheduler)
+        if source is not None:
+            source.bind(sequential=(self.mode == "sequential"),
+                        page_size=self.batcher.kv.page_size,
+                        kv_get=lambda _i: self.batcher.kv)
+            for r in shed:
+                source.on_shed(r)
         self._trace = trace
-        self._trace_replica = 0
+        self._trace_replica = 0     # standalone run (cluster sets >0)
         plans_gaps = scheduler is not None and scheduler.plans_gaps
         try:
-            if self.mode == "sequential":
-                rep = self._run_sequential(reqs)
+            if faults is not None:
+                rep = self._run_faulty(reqs, faults, retry,
+                                       plans_gaps=plans_gaps,
+                                       source=source)
+            elif controller is not None:
+                from repro_torch.control.hook import ControlHook
+                hook = ControlHook(controller, control_interval_s)
+                rep = self._run_controlled(reqs, hook,
+                                           plans_gaps=plans_gaps)
+            elif self.mode == "sequential":
+                rep = self._run_sequential(reqs, source=source)
             else:
-                rep = self._run_continuous(reqs, plans_gaps=plans_gaps)
+                rep = self._run_continuous(reqs, plans_gaps=plans_gaps,
+                                           source=source)
         finally:
             self._trace = None
         rep.shed = shed
+        if source is not None:
+            rep.tasks = source.task_reports()
         return rep
 
     def _record(self, state: str, t0: float, t1: float, energy_j: float,
@@ -464,11 +571,16 @@ class ServeEngine:
                                freq_scale=self.freq_scale)
 
     # ------------------------------------------------------------------
-    def _run_sequential(self, reqs: List[Request]) -> ServeReport:
+    def _run_sequential(self, reqs: List[Request],
+                        source: Optional[object] = None) -> ServeReport:
         self.backend.start()
         now, busy_e, idle_e, busy_t = 0.0, 0.0, 0.0, 0.0
         idle_t = 0.0
-        for r in reqs:
+        pending = list(reqs)
+        i = 0
+        while i < len(pending):
+            r = pending[i]
+            i += 1
             if r.effective_arrival > now:
                 gap = r.effective_arrival - now
                 res = self.backend.idle(gap, "idle")
@@ -503,25 +615,30 @@ class ServeEngine:
             r.t_done = now
             r.status = RequestStatus.DONE
             self.backend.finish_request(r)
-        return ServeReport(requests=list(reqs),
+            if source is not None:
+                for child in source.on_finish(r, r.t_done):
+                    _insert_pending(pending, i, child)
+        return ServeReport(requests=pending,
                            total_energy_j=busy_e + idle_e,
                            busy_energy_j=busy_e, idle_energy_j=idle_e,
                            wall_time_s=now, busy_time_s=busy_t,
                            idle_time_s=idle_t,
                            mean_batch=1.0,
-                           n_prefill_batches=len(reqs),
+                           n_prefill_batches=len(pending),
                            n_decode_steps=sum(r.tokens_generated - 1
-                                              for r in reqs))
+                                              for r in pending))
 
     # ------------------------------------------------------------------
     def _run_continuous(self, reqs: List[Request],
-                        plans_gaps: bool = False) -> ServeReport:
+                        plans_gaps: bool = False,
+                        source: Optional[object] = None) -> ServeReport:
         self.stream_start()
         s = self._stream
         pending = list(reqs)
         head = 0                        # head pointer, no pop(0) shifts
-        n = len(pending)
-        while len(s.done) < n:
+        seen = 0                        # done-list cursor (source drain)
+        while len(s.done) < len(pending):
+            n = len(pending)
             while (head < n and pending[head].effective_arrival
                     <= s.now + 1e-12):
                 self.stream_submit(pending[head])
@@ -532,6 +649,21 @@ class ServeEngine:
                                     mode="admit")
                         if head < n else None)
                 self.stream_step(stop=stop)
+                if source is not None:
+                    # report completions; released successors join the
+                    # arrival stream at their release times. A step
+                    # that terminated shed/failed aborts its whole
+                    # task — successors must never be released.
+                    done = s.done
+                    while seen < len(done):
+                        r = done[seen]
+                        seen += 1
+                        if r.status is RequestStatus.DONE:
+                            for child in source.on_finish(r, r.t_done):
+                                _insert_pending(pending, head, child)
+                        elif r.status in (RequestStatus.SHED,
+                                          RequestStatus.FAILED):
+                            source.on_shed(r)
                 continue
             if head < n:
                 t_next = pending[head].effective_arrival
@@ -550,7 +682,201 @@ class ServeEngine:
                 break
         return self.stream_report()
 
-    # -- stream primitives ---------------------------------------------
+    # ------------------------------------------------------------------
+    def _run_controlled(self, reqs: List[Request], hook,
+                        plans_gaps: bool = False) -> ServeReport:
+        """Continuous event loop with a closed-loop controller.
+
+        Identical to :meth:`_run_continuous` except that (a) each
+        request's release is additionally gated by the hook's live
+        admission bucket, (b) decode horizons stop at the next control
+        boundary (``HorizonStop(mode="control")``), and (c) the hook
+        fires at the end of the first phase crossing each boundary.
+        All three are deterministic functions of the simulation clock,
+        so macro-stepped and single-stepped controlled runs stay
+        bit-identical."""
+        self.stream_start()
+        s = self._stream
+        pending = list(reqs)
+        hook.attach([(0, self)], pending)
+        arrivals = [r.effective_arrival for r in pending]
+        head = 0
+        n = len(pending)
+        while len(s.done) < n:
+            while head < n:
+                t_rel = hook.release_time(
+                    pending[head].effective_arrival)
+                if t_rel > s.now + 1e-12:
+                    break
+                hook.take(s.now)
+                self.stream_submit(pending[head])
+                head += 1
+            t_c = hook.next_boundary
+            if self.stream_can_step():
+                stop = HorizonStop(t_c, mode="control")
+                if head < n:
+                    t_rel = hook.release_time(
+                        pending[head].effective_arrival)
+                    if t_rel <= t_c:
+                        stop = HorizonStop(t_rel, mode="admit")
+                self.stream_step(stop=stop)
+            elif head < n:
+                t_rel = hook.release_time(
+                    pending[head].effective_arrival)
+                t_to = min(t_rel, t_c)
+                wake = self.device.wake_latency_s
+                if (plans_gaps and t_rel <= t_c
+                        and t_rel - s.now > wake):
+                    self.stream_idle(t_rel - wake, gated=True)
+                self.stream_idle(t_to)
+            else:
+                if self.batcher.n_waiting:
+                    raise RuntimeError("deadlock: waiting requests "
+                                       "cannot be scheduled (KV pool "
+                                       "too small)")
+                break
+            n_arr = _bisect_right(arrivals, s.now + 1e-12)
+            hook.maybe_fire(s.now, n_arr, held=n_arr - head)
+        rep = self.stream_report()
+        rep.control = hook.summary(rep.wall_time_s)
+        return rep
+
+    # ------------------------------------------------------------------
+    def _run_faulty(self, reqs: List[Request], faults, retry,
+                    plans_gaps: bool = False,
+                    source: Optional[object] = None) -> ServeReport:
+        """Continuous event loop under a fault schedule (single
+        replica). Identical to :meth:`_run_continuous` between fault
+        boundaries — each boundary is a horizon stop, so macro-stepped
+        and single-stepped faulty runs stay bit-identical."""
+        eps = 1e-12
+        self.stream_start()
+        s = self._stream
+        pending = list(reqs)
+        head = 0
+        seen = 0
+        n_total = len(reqs)             # grows only with source children
+        tl = faults.boundaries(0)
+        fi = 0
+        base_freq = self.freq_scale
+        drain = retry is not None and retry.drain_on_notice
+        timeout = retry.timeout_s if retry is not None else math.inf
+        draining_until: Optional[float] = None
+
+        def drain_source() -> None:
+            """Report every new terminal request to the workflow
+            source: completions release successors into the arrival
+            stream, shed/failed steps abort their whole task."""
+            nonlocal seen, n_total
+            if source is None:
+                return
+            done = s.done
+            while seen < len(done):
+                r = done[seen]
+                seen += 1
+                if r.status is RequestStatus.DONE:
+                    for child in source.on_finish(r, r.t_done):
+                        n_total += 1
+                        _insert_pending(pending, head, child)
+                elif r.status in (RequestStatus.SHED,
+                                  RequestStatus.FAILED):
+                    source.on_shed(r)
+
+        while len(s.done) < n_total:
+            # due fault boundaries fire before anything else
+            if fi < len(tl) and s.now >= tl[fi].t - eps:
+                b = tl[fi]
+                fi += 1
+                if b.action == "notice":
+                    if drain:
+                        # graceful drain: stop admitting, re-queue the
+                        # waiting work past the restart
+                        draining_until = b.event.t_restart
+                        for r in self.batcher.evict_waiting():
+                            _remove_identity(s.submitted, r)
+                            r.release_time = b.event.t_restart
+                            _insert_pending(pending, head, r)
+                elif b.action == "kill":
+                    draining_until = None
+                    failed = self.stream_crash(
+                        "preempt" if b.event.kind == "preempt"
+                        else "crash")
+                    t_restart = b.event.t_restart
+                    for r in failed:
+                        if (retry is not None
+                                and r.n_attempts < retry.max_retries):
+                            _remove_identity(s.submitted, r)
+                            delay = retry.backoff(r.n_attempts)
+                            r.n_attempts += 1
+                            s.n_retries += 1
+                            r.status = RequestStatus.QUEUED
+                            r.fail_reason = None
+                            r.release_time = max(s.now + delay,
+                                                 t_restart)
+                            _insert_pending(pending, head, r)
+                        else:
+                            s.done.append(r)
+                    drain_source()
+                    self.stream_down(t_restart)
+                elif b.action == "slow_start":
+                    self.set_freq_scale(b.event.freq_scale)
+                else:                               # slow_end
+                    self.set_freq_scale(base_freq)
+                continue
+            n = len(pending)
+            while (head < n and pending[head].effective_arrival
+                    <= s.now + eps):
+                r = pending[head]
+                head += 1
+                if s.now - r.arrival_time > timeout + eps:
+                    # queueing timeout: backoff delays pushed this
+                    # request past its budget — fail instead of serve
+                    r.status = RequestStatus.FAILED
+                    r.fail_reason = "timeout"
+                    s.n_failures += 1
+                    s.submitted.append(r)
+                    s.done.append(r)
+                    drain_source()
+                    n = len(pending)
+                    continue
+                if draining_until is not None:
+                    # admissions are paused until the replica restarts
+                    r.release_time = draining_until
+                    _insert_pending(pending, head, r)
+                    n = len(pending)
+                    continue
+                self.stream_submit(r)
+            t_arr = (pending[head].effective_arrival
+                     if head < len(pending) else None)
+            t_f = tl[fi].t if fi < len(tl) else None
+            if self.stream_can_step():
+                if t_arr is not None and (t_f is None or t_arr <= t_f):
+                    stop = HorizonStop(t_arr, mode="admit")
+                elif t_f is not None:
+                    stop = HorizonStop(t_f, mode="clock")
+                else:
+                    stop = None
+                self.stream_step(stop=stop)
+                drain_source()
+                continue
+            if t_arr is None and t_f is None:
+                if self.batcher.n_waiting:
+                    raise RuntimeError("deadlock: waiting requests "
+                                       "cannot be scheduled (KV pool "
+                                       "too small)")
+                break
+            next_is_arrival = (t_arr is not None
+                               and (t_f is None or t_arr <= t_f))
+            t_next = t_arr if t_f is None else (
+                t_f if t_arr is None else min(t_arr, t_f))
+            gap = t_next - s.now
+            wake = self.device.wake_latency_s
+            if plans_gaps and next_is_arrival and gap > wake:
+                self.stream_idle(t_next - wake, gated=True)
+            self.stream_idle(t_next)
+        return self.stream_report()
+
+    # -- stream primitives (single-engine run + cluster co-simulation) --
     def stream_start(self, t0: float = 0.0) -> None:
         """Begin a fresh continuous-mode stream at clock ``t0``."""
         if self.mode != "continuous":
@@ -579,6 +905,14 @@ class ServeEngine:
     def stream_submit(self, req: Request) -> None:
         self._stream.submitted.append(req)
         self.batcher.admit(req)
+
+    def stream_take_handoffs(self) -> List[Request]:
+        """Drain prefill-complete requests relayed by a
+        ``pool='prefill'`` engine (disaggregated serving); the cluster
+        loop re-submits them to a decode replica."""
+        out = self._stream.handoffs
+        self._stream.handoffs = []
+        return out
 
     def stream_can_step(self) -> bool:
         """True if the scheduler can make progress right now (a prefill
@@ -638,7 +972,10 @@ class ServeEngine:
                 if b.note_chunk(slot, plan.chunk_len):
                     r.t_first_token = s.now
                     r.tokens_generated = 1
-                    self._finish_ready(b, s.done, s.now)
+                    if self.pool == "prefill":
+                        self._relay([(slot, r)])
+                    else:
+                        self._finish_ready(b, s.done, s.now)
                 return res.latency_s
             for slot, r in picks:
                 r.status = RequestStatus.RUNNING
@@ -649,7 +986,10 @@ class ServeEngine:
                 b.complete_prefill(slot)
             s.prefill_computed += len(picks) * plan.pad_len
             s.prefill_effective += sum(r.prompt_len for _, r in picks)
-            self._finish_ready(b, s.done, s.now)
+            if self.pool == "prefill":
+                self._relay(picks)
+            else:
+                self._finish_ready(b, s.done, s.now)
             return res.latency_s
         live = b.decode_ready_slots()
         if live:
@@ -685,6 +1025,18 @@ class ServeEngine:
             self._finish_ready(b, s.done, s.now)
             return res.latency_s
         return 0.0
+
+    def _relay(self, picks) -> None:
+        """Hand prefill-complete requests off the replica (disaggregated
+        ``pool='prefill'``): free the slot and KV, and queue the request
+        for the cluster loop to deliver to a decode replica."""
+        s, b = self._stream, self.batcher
+        for slot, r in picks:
+            b.finish(slot)
+            self.backend.release_slot(slot)
+            s.done.append(r)
+            s.handoffs.append(r)
+            s.n_relayed += 1
 
     # -- event-horizon macro-stepping ----------------------------------
     def _decode_horizon(self, reqs: List[Request]

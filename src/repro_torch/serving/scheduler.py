@@ -1,12 +1,11 @@
 """SLO-aware request scheduling: arrival shaping and admission control.
-The port's own copy of ``repro.serving.scheduler`` (numpy only); the
-cluster that also reads it waits for ROADMAP A4(b).
+The port's own copy of ``repro.serving.scheduler`` (numpy only).
 
 The paper's §5 headline is that *when* requests reach the engine moves
 per-request energy by up to two orders of magnitude. The repo's arrival
 generators are passive; this module is the active layer between an
-arrival stream and :class:`~repro_torch.serving.engine.ServeEngine`.
-A scheduler consumes raw
+arrival stream and :class:`~repro_torch.serving.engine.ServeEngine` /
+:class:`~repro_torch.serving.cluster.ClusterEngine`. A scheduler consumes raw
 requests and decides, per request,
 
 * a **release time** (``Request.release_time`` >= arrival) — shaping:
@@ -83,11 +82,11 @@ class HorizonStop:
       rule: a release at ``t_stop`` is admitted once
       ``t_stop <= now + eps``, so decoding stops after the first step
       whose end time satisfies that;
-    * ``clock`` — the reference's ``ClusterEngine`` co-simulation rule:
-      a replica keeps stepping while
+    * ``clock`` — :class:`~repro_torch.serving.cluster.ClusterEngine`'s
+      co-simulation rule: a replica keeps stepping while
       ``now < t_stop - eps``;
     * ``control`` — a closed-loop controller's observe/plan/act
-      boundary (:mod:`repro.control`): decoding stops after the first
+      boundary (:mod:`repro_torch.control`): decoding stops after the first
       step whose end time crosses ``t_stop`` so the controller fires
       with the same clock the single-step loop would see. With no
       controller attached no ``control`` stop is ever constructed, so
@@ -267,7 +266,7 @@ class DeadlineScheduler(Scheduler):
     """Earliest-deadline-first with priority tiers and load shedding.
 
     Releases are paced at ``service_rate_per_s`` (what the engine can
-    absorb — see :func:`repro.serving.slo.estimate_service_rate`); at
+    absorb — see :func:`repro_torch.serving.slo.estimate_service_rate`); at
     each release slot the backlog is drained in (priority desc, absolute
     deadline asc) order. A request whose release slot would already be
     past ``arrival + deadline_s - est_latency_s`` cannot meet its SLO

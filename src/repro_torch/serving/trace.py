@@ -30,13 +30,13 @@ STATES = ("prefill", "decode", "idle", "gated")
 #: by energy_by_state()/time_by_state() only when actually present, so
 #: non-fleet traces (and their golden serializations) are unchanged
 TRANSITION_STATES = ("spinup", "drain")
-#: closed-loop controller action markers (:mod:`repro.control`) —
+#: closed-loop controller action markers (:mod:`repro_torch.control`) —
 #: zero-duration, zero-energy segments stamping each observe/plan/act
 #: firing onto the timeline. Like the transition states they surface in
 #: the by-state summaries only when present, so controller-off traces
 #: serialize byte-identically and 100%-energy accounting is unaffected.
 CONTROL_STATES = ("control",)
-#: fault-injection states (:mod:`repro.faults`) — ``down`` spans are a
+#: fault-injection states (:mod:`repro_torch.faults`) — ``down`` spans are a
 #: dead replica's zero-energy wall-clock (the machine is off, not
 #: idling). Present in by-state summaries only when recorded, so
 #: fault-free traces serialize byte-identically.

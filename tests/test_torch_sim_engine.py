@@ -375,15 +375,69 @@ def test_fold_and_pending_helpers_equal_reference():
 # --------------------------------------------------------------------------
 # what the engine refuses
 # --------------------------------------------------------------------------
+def _run_refusal(mods, kw):
+    """The (type, message) a run with ``kw`` raises on a fresh engine of
+    either package, or None."""
+    from repro.control import make_controller as jax_controller
+    from repro.faults import FaultSchedule as JaxSchedule
+    from repro.faults import make_retry as jax_retry
+    from repro.workflows import WorkflowSource as JaxSource
+    from repro_torch.control import make_controller as pt_controller
+    from repro_torch.faults import FaultSchedule as PtSchedule
+    from repro_torch.faults import make_retry as pt_retry
+    from repro_torch.workflows import WorkflowSource as PtSource
+    torch_side = mods is PT
+    schedule = PtSchedule if torch_side else JaxSchedule
+    made = {
+        "faults": lambda e: schedule([e]),
+        "retry": lambda _: (pt_retry if torch_side else jax_retry)(
+            "backoff"),
+        "controller": lambda _: (pt_controller if torch_side
+                                 else jax_controller)("static"),
+        "source": lambda _: (PtSource if torch_side else JaxSource)(
+            [], []),
+    }
+    args = {name: made[name](spec) for name, spec in kw.items()
+            if name != "mode"}
+    eng = mods[0].ServeEngine(mods[7], mode=kw.get("mode", "continuous"))
+    try:
+        eng.run([], **args)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+CRASH = dict(t=0.5, kind="crash", downtime_s=1.0)
+RUN_REFUSALS = {
+    "faults_with_controller": {"faults": CRASH, "controller": None},
+    "retry_without_faults": {"retry": None},
+    "controller_with_source": {"controller": None, "source": None},
+    "link_degrade_on_one_engine": {"faults": dict(
+        t=0.5, kind="link_degrade", link_factor=2.0, duration_s=1.0)},
+    "infinite_single_engine_crash": {"faults": dict(
+        t=0.5, kind="crash", downtime_s=float("inf"))},
+    "faults_on_a_second_replica": {"faults": dict(CRASH, replica=1)},
+    "faults_in_sequential_mode": {"faults": CRASH, "mode": "sequential"},
+    "controller_in_sequential_mode": {"controller": None,
+                                      "mode": "sequential"},
+}
+
+
 def test_engine_refuses_the_paths_of_a4b_and_contradictions():
-    eng = pt_engine.ServeEngine(CFG)
-    for kw in ({"source": object()}, {"controller": object()},
-               {"faults": object()}, {"retry": object()}):
-        with pytest.raises(ValueError, match="A4\\(b\\)"):
-            eng.run([], **kw)
+    """The port raises the reference's own ValueErrors for run()
+    arguments that contradict each other, builds the disaggregated
+    pools, and refuses what the reference's constructor refuses."""
+    for case, kw in RUN_REFUSALS.items():
+        want = _run_refusal(JAX, kw)
+        assert want is not None, case
+        assert _run_refusal(PT, kw) == want, case
     for pool in ("prefill", "decode"):
-        with pytest.raises(ValueError, match="A4\\(b\\)"):
-            pt_engine.ServeEngine(CFG, pool=pool)
+        eng = pt_engine.ServeEngine(CFG, pool=pool)
+        assert eng.pool == pool
+        with pytest.raises(ValueError, match="continuous"):
+            pt_engine.ServeEngine(CFG, pool=pool, mode="sequential")
+    with pytest.raises(ValueError, match="unknown pool"):
+        pt_engine.ServeEngine(CFG, pool="both")
     with pytest.raises(ValueError):
         pt_engine.ServeEngine(CFG, mode="static")
     with pytest.raises(ValueError):
