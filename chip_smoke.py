@@ -158,6 +158,26 @@ non-zero exit code:
    memory, the analytic J/request with idle, gated and wasted energy,
    requests and utilisation per replica, prefix-reused tokens and task
    latencies (energies analytic: gaps and downtime are simulated).
+11. api: llama-3.1-8b at full width and depth through the port's public
+   surface only, with ``torch_device="cuda"`` (``API_RUNS``): one
+   ``repro_torch.sweep`` over ``fmt`` in bfloat16 and int8
+   (``cache=False``, ``workers=1``) of an executed spec of 8 requests
+   arriving at once (prompts 200-960 tokens, outputs 8-32, 8 lanes,
+   rings of 1024 slots), and the same spec as a vectorized fleet
+   (``fleet="vector"``) of two executed replicas sharing one model
+   behind ``round_robin``, Poisson at 20/s, through
+   ``ExperimentSpec.run``. Each record must equal its analytic twin's
+   (``spec.derive(backend="analytic")``, computed on the CPU too by
+   ``api_plan``, from which the kernel phase's cells are derived:
+   ``api_cells``) on every field but ``spec_hash``; every request
+   generates its max_new_tokens ids in the vocabulary; the prefills the
+   model runs and the decode steps are the twin's, with one flash launch
+   a layer and prefill, one paged a layer and step and, under int8, 224
+   quant launches a phase on the loop its rows choose (summed over the
+   fleet's replicas). Each spec's window opens where it draws its
+   weights (``repro_torch.api.executed_params``, observed by
+   ``_ApiWindows``). Prints an api line a run: host wall, the weights'
+   draw, peak memory and the analytic J/request (energies analytic).
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -408,6 +428,8 @@ def quant_cells(configs) -> tuple:
         cells.append((ARRIVAL_ARCH, (fmt,), None, sorted(rows)))
     for fmt, rows in orch_cells()[2].items():
         cells.append((ORCH_ARCH, (fmt,), None, sorted(rows)))
+    for fmt, rows in api_cells()[2].items():
+        cells.append((API_BASE["model"], (fmt,), None, sorted(rows)))
     for arch, formats, kw, rows in cells:
         cfg = configs[arch]
         for fmt in formats:
@@ -634,10 +656,12 @@ def attention_cells(configs) -> tuple:
     causal, full, paged = model_attention_cells(configs)
     a_causal, a_paged, _ = arrival_cells()
     o_causal, o_paged, _ = orch_cells()
+    x_causal, x_paged, _ = api_cells()
     return tuple(list(dict.fromkeys(fixed + extra))
-                 for fixed, extra in zip((FLASH_CELLS, [], PAGED_CELLS),
-                                         (causal + a_causal + o_causal,
-                                          full, paged + a_paged + o_paged)))
+                 for fixed, extra in zip(
+                     (FLASH_CELLS, [], PAGED_CELLS),
+                     (causal + a_causal + o_causal + x_causal, full,
+                      paged + a_paged + o_paged + x_paged)))
 
 
 def check_attention_cells(configs, cells) -> None:
@@ -2087,6 +2111,241 @@ def orchestration_phase(torch, mods) -> dict:
     return out
 
 
+# the api phase: executed specs of llama-3.1-8b at full width and depth,
+# reached only through the port's public surface (repro_torch.sweep and
+# ExperimentSpec.run) on the card; every prompt plus its outputs stays
+# within the ring of buf_len slots
+API_BASE = dict(model="llama-3.1-8b", backend="executed", n_requests=8,
+                arrival="all_at_once", max_batch=8,
+                prompt_range=(200, 960), output_range=(8, 32),
+                buf_len=1024, seed=0)
+# the sweep over formats: its grid labels and the runs they name
+API_SWEEP = {"fmt": ["bfloat16", "int8"]}
+API_SWEEP_RUNS = {"fmt=bfloat16": "api-burst", "fmt=int8": "api-burst-int8"}
+# the vectorized fleet of two executed replicas (one shared model)
+API_FLEET = dict(fleet="vector", replicas=2, router="round_robin",
+                 arrival="poisson", arrival_params={"rate_per_s": 20.0})
+API_RUNS = ("api-burst", "api-burst-int8", "api-fleet")
+
+
+def api_specs() -> dict:
+    """{run: ExperimentSpec} of API_RUNS: the sweep's grid points and
+    the fleet spec."""
+    from repro_torch import ExperimentSpec, expand_grid
+    base = ExperimentSpec(**API_BASE)
+    specs = {API_SWEEP_RUNS[label]: spec
+             for label, spec in expand_grid(base, API_SWEEP)}
+    specs["api-fleet"] = base.derive(**API_FLEET)
+    return specs
+
+
+@functools.lru_cache(maxsize=None)
+def api_plan() -> dict:
+    """Each API_RUNS spec's analytic twin (``backend="analytic"``) on the
+    CPU: {run: (its record without spec_hash, the (rows, padded length)
+    of each prefill the executed backend runs, per replica; prefill
+    phases; decode steps)}. The shapes come from the twin's engine with
+    each replica's backend recording them, and that run's record must be
+    the twin's. The executed run must give the same record, prefills
+    and steps: the kernel phase holds the kernels at these shapes."""
+    from repro_torch.api import result_from_report
+    plan = {}
+    for run, spec in api_specs().items():
+        twin = spec.derive(backend="analytic")
+        record = twin.run().to_dict()
+        record.pop("spec_hash")
+        eng = twin.build_engine()
+        engines = getattr(eng, "replicas", [eng])
+        for e in engines:
+            e.backend = _shape_backend(twin.model_config(), spec.fmt,
+                                       spec.buf_len)
+        rep = eng.run(twin.requests(), scheduler=twin.build_scheduler())
+        again = result_from_report(twin, rep).to_dict()
+        again.pop("spec_hash")
+        if again != record:
+            raise SystemExit(f"api {run}: the twin recording its prefill "
+                             f"shapes is not the analytic twin")
+        reports = getattr(rep, "replica_reports", [rep])
+        plan[run] = (record, [list(e.backend.shapes) for e in engines],
+                     sum(r.n_prefill_batches for r in reports),
+                     sum(r.n_decode_steps for r in reports))
+    return plan
+
+
+def api_cells() -> tuple:
+    """(flash causal cells, paged cells, {fmt: quant rows}) of the api
+    runs (:func:`api_plan`): flash over each executed prefill (B, padded
+    length); paged over max_batch lanes of buf_len slots; the quant
+    projections at each prefill's rows times its length and at max_batch
+    rows."""
+    specs, plan = api_specs(), api_plan()
+    flash, paged, rows = [], [], {}
+    for run, spec in specs.items():
+        cfg = spec.model_config()
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        shapes = [s for per in plan[run][1] for s in per]
+        flash += [(B, S, heads, None) for B, S in shapes]
+        paged.append((spec.max_batch, spec.buf_len, heads))
+        rows.setdefault(spec.fmt, set()).update(
+            [B * S for B, S in shapes] + [spec.max_batch])
+    return list(dict.fromkeys(flash)), list(dict.fromkeys(paged)), rows
+
+
+class _ApiWindows:
+    """Observes the executed specs that the port's public API runs: each
+    spec draws its shared weights once through
+    ``repro_torch.api.executed_params``, so a wrapper of it opens the
+    spec's window there (the previous spec's model freed, peak memory
+    and the launch counts set to 0, the weights' draw timed) and closes
+    the previous one (host wall from the draw to the next, launch counts,
+    peak memory). It also records the token shape of each prefill the
+    spec's model runs."""
+
+    def __init__(self, torch, mods):
+        self.torch, self.mods, self.windows = torch, mods, []
+
+    def close(self) -> None:
+        w = self.windows[-1] if self.windows else None
+        if w is None or "wall_s" in w:
+            return
+        self.torch.cuda.synchronize()
+        w.update(wall_s=time.perf_counter() - w["t0"],
+                 counts=read_launches(self.mods),
+                 loops=read_loops(self.mods[0]),
+                 peak_gb=self.torch.cuda.max_memory_allocated() / 1e9)
+
+    def executed_params(self, real, model):
+        torch = self.torch
+        self.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(self.mods)
+        t0 = time.perf_counter()
+        params = real(model)
+        torch.cuda.synchronize()
+        shapes = []
+        prefill = model.prefill
+
+        def recorded(params, batch, *args, **kw):
+            shapes.append(tuple(batch["tokens"].shape))
+            return prefill(params, batch, *args, **kw)
+
+        model.prefill = recorded
+        self.windows.append(dict(fmt=model.policy.fmt, t0=t0, shapes=shapes,
+                                 build_s=time.perf_counter() - t0))
+        return params
+
+
+def _check_api_run(cfg, run, spec, res, w) -> dict:
+    """The checks of one executed api run (its window ``w``): its record
+    equals its analytic twin's on every field but spec_hash, every
+    request generated max_new_tokens ids in the vocabulary, its prefills
+    (token shapes, summed over the replicas) and decode steps are the
+    twin's, and the launches over them are one flash a layer and
+    prefill, one paged a layer and step and, under int8, the 2-D quant
+    kernel on the loop its rows choose (224 calls a phase). Returns the
+    run's line."""
+    from repro_torch.serving.requests import RequestStatus
+    record, shapes, n_pre, n_dec = api_plan()[run]
+    got = res.to_dict()
+    if got.pop("spec_hash") != spec.spec_hash() or got != record:
+        raise SystemExit(f"api {run}: the executed record is not its "
+                         f"analytic twin's")
+    reports = getattr(res.report, "replica_reports", [res.report])
+    reqs = [r for rep in reports for r in rep.requests]
+    if len(reqs) != spec.n_requests:
+        raise SystemExit(f"api {run}: {len(reqs)} requests served")
+    for r in reqs:
+        if (r.status is not RequestStatus.DONE
+                or len(r.generated) != r.max_new_tokens
+                or not all(0 <= t < cfg.vocab_size for t in r.generated)):
+            raise SystemExit(f"api {run}: request {r.req_id} got "
+                             f"{len(r.generated)} tokens of "
+                             f"{r.max_new_tokens}, or one out of the "
+                             f"vocabulary")
+    pre = sum(rep.n_prefill_batches for rep in reports)
+    dec = sum(rep.n_decode_steps for rep in reports)
+    flat = sorted(tuple(s) for per in shapes for s in per)
+    if (pre, dec) != (n_pre, n_dec) or sorted(w["shapes"]) != flat:
+        raise SystemExit(f"api {run}: prefills {sorted(w['shapes'])} and "
+                         f"{dec} decode steps, not the twin's {flat} and "
+                         f"{n_dec}")
+    counts = w["counts"]
+    check_quant_entries(cfg, spec.fmt, counts, run)
+    check_attention_launches(cfg, spec.fmt, counts, pre, dec)
+    tokens = [B * S for B, S in flat] + [spec.max_batch] * dec
+    loops = check_quant_loops(cfg, spec.fmt, w["loops"], tokens, run)
+    n = res.n_requests
+    return {
+        "phase": "api", "run": run, "fmt": spec.fmt, "model": cfg.name,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "spec": spec.to_dict(), "spec_hash": spec.spec_hash(),
+        "torch_device": "cuda", "kind": res.kind,
+        "engine": type(res.report).__name__, "requests": n,
+        "prompt_lens": [r.prompt_len for r in reqs],
+        "new_tokens": [r.max_new_tokens for r in reqs],
+        "prefill_shapes": [list(s) for s in flat],
+        "prefill_phases": pre, "decode_steps": dec,
+        "host_wall_s": w["wall_s"], "model_build_s": w["build_s"],
+        "peak_mem_gb": w["peak_gb"],
+        # every energy and clock of the record is the analytic model's
+        "analytic": {"j_per_request": res.total_energy_j / n,
+                     "total_energy_j": res.total_energy_j,
+                     "idle_energy_j": res.idle_energy_j,
+                     "gated_energy_j": res.gated_energy_j,
+                     "clock_s": res.wall_time_s,
+                     "mean_batch": res.mean_batch,
+                     "requests_per_replica":
+                         list(res.requests_per_replica)},
+        "equals_analytic_twin": True, "launches": counts,
+        "quant_loops": loops}
+
+
+def api_phase(torch, mods) -> dict:
+    """API_RUNS through the port's public surface on the card: one
+    ``repro_torch.sweep`` over the formats (``cache=False``,
+    ``workers=1``, ``torch_device="cuda"``) and the fleet spec's
+    ``run(torch_device="cuda")``, each spec observed by
+    :class:`_ApiWindows` and checked by :func:`_check_api_run`. Prints an
+    api line a run; returns each run's launch counts."""
+    import repro_torch
+    from repro_torch import api
+    specs = api_specs()
+    cfg = specs["api-burst"].model_config()
+    obs = _ApiWindows(torch, mods)
+    real = api.executed_params
+    api.executed_params = functools.partial(obs.executed_params, real)
+    try:
+        t0 = time.perf_counter()
+        grid = repro_torch.sweep(repro_torch.ExperimentSpec(**API_BASE),
+                                 API_SWEEP, cache=False, workers=1,
+                                 torch_device="cuda")
+        obs.close()
+        sweep_s = time.perf_counter() - t0
+        results = {API_SWEEP_RUNS[label]: r
+                   for label, r in grid.results.items()}
+        results["api-fleet"] = specs["api-fleet"].run(torch_device="cuda")
+        obs.close()
+    finally:
+        api.executed_params = real
+    if [w["fmt"] for w in obs.windows] != [specs[run].fmt
+                                           for run in API_RUNS]:
+        raise SystemExit(f"api: the specs drew weights in the formats "
+                         f"{[w['fmt'] for w in obs.windows]}")
+    out = {}
+    for run, w in zip(API_RUNS, obs.windows):
+        line = _check_api_run(cfg, run, specs[run], results[run], w)
+        if run in API_SWEEP_RUNS.values():
+            line["sweep_wall_s"] = sweep_s
+        emit(line)
+        out[(cfg.name, specs[run].fmt, run)] = w["counts"]
+    del grid, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2123,6 +2382,7 @@ def main() -> int:
     launches.update(model_phase(torch, mods))
     launches.update(arrival_phase(torch, mods))
     launches.update(orchestration_phase(torch, mods))
+    launches.update(api_phase(torch, mods))
 
     kernels = []
     for name in K.ENTRY_POINTS:

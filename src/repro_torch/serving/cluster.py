@@ -1015,7 +1015,7 @@ def make_cluster(cfg, n_replicas: int, *, policy: str = "round_robin",
     Builds a fresh :class:`~repro_torch.batching.policy.SlotCountPolicy` per
     replica (policies are stateful, so one instance must not be shared
     across engines); pass formation axes through
-    the reference's ``repro.api.ExperimentSpec`` for non-default policies."""
+    :class:`~repro_torch.api.ExperimentSpec` for non-default policies."""
     from repro_torch.batching.policy import SlotCountPolicy
     if n_replicas > 1 and "batch_policy" in engine_kw:
         raise ValueError(

@@ -885,6 +885,10 @@ class ServeEngine:
         self.batcher = ContinuousBatcher(policy=self.batch_policy,
                                          **self._batcher_kw)
         self._stream = _StreamState(now=t0)
+        # start time of the most recent phase's final substep: the
+        # fleet loop orders over-advanced completions against the
+        # serial cluster loop's arrival clock with it
+        self._last_phase_start = t0
         self.backend.start()
 
     @property
@@ -944,6 +948,7 @@ class ServeEngine:
                 # advance
                 for _, r in plan.picks:
                     r.status = RequestStatus.RUNNING
+                self._last_phase_start = s.now
                 self._finish_ready(b, s.done, s.now)
                 return 0.0
             picks = plan.picks
@@ -952,6 +957,7 @@ class ServeEngine:
                 chunk_start=plan.chunk_start, chunk_len=plan.chunk_len))
             self._record("prefill", s.now, s.now + res.latency_s,
                          res.energy_j, float(len(picks)))
+            self._last_phase_start = s.now
             s.now += res.latency_s
             s.busy_t += res.latency_s
             s.busy_e += res.energy_j
@@ -1011,6 +1017,7 @@ class ServeEngine:
                 stack=self.stack))
             self._record("decode", s.now, s.now + res.latency_s,
                          res.energy_j, float(len(live)))
+            self._last_phase_start = s.now
             s.now += res.latency_s
             s.busy_t += res.latency_s
             s.busy_e += res.energy_j
@@ -1082,6 +1089,7 @@ class ServeEngine:
                                    float(n),
                                    freq_scale=self.freq_scale)
         t0 = s.now
+        self._last_phase_start = run.t_penult
         s.now = run.t_end
         s.busy_t = _fold(s.busy_t, run.latencies_s)
         s.busy_e = _fold(s.busy_e, run.energies_j)

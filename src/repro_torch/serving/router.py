@@ -168,9 +168,8 @@ class _SignalAwareRouter(Router):
     """Shared machinery for geo-routing on a per-region time signal.
 
     Needs the region layer bound (:meth:`bind_regions`) before the
-    first ``select`` (the reference's ``repro.fleet.FleetEngine`` does
-    this from the spec's ``regions=`` axis; a cluster's caller binds
-    them). Among replicas with a free decode
+    first ``select`` — :class:`repro_torch.fleet.FleetEngine` does this
+    from the spec's ``regions=`` axis. Among replicas with a free decode
     slot the policy picks the lowest (signal, load, index); when every
     replica is saturated it degrades to least-loaded, so low-carbon
     regions can't starve the fleet by queueing unboundedly.

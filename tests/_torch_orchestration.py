@@ -1,7 +1,7 @@
 """Shared pieces of the orchestration parity tests: both packages'
-router, cluster, workflow, fault, control and fleet modules side by side
-(``PKG["jax"]``, ``PKG["torch"]``), and the report fields those tests
-compare with ``==``."""
+router, cluster, workflow, fault, control, fleet, API and sweep modules
+side by side (``PKG["jax"]``, ``PKG["torch"]``), and the report fields
+those tests compare with ``==``."""
 import dataclasses
 import importlib
 from types import SimpleNamespace
@@ -18,6 +18,7 @@ _MODULES = {
     "control": "control", "view": "control.view",
     "controllers": "control.controllers", "hook": "control.hook",
     "autoscale": "fleet.autoscale", "regions": "fleet.regions",
+    "fleet_engine": "fleet.engine", "api": "api", "sweep": "sweep",
     "zoo": "configs.paper_zoo",
 }
 

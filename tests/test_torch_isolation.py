@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package (repro)."""
+"""The port stands alone: nothing under src/repro_torch, not its
+examples (examples/torch) and not chip_smoke.py imports jax or the JAX
+package (repro)."""
 import ast
 import os
 import subprocess
@@ -12,6 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples" / "torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -40,7 +42,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.weights; "
+            "repro_torch.weights, repro_torch.fleet.engine; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
