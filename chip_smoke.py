@@ -7,8 +7,9 @@ Phases, each printing JSON lines; any failure ends the script with a
 non-zero exit code:
 
 1. card: the GPU's name and power limit (``nvidia-smi``); TF32 off.
-2. build: the four kernels (``src/repro_torch/kernels/*/csrc``), one
-   ``nvcc`` each, all started together, timed.
+2. build: the five kernels (``src/repro_torch/kernels/*/csrc``: the
+   flash backward among them), one ``nvcc`` each, all started
+   together, timed.
 3. kernels: each kernel against its plain PyTorch version, with the
    kernel, plain and library times and the card's bound: the two
    dequant-matmul kernels at the llama-3.1-8b projection shapes (M in
@@ -178,6 +179,31 @@ non-zero exit code:
    weights (``repro_torch.api.executed_params``, observed by
    ``_ApiWindows``). Prints an api line a run: host wall, the weights'
    draw, peak memory and the analytic J/request (energies analytic).
+12. train: the flash backward kernel
+   (``flash_attention_bwd.cu``) against
+   ``flash_attention_backward_plain`` on the forward kernel's own output
+   and logsumexp (``BWD_CELLS``: stablelm-1.6b's (4, 1024) at 32/32/64,
+   granite-moe-1b-a400m's 16/8/64 at (4, 1024), h2o-danube-3-4b's
+   32/8/120 at (2, 1024) plain and with a window of 256, and an unmasked
+   (2, 256) over 64 keys; bf16 and f32), each of dq, dk, dv within
+   ``BWD_REL_TOL``, the forward's output with the logsumexp kept equal
+   to its output without, with the kernel, forward + backward, plain and
+   SDPA forward + backward times and the bound (five products); one
+   train step of stablelm-1.6b cut to 2 layers at full width, B = 4,
+   S = 1024, through the kernels against the same step with attention
+   through the plain versions (bf16 and f32, each grad leaf within
+   ``STEP_GRAD_TOL``), with ``remat=True`` (grads equal bit for bit, 2
+   forward launches a layer) and one whole f32 step; then stablelm-1.6b
+   at full width and depth trained in bf16 on ``SyntheticLM`` through
+   ``repro_torch.training.train`` for 20 steps (``TRAIN``) under the
+   power sampler: per step the loss, grad norm, host ms and launches
+   (exactly 24 flash forward and 24 backward, nothing else), finite
+   losses whose last 5 average below step 0's, peak memory and mean W;
+   the trained params saved by ``save_checkpoint``, loaded by
+   ``load_checkpoint`` and served (2 prompts, 8 greedy tokens, flash
+   and paged) to the tokens of the params in memory; and ``python -m
+   repro_torch.launch.train --arch granite-moe-1b-a400m --steps 5
+   --device cuda`` as a subprocess.
 
 The line before the last holds the card's name and power limit, the one
 before it the ``kernels`` summary, and the last line is
@@ -2346,6 +2372,436 @@ def api_phase(torch, mods) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# train: the flash backward kernel, and training at full width
+# ---------------------------------------------------------------------------
+# the backward kernel's cells, (B, S, T, heads, causal, window):
+# stablelm-1.6b's train shape, granite-moe-1b-a400m's GQA heads,
+# h2o-danube-3-4b's head_dim 120 (also windowed), and seamless's
+# unmasked cross-attention of a padded prompt over 64 frames
+BWD_CELLS = [(4, 1024, 1024, STABLELM_HEADS, True, None),
+             (4, 1024, 1024, GRANITE_HEADS, True, None),
+             (2, 1024, 1024, H2O_HEADS, True, None),
+             (2, 1024, 1024, H2O_HEADS, True, 256),
+             (2, 256, T_ENC, SEAMLESS_HEADS, False, None)]
+# backward kernel vs plain, each of dq, dk, dv: its max |kernel - plain|
+# over its max |plain|. f32 sums the same f32 products in other orders;
+# bf16 rounds each output once to bf16 (2^-8 of an element, below 4e-3 of
+# the max)
+BWD_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+HEADLINE_BWD = {"dtype": "bfloat16", "B": 4, "S": 1024, "H": 32, "Kv": 32,
+                "d": 64, "window": None}
+# full-width training: stablelm-1.6b in bf16 on SyntheticLM, B = 4,
+# S = 1024, 20 AdamW steps from seed 0
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN = dict(batch=4, seq_len=1024, steps=20, lr=5e-4, warmup=5)
+# the one-step checks run on a copy of the config cut to 2 layers
+STEP_LAYERS = 2
+# one bf16 step through the kernels against the same step through the
+# plain versions, each gradient leaf: max |kernel - plain| over max
+# |plain|. The two attentions round their outputs to bf16 at different
+# points, and two layers of bf16 backward carry such one-ulp differences
+# into every leaf; f32 carries only sums in other orders
+STEP_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+# the served check after training: 2 prompts of 64 tokens, 8 greedy steps
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_NEW = 2, 64, 8
+LAUNCHER = ["-m", "repro_torch.launch.train", "--arch",
+            "granite-moe-1b-a400m", "--steps", "5", "--device", "cuda"]
+
+
+def _bwd_bytes(B, S, T, H, Kv, d, es) -> int:
+    """Each input read once (q, k, v, out, dout and the f32 lse), each
+    output written once (dq, dk, dv)."""
+    return es * (4 * B * S * H * d + 4 * B * T * Kv * d) + 4 * B * H * S
+
+
+def bwd_phase(torch, FK) -> list:
+    """The flash backward kernel against ``flash_attention_backward_plain``
+    at BWD_CELLS in bf16 and f32, on the forward kernel's own output and
+    logsumexp: each of dq, dk, dv within BWD_REL_TOL; also SDPA's
+    gradients against the plain version (reported, not gated). Times:
+    the backward kernel alone, forward + backward through the autograd
+    Function, the plain backward, and SDPA forward + backward (the
+    library), eager; the bound is the larger of five products' FLOPs at
+    the dtype's peak and the bytes at HBM bandwidth."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for dtype in ATTN_DTYPES:
+        td = getattr(torch, dtype)
+        es = torch.finfo(td).bits // 8
+        for B, S, T, (H, Kv, d), causal, window in BWD_CELLS:
+            q, do = (torch.randn((B, S, H, d), generator=gen,
+                                 device="cuda").to(td) for _ in range(2))
+            k, v = (torch.randn((B, T, Kv, d), generator=gen,
+                                device="cuda").to(td) for _ in range(2))
+            kw = dict(causal=causal, window=window)
+            out, lse = FK.flash_attention_forward(q, k, v, with_lse=True,
+                                                  **kw)
+            same = bool(torch.equal(out, FK.flash_attention(q, k, v, **kw)))
+            got = FK.flash_attention_backward(q, k, v, out, lse, do, **kw)
+            ref = FK.flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                    **kw)
+            nodes = graph_nodes(torch, lambda: FK.flash_attention_backward(
+                q, k, v, out, lse, do, **kw))
+            allow = FK.visible(S, T, causal, window, "cuda")
+            pairs = int(allow.sum())
+            mask = {} if not causal else (
+                dict(is_causal=True) if window is None
+                else dict(attn_mask=allow))
+            lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            lout = sdpa(lq, lk, lv, enable_gqa=True, **mask)
+            lib = torch.autograd.grad(lout, (lq, lk, lv),
+                                      do.transpose(1, 2))
+            lib = [t.transpose(1, 2) for t in lib]
+            torch.cuda.synchronize()
+            rel = [((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+                   for a, b in zip(got, ref)]
+            lib_rel = [((a.float() - b.float()).abs().max()
+                        / b.float().abs().max()).item()
+                       for a, b in zip(lib, ref)]
+            max_abs = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, ref))
+            del got, ref, lib, lout
+            qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def fwd_bwd(q_, k_, v_, do_):
+                o = FK.flash_attention(q_, k_, v_, **kw)
+                return torch.autograd.grad(o, (q_, k_, v_), do_)
+
+            def lib_fwd_bwd(q_, k_, v_, do_):
+                o = sdpa(q_, k_, v_, enable_gqa=True, **mask)
+                return torch.autograd.grad(o, (q_, k_, v_), do_)
+
+            times = (
+                timed_ms(torch, lambda *a: FK.flash_attention_backward(
+                    *a, **kw), [(q, k, v, out, lse, do)], reps=3,
+                    graph=False),
+                timed_ms(torch, fwd_bwd, [(qr, kr, vr, do)], reps=3,
+                         graph=False),
+                timed_ms(torch, lambda *a: FK.flash_attention_backward_plain(
+                    *a, **kw), [(q, k, v, out, lse, do)], reps=1,
+                    graph=False),
+                timed_ms(torch, lib_fwd_bwd, [(lq, lk, lv,
+                                               do.transpose(1, 2))],
+                         reps=3, graph=False))
+            nbytes = _bwd_bytes(B, S, T, H, Kv, d, es)
+            bound, by = _bound(nbytes, 5 * 2 * d * pairs * B * H, dtype)
+            tol = BWD_REL_TOL[dtype]
+            row = {"phase": "kernel", "name": FK.BWD, "dtype": dtype,
+                   "B": B, "S": S, "T": T, "H": H, "Kv": Kv, "d": d,
+                   "causal": causal, "window": window,
+                   "rel_err_dq_dk_dv": rel, "max_rel_err": max(rel),
+                   "max_abs_err": max_abs, "rel_tol": tol,
+                   "forward_with_lse_unchanged": same,
+                   "library_rel_err_dq_dk_dv": lib_rel,
+                   "kernel_ms": times[0], "kernel_fwd_bwd_ms": times[1],
+                   "plain_ms": times[2], "library_ms": times[3],
+                   "bytes": nbytes, "flops": 5 * 2 * d * pairs * B * H,
+                   "bound_ms": bound, "bound_by": by,
+                   "cuda_launches_per_call": len(nodes)}
+            emit(row)
+            row["fault"] = (
+                f"{FK.BWD} disagrees with its plain version at {dtype} "
+                f"{(B, S, T, H, Kv, d, causal, window)}: {rel} > {tol}"
+                if not max(rel) <= tol else
+                f"flash_attention's forward with lse differs from without "
+                f"at {dtype} {(B, S, T, H, Kv, d)}" if not same else
+                f"{FK.BWD}: one call is {nodes}, not 3 kernels"
+                if nodes != [0, 0, 0] else None)
+            rows.append(row)
+            del q, k, v, do, out, lse, qr, kr, vr, lq, lk, lv
+            torch.cuda.empty_cache()
+    _raise_faults(rows)
+    return rows
+
+
+class _PlainAttention:
+    """The model's attention through the plain versions, forward and
+    backward, in the autograd Function's plumbing: the one-step check's
+    other side (a check, not the main path)."""
+
+    def __init__(self, torch, FK):
+        class Plain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal, window):
+                out, lse = FK.flash_attention_plain(
+                    q, k, v, causal=causal, window=window, return_lse=True)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.kw = dict(causal=causal, window=window)
+                return out
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, out, lse = ctx.saved_tensors
+                return (*FK.flash_attention_backward_plain(
+                    q, k, v, out, lse, do.contiguous(), **ctx.kw),
+                    None, None)
+
+        self.fn = Plain
+
+    def __call__(self, q, k, v, *, causal=True, window=None):
+        return self.fn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal, window)
+
+
+def _train_batch(torch, cfg):
+    """The first batch of TRAIN's SyntheticLM stream, on the card."""
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN["seq_len"],
+                                  batch_size=TRAIN["batch"]))
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in next(data.batches()).items()}
+
+
+def _grads(torch, model, params, batch, remat=False):
+    """(total loss, the gradient of every param leaf, in tree order)."""
+    from repro_torch.training.losses import lm_loss
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    total, _ = lm_loss(model, tree_unflatten(params, leaves), batch,
+                       remat=remat)
+    grads = torch.autograd.grad(total, leaves)
+    return float(total.detach()), grads
+
+
+def step_checks(torch, mods, FK) -> dict:
+    """One train step of stablelm-1.6b cut to STEP_LAYERS layers at full
+    width, three ways: through the kernels against the same step with
+    attention through the plain versions (bf16 and f32, each grad leaf
+    within STEP_GRAD_TOL); with ``remat=True``, every grad equal bit for
+    bit to the plain step's, with 2 flash forward launches a layer (the
+    recompute) and 1 backward; and one whole f32 step (the launcher's
+    default format) through ``make_train_step``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=STEP_LAYERS)
+    batch = _train_batch(torch, cfg)
+    out = {"phase": "train_step", "model": cfg.name, "layers": STEP_LAYERS,
+           "d_model": cfg.d_model, "B": TRAIN["batch"], "S": TRAIN["seq_len"]}
+    faults = []
+    for fmt in ("bfloat16", "float32"):
+        model = build_model(cfg, fmt=fmt, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        reset_launches(mods)
+        loss_k, g_k = _grads(torch, model, params, batch)
+        counts = read_launches(mods)
+        real = tfm.flash_attention
+        tfm.flash_attention = _PlainAttention(torch, FK)
+        try:
+            loss_p, g_p = _grads(torch, model, params, batch)
+        finally:
+            tfm.flash_attention = real
+        rel = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(g_k, g_p))
+        want = {"flash_attention": STEP_LAYERS,
+                "flash_attention_bwd": STEP_LAYERS}
+        line = {"loss": loss_k, "plain_loss": loss_p,
+                "max_leaf_rel_err": rel, "tol": STEP_GRAD_TOL[fmt],
+                "launches": counts}
+        if not rel <= STEP_GRAD_TOL[fmt]:
+            faults.append(f"{fmt} step: grads {rel} off the plain step's")
+        if {k: counts[k] for k in want} != want:
+            faults.append(f"{fmt} step launched {counts}, not {want}")
+        if fmt == "bfloat16":
+            reset_launches(mods)
+            _, g_r = _grads(torch, model, params, batch, remat=True)
+            counts = read_launches(mods)
+            line["remat_launches"] = counts
+            line["remat_bit_equal"] = all(torch.equal(a, b)
+                                          for a, b in zip(g_r, g_k))
+            want = {"flash_attention": 2 * STEP_LAYERS,
+                    "flash_attention_bwd": STEP_LAYERS}
+            if not line["remat_bit_equal"]:
+                faults.append("the remat step's grads are not the plain "
+                              "step's bit for bit")
+            if {k: counts[k] for k in want} != want:
+                faults.append(f"remat step launched {counts}, not {want}")
+            del g_r
+        else:
+            step = make_train_step(model, AdamWConfig())
+            t0 = time.perf_counter()
+            new, opt, met = step(params, adamw_init(params), batch)
+            torch.cuda.synchronize()
+            line["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+            line["step_lm_loss"] = float(met["lm_loss"])
+            line["step_grad_norm"] = float(met["grad_norm"])
+            if not math.isfinite(line["step_lm_loss"]) or int(
+                    opt["step"]) != 1:
+                faults.append("the f32 step gave a non-finite loss")
+            del new, opt
+        out[fmt] = line
+        del params, g_k, g_p, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(out)
+    if faults:
+        raise SystemExit("train_step: " + "; ".join(faults))
+    return out
+
+
+def _greedy(torch, model, params, prompts):
+    """SERVE_NEW greedy tokens of each prompt: one prefill, then decode
+    steps (flash in the prefill, paged in each step)."""
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  buf_len=SERVE_PROMPT_LEN + SERVE_NEW)
+    toks = []
+    for _ in range(SERVE_NEW):
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok)
+        logits, cache = model.decode_step(params, tok, cache)
+    return torch.cat(toks, dim=1).tolist()
+
+
+def train_phase(torch, mods) -> dict:
+    """Full-width training: stablelm-1.6b at full width and depth in bf16
+    on SyntheticLM through ``repro_torch.training.train`` (TRAIN), under
+    the power sampler, with exactly one flash forward and one backward
+    launch a layer and step and no other kernel; finite losses whose last
+    5 steps' mean is below step 0's. Then the trained params are saved
+    with ``save_checkpoint``, loaded with ``load_checkpoint`` and serve
+    the same greedy tokens as the params in memory; then the launcher
+    trains granite-moe-1b-a400m (reduced) for 5 steps as a subprocess.
+    Returns the launch counts of the training run."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, train
+    from repro_torch.training.checkpoint import load_checkpoint, \
+        save_checkpoint
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, fmt="bfloat16", device="cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN["seq_len"],
+                                  batch_size=TRAIN["batch"]))
+    steps = []
+    last = {"t": None}
+
+    def record(step, metrics):
+        loss, gn = float(metrics["lm_loss"]), float(metrics["grad_norm"])
+        now = time.perf_counter()
+        steps.append({"step": step, "loss": loss, "grad_norm": gn,
+                      "host_ms": 1e3 * (now - last["t"]),
+                      "launches": read_launches(mods)})
+        reset_launches(mods)
+        last["t"] = now
+
+    def run():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        t0 = last["t"] = time.perf_counter()
+        state = train(model, data.batches(), n_steps=TRAIN["steps"],
+                      seed=0, log_every=5, callback=record,
+                      opt_cfg=AdamWConfig(lr=TRAIN["lr"],
+                                          warmup_steps=TRAIN["warmup"]),
+                      torch_device="cuda")
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    (state, wall), watts = sampled_power(run)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [s["loss"] for s in steps]
+    # the first step's host time includes drawing the weights
+    step_ms = [s["host_ms"] for s in steps[1:]]
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    mean_w = sum(watts) / len(watts)
+    line = {"phase": "train", "model": cfg.name, "fmt": "bfloat16",
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": cfg.param_count(), **TRAIN,
+            "loss": losses, "grad_norm": [s["grad_norm"] for s in steps],
+            "host_ms": [s["host_ms"] for s in steps],
+            "wall_s": wall, "ms_per_step": sum(step_ms) / len(step_ms),
+            "tokens_per_s": tokens / (sum(step_ms) / len(step_ms) / 1e3),
+            "peak_mem_gb": peak, "mean_w": mean_w, "power_samples": watts,
+            "j_per_token": mean_w * (sum(step_ms) / 1e3)
+            / (tokens * len(step_ms)),
+            "launches_per_step": steps[-1]["launches"]}
+    emit(line)
+    faults = []
+    want = {"flash_attention": cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers}
+    for s in steps:
+        if {k: v for k, v in s["launches"].items() if v} != want:
+            faults.append(f"step {s['step']} launched {s['launches']}, "
+                          f"not {want}")
+    if not all(math.isfinite(x) for x in losses):
+        faults.append(f"non-finite losses {losses}")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        faults.append(f"the loss did not fall: {losses}")
+    if faults:
+        raise SystemExit("train: " + "; ".join(faults[:5]))
+    counts = {k: sum(s["launches"][k] for s in steps)
+              for k in steps[0]["launches"]}
+
+    # train -> save -> load -> serve
+    params = state.params
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = ROOT / "build" / "train_stablelm.npz"
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), params, step=TRAIN["steps"])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, opt, step = load_checkpoint(str(path), device="cuda")
+    load_s = time.perf_counter() - t0
+    size_gb = path.stat().st_size / 1e9
+    os.remove(path)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (SERVE_PROMPTS, SERVE_PROMPT_LEN),
+                            generator=gen, device="cuda")
+    with torch.no_grad():
+        reset_launches(mods)
+        mine = _greedy(torch, model, params, prompts)
+        served = read_launches(mods)
+        again = _greedy(torch, model, loaded, prompts)
+    line = {"phase": "train_serve", "model": cfg.name,
+            "checkpoint_gb": size_gb, "save_s": save_s, "load_s": load_s,
+            "step": step, "tokens": mine, "tokens_from_checkpoint": again,
+            "launches": served}
+    emit(line)
+    if mine != again or step != TRAIN["steps"] or opt is not None:
+        raise SystemExit(f"train_serve: the reloaded checkpoint served "
+                         f"{again}, the trained params {mine}")
+    if not (served["flash_attention"] == cfg.num_layers
+            and served["paged_attention"] == cfg.num_layers * SERVE_NEW):
+        raise SystemExit(f"train_serve: launches {served}")
+    del params, loaded, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher, as a user runs it
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *LAUNCHER], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
+    launcher_losses = [float(ln.split("loss=")[1].split()[0])
+                       for ln in lines]
+    emit({"phase": "train_launcher", "argv": LAUNCHER,
+          "exit": proc.returncode, "wall_s": time.perf_counter() - t0,
+          "losses": launcher_losses, "stdout_head":
+          proc.stdout.splitlines()[:1]})
+    if (proc.returncode or len(launcher_losses) != 5
+            or not all(math.isfinite(x) for x in launcher_losses)):
+        raise SystemExit(f"the launcher failed:\n{proc.stdout[-2000:]}\n"
+                         f"{proc.stderr[-4000:]}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2383,6 +2839,9 @@ def main() -> int:
     launches.update(arrival_phase(torch, mods))
     launches.update(orchestration_phase(torch, mods))
     launches.update(api_phase(torch, mods))
+    rows[FK.BWD] = bwd_phase(torch, FK)
+    step_checks(torch, mods, FK)
+    launches[("train", TRAIN_ARCH)] = train_phase(torch, mods)
 
     kernels = []
     for name in K.ENTRY_POINTS:
@@ -2431,6 +2890,29 @@ def main() -> int:
             "library_is": "torch.nn.functional.scaled_dot_product_attention"
                           " (enable_gqa) on the same inputs",
         })
+    head = next(r for r in rows[FK.BWD]
+                if all(r[k] == v for k, v in HEADLINE_BWD.items()))
+    kernels.append({
+        "name": FK.BWD, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "none: src/repro/kernels/flash_attention/kernel.py:67 "
+                    "has no backward; the reference differentiates XLA "
+                    "attention (src/repro/models/transformer.py:136-140)",
+        "launches": max(c.get(FK.BWD, 0) for c in launches.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in rows[FK.BWD]),
+        "max_rel_err": max(r["max_rel_err"] for r in rows[FK.BWD]),
+        "shape": HEADLINE_BWD,
+        "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
+        "kernel_fwd_bwd_ms": head["kernel_fwd_bwd_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "bytes": head["bytes"],
+        "cuda_launches_per_call": head["cuda_launches_per_call"],
+        "library_ms": head["library_ms"],
+        "library_is": "torch.nn.functional.scaled_dot_product_attention "
+                      "forward + backward (enable_gqa) on the same inputs; "
+                      "compare kernel_fwd_bwd_ms",
+    })
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

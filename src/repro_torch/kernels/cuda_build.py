@@ -166,6 +166,16 @@ def workspace(device: torch.device, n: int) -> torch.Tensor:
     return have[-1]
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and one of ``tensors`` requires grad: the
+    kernel ``name`` (and its plain version, which stands for it on the CPU)
+    has no backward, and its output would silently carry none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad(), or "
+            f"on inputs that do not require grad")
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """The device address of a tensor, or None (NULL) for None."""
     return None if t is None else t.data_ptr()

@@ -13,7 +13,10 @@
 // sum, the unnormalised p rounded to v's dtype before the PV product, f32
 // sums, and acc / max(l, 1e-20) cast once to q's dtype. Unlike the Pallas
 // kernel it takes any S, T >= 1: keys past T get p = 0 and rows past S
-// are not stored.
+// are not stored. Given an lse pointer (training), each row also stores
+// its logsumexp m + log(l) in f32, (B, H, S), which the backward
+// (flash_attention_bwd.cu) recomputes P from; with a null pointer nothing
+// else changes.
 //
 // Bound on an H100 SXM: by operations. A causal llama-3.1-8b prefill of
 // S = 2048 tokens does 2 * 2 * H * d * S(S+1)/2 = 34 GFLOP per layer over
@@ -97,7 +100,8 @@ struct Smem {
 template <int D, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S,
                  int T_, int H, int Kv, int d_arg, int causal, int window,
                  float scale) {
   const int d = kExact ? D : d_arg;
@@ -243,7 +247,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + i;
     const int qi = q0 + r / G;
-    if (r >= rows || qi >= S || lane * DPL >= d) continue;
+    if (r >= rows || qi >= S) continue;
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * H + kv * G + r % G) * S + qi] = m[i] + logf(l[i]);
+    if (lane * DPL >= d) continue;
     const float denom = fmaxf(l[i], 1e-20f);
     float* o =
         out + ((size_t)(b * S + qi) * H + kv * G + r % G) * d + lane * DPL;
@@ -257,9 +264,10 @@ __global__ void __launch_bounds__(kThreads)
 // CUDA graph capture too, make no attribute call.
 template <typename Kernel, typename T>
 cudaError_t launch_with(Kernel kernel, int threads, int smem, bool& ready,
-                        const T* q, const T* k, const T* v, T* out, int B,
-                        int S, int T_, int H, int Kv, int d, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        const T* q, const T* k, const T* v, T* out,
+                        float* lse, int B, int S, int T_, int H, int Kv,
+                        int d, int causal, int window, float scale,
+                        cudaStream_t stream) {
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -268,8 +276,8 @@ cudaError_t launch_with(Kernel kernel, int threads, int smem, bool& ready,
   }
   const int BQ = kRows / (H / Kv);
   dim3 grid((S + BQ - 1) / BQ, B * Kv);
-  kernel<<<grid, threads, smem, stream>>>(q, k, v, out, S, T_, H, Kv, d,
-                                          causal, window, scale);
+  kernel<<<grid, threads, smem, stream>>>(q, k, v, out, lse, S, T_, H, Kv,
+                                          d, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -277,59 +285,62 @@ cudaError_t launch_with(Kernel kernel, int threads, int smem, bool& ready,
 // the CUDA-core kernel. Both on the D-column instance for head_dim d <= D
 // (kExact: d == D).
 template <typename T, int D, bool kExact>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out, int B, int S,
-                   int T_, int H, int Kv, int d, int causal, int window,
-                   float scale, int bq, cudaStream_t stream) {
+cudaError_t launch(const T* q, const T* k, const T* v, T* out, float* lse,
+                   int B, int S, int T_, int H, int Kv, int d, int causal,
+                   int window, float scale, int bq, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return flash::wg::launch<D, kExact>(q, k, v, out, B, S, T_, H, Kv, d,
-                                        causal, window, scale, bq, stream);
+    return flash::wg::launch<D, kExact>(q, k, v, out, lse, B, S, T_, H, Kv,
+                                        d, causal, window, scale, bq, stream);
   } else {
     static bool ready = false;
     return launch_with(flash_kernel<D, kExact>, kThreads,
-                       (int)sizeof(Smem<D>), ready, q, k, v, out, B, S, T_,
-                       H, Kv, d, causal, window, scale, stream);
+                       (int)sizeof(Smem<D>), ready, q, k, v, out, lse, B, S,
+                       T_, H, Kv, d, causal, window, scale, stream);
   }
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int T_, int H, int Kv, int D, int causal,
-                     int window, float scale, int bq, cudaStream_t s) {
+                     float* lse, int B, int S, int T_, int H, int Kv, int D,
+                     int causal, int window, float scale, int bq,
+                     cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   if (D == 64)
-    return launch<T, 64, true>(qt, kt, vt, ot, B, S, T_, H, Kv, D, causal,
-                               window, scale, bq, s);
+    return launch<T, 64, true>(qt, kt, vt, ot, lse, B, S, T_, H, Kv, D,
+                               causal, window, scale, bq, s);
   if (D == 128)
-    return launch<T, 128, true>(qt, kt, vt, ot, B, S, T_, H, Kv, D, causal,
-                                window, scale, bq, s);
+    return launch<T, 128, true>(qt, kt, vt, ot, lse, B, S, T_, H, Kv, D,
+                                causal, window, scale, bq, s);
   if (D == 96 || D == 120)
-    return launch<T, 128, false>(qt, kt, vt, ot, B, S, T_, H, Kv, D, causal,
-                                 window, scale, bq, s);
+    return launch<T, 128, false>(qt, kt, vt, ot, lse, B, S, T_, H, Kv, D,
+                                 causal, window, scale, bq, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q and out (B, S, H, D), k and v (B, T, Kv, D): contiguous, 16-byte
-// aligned, bf16 when is_bf16 else f32. D is 64, 96, 120 or 128; G = H /
-// Kv is at most 64. window <= 0 means no window. bf16 takes bq query
+// aligned, bf16 when is_bf16 else f32. lse: null, or (B, H, S) f32 for
+// each row's logsumexp. D is 64, 96, 120 or 128; G = H / Kv is at most
+// 64. window <= 0 means no window. bf16 takes bq query
 // positions a block (the host's plan, G * bq <= 128); f32 takes 64 / G.
 // Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape it
 // does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int T, int H, int Kv, int D,
-                                      int causal, int window, float scale,
-                                      int is_bf16, int bq, void* stream) {
+                                      const void* v, void* out, float* lse,
+                                      int B, int S, int T, int H, int Kv,
+                                      int D, int causal, int window,
+                                      float scale, int is_bf16, int bq,
+                                      void* stream) {
   if (Kv <= 0 || H % Kv || H / Kv > kRows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)launch_d<__nv_bfloat16>(q, k, v, out, B, S, T, H, Kv, D,
-                                        causal, window, scale, bq, s);
-  return (int)launch_d<float>(q, k, v, out, B, S, T, H, Kv, D, causal,
+    return (int)launch_d<__nv_bfloat16>(q, k, v, out, lse, B, S, T, H, Kv,
+                                        D, causal, window, scale, bq, s);
+  return (int)launch_d<float>(q, k, v, out, lse, B, S, T, H, Kv, D, causal,
                               window, scale, bq, s);
 }

@@ -5,7 +5,8 @@
 // scores times 1/sqrt(d), masked entries at the finite -1e30, an online
 // softmax over 64-key tiles with f32 running max and sum, the
 // unnormalised p rounded to bf16 before the PV product, f32 sums, and
-// acc / max(l, 1e-20) rounded once to bf16.
+// acc / max(l, 1e-20) rounded once to bf16; with a non-null lse, each
+// row's logsumexp m + log(l) in f32, for the backward.
 //
 // Bound: by operations (4 * d FLOP per visible (query, key) pair and head,
 // on the tensor cores). What the design does about it:
@@ -80,6 +81,7 @@ struct Args {
   CUtensorMap k;    // (d, Kv, T, B), box {64, 1, 64, 1}
   CUtensorMap v;
   __nv_bfloat16* out;
+  float* lse;       // (B, H, S) f32, or null
   int d;            // head_dim: D, or (not kExact) less than D with the
                     // columns past d zero-filled by TMA
   int S, T, H, Kv, G, bq, n_qt, causal, window;
@@ -429,6 +431,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
+    if (a.lse != nullptr && quad == 0)
+      a.lse[((size_t)b * a.H + head[h]) * a.S + qp[h]] = m[h] + logf(l[h]);
     const float denom = fmaxf(l[h], 1e-20f);
     __nv_bfloat16* dst =
         a.out + ((size_t)(b * a.S + qp[h]) * a.H + head[h]) * d + 2 * quad;
@@ -448,9 +452,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // launches, inside a CUDA graph capture too, make no attribute call.
 template <int D, bool kExact>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-                   int T_, int H, int Kv, int d, int causal, int window,
-                   float scale, int bq, cudaStream_t stream) {
+                   const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                   int B, int S, int T_, int H, int Kv, int d, int causal,
+                   int window, float scale, int bq, cudaStream_t stream) {
   using L = Layout<D>;
   const int G = H / Kv;
   if (bq < 1 || G * bq > kRows || d < 1 || d > D || d % 8 ||
@@ -476,6 +480,7 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   a.out = out;
+  a.lse = lse;
   a.d = d;
   a.S = S;
   a.T = T_;

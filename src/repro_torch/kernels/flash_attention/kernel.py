@@ -1,25 +1,33 @@
-"""Flash attention (prefill): a CUDA C++ kernel for Hopper, bound with
-ctypes, and its plain PyTorch version.
+"""Flash attention (prefill and training): CUDA C++ kernels for Hopper,
+bound with ctypes, and their plain PyTorch versions.
 
 Counterpart of ``repro.kernels.flash_attention.kernel`` (the Pallas
-``flash_attention_pallas``). The source is ``csrc/flash_attention.cu``
-(bf16: the TMA + wgmma kernel of ``csrc/flash_wgmma.cuh``; f32: a
-CUDA-core kernel), built at first use by
+``flash_attention_pallas``). The forward's source is
+``csrc/flash_attention.cu`` (bf16: the TMA + wgmma kernel of
+``csrc/flash_wgmma.cuh``; f32: a CUDA-core kernel), built at first use by
 :mod:`repro_torch.kernels.cuda_build`. The bf16 kernel's grid and tensor
 map boxes are planned on the host from the shapes alone
-(:func:`flash_plan`).
+(:func:`flash_plan`). The backward's source is
+``csrc/flash_attention_bwd.cu``; the Pallas kernel has none (the
+reference trains through XLA's attention).
 
 :func:`flash_attention` takes q (B, S, H, d) and k, v (B, T, Kv, d) with
 H a multiple of Kv, a causal flag and an optional sliding window, at any
-S, T >= 1. For a tensor on the CPU it returns :func:`flash_attention_plain`.
-For a CUDA tensor it checks device, dtype (f32 or bf16, one for all
-three), shape, contiguity and alignment (:func:`check_inputs`), raises on
-anything the kernel does not take (head_dim outside ``HEAD_DIMS``, more
-than 64 query heads per KV head), allocates the output, launches on the
-current stream, raises if the launch reports an error, and adds one to
-``LAUNCHES["flash_attention"]``. Head dims 96 and 120 run on the
-128-column instance with the columns past d zero-filled. Nothing falls
-back from the kernel to the plain version.
+S, T >= 1. When grad mode is on and an input requires grad it runs as
+one ``torch.autograd.Function`` (:class:`FlashAttention`): the forward
+also keeps each row's logsumexp, and the backward computes dQ, dK and dV
+from it. Otherwise it is the forward alone. For tensors on the CPU the
+forward is :func:`flash_attention_plain` and the backward
+:func:`flash_attention_backward_plain`. For CUDA tensors each checks
+device, dtype (f32 or bf16, one for all), shape, contiguity and
+alignment (:func:`check_inputs`), raises on anything the kernels do not
+take (head_dim outside ``HEAD_DIMS``, more than 64 query heads per KV
+head), allocates its outputs, launches on the current stream, raises if
+the launch reports an error, and adds one to
+``LAUNCHES["flash_attention"]`` or ``LAUNCHES["flash_attention_bwd"]``.
+Head dims 96 and 120 run on the 128-column instances with the columns
+past d zero-filled. Nothing falls back from a kernel to its plain
+version.
 """
 from __future__ import annotations
 
@@ -33,14 +41,22 @@ from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import F, I, P, check
 
 NAME = "flash_attention"
+BWD = "flash_attention_bwd"
 CSRC = Path(__file__).resolve().parent / "csrc"
-# q, k, v, out, B, S, T, H, Kv, D, causal, window, scale, is_bf16, bq
-SOURCES = {NAME: cuda_build.Source(
-    NAME, CSRC, (P, P, P, P, I, I, I, I, I, I, I, I, F, I, I),
-    ("flash_wgmma.cuh", cuda_build.HOPPER_HEADER))}
+SOURCES = {
+    # q, k, v, out, lse, B, S, T, H, Kv, D, causal, window, scale, is_bf16,
+    # bq
+    NAME: cuda_build.Source(
+        NAME, CSRC, (P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I),
+        ("flash_wgmma.cuh", cuda_build.HOPPER_HEADER)),
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T, H, Kv, D,
+    # causal, window, scale, is_bf16
+    BWD: cuda_build.Source(
+        BWD, CSRC, (P,) * 10 + (I,) * 8 + (F, I)),
+}
 
-#: launches of the CUDA kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {NAME: 0}
+#: launches of each CUDA kernel since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {NAME: 0, BWD: 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 120, 128)
@@ -53,7 +69,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    LAUNCHES[NAME] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +146,8 @@ def _key_range(q0: int, q1: int, T: int, causal: bool,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
-                          tile: int = PLAIN_TILE) -> torch.Tensor:
+                          tile: int = PLAIN_TILE,
+                          return_lse: bool = False):
     """The kernel's arithmetic in PyTorch: an online softmax over
     (tile x tile) blocks, ragged tails included. f32 scores times
     1/sqrt(d); masked entries -1e30; f32 running max and sum; the
@@ -137,7 +155,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc / max(l, 1e-20) cast once to q's dtype. Key blocks that no query
     of the block may see are skipped, which changes nothing: every query
     sees its own position, and the first real score wipes what a wholly
-    masked block added (corr = exp(-1e30 - m) = 0)."""
+    masked block added (corr = exp(-1e30 - m) = 0). With ``return_lse``,
+    (out, lse): each row's logsumexp m + log(l) in f32, (B, H, S), as the
+    kernel stores it for the backward."""
     B, S, H, d = q.shape
     T, Kv = k.shape[1], k.shape[2]
     G = H // Kv
@@ -146,6 +166,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kt = k.permute(0, 2, 1, 3).float()[:, :, None]        # (B,Kv,1,T,d)
     vt = v.permute(0, 2, 1, 3)[:, :, None]
     out = torch.empty((B, Kv, G, S, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Kv, G, S), dtype=torch.float32, device=q.device)
     for q0 in range(0, S, tile):
         q1 = min(S, q0 + tile)
         qc = qg[:, :, :, q0:q1]
@@ -175,7 +196,61 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 p.to(v.dtype).float(), vt[..., k0:k1, :].float())
             m = m_new
         out[:, :, :, q0:q1] = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+        lse[:, :, :, q0:q1] = m + torch.log(l)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+    return (out, lse.reshape(B, H, S)) if return_lse else out
+
+
+def visible(S: int, T: int, causal: bool, window: Optional[int],
+            device) -> torch.Tensor:
+    """(S, T) boolean: key j visible to query i (both counted from 0)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    allow = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        allow &= kpos <= qpos
+    if window is not None:
+        allow &= kpos > qpos - window
+    return allow
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None):
+    """The backward kernel's arithmetic in PyTorch: (dq, dk, dv) of the
+    forward's function from its output ``o`` and logsumexp ``lse``
+    (B, H, S) f32, for the output gradient ``do``. Every operand widened
+    to f32; D = rowsum(do * o); P = exp(q k^T / sqrt(d) - lse), 0 where
+    masked; dV = P^T dO; dS = P * (dO v^T - D); dQ = dS k / sqrt(d);
+    dK = dS^T q / sqrt(d), dK and dV summed over each KV head's G query
+    heads; each cast once to its input's dtype."""
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = 1.0 / d ** 0.5
+
+    def heads(t):                      # (B, S, H, d) -> (B, Kv, G, S, d)
+        return t.reshape(B, S, Kv, G, d).permute(0, 2, 3, 1, 4).float()
+
+    qg, og, dog = heads(q), heads(o), heads(do)
+    kt = k.permute(0, 2, 1, 3).float()[:, :, None]        # (B,Kv,1,T,d)
+    vt = v.permute(0, 2, 1, 3).float()[:, :, None]
+    delta = (dog * og).sum(dim=-1)                        # (B,Kv,G,S)
+    s = torch.matmul(qg, kt.transpose(-1, -2)) * scale
+    allow = visible(S, T, causal, window, q.device)
+    p = torch.where(allow, torch.exp(s - lse.reshape(B, Kv, G, S)[..., None]),
+                    torch.zeros((), device=q.device))
+    del s
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(dim=2)
+    ds = p * (torch.matmul(dog, vt.transpose(-1, -2)) - delta[..., None])
+    del p
+    dq = torch.matmul(ds, kt) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2) * scale
+    return (dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+            dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -204,24 +279,94 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("no keys to attend to (T = 0)")
 
 
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            with_lse: bool = False):
+    """(out, each row's logsumexp (B, H, S) f32 with ``with_lse``, else
+    None): the plain version on the CPU, the kernel on the card."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     window=window), None
+    check_inputs(q, k, v)
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if B and S:
+        cuda_build.launch(
+            SOURCES[NAME], LAUNCHES, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), cuda_build.ptr(lse), B, S, T, H,
+            Kv, d, int(causal), window or 0, 1.0 / d ** 0.5,
+            int(q.dtype == torch.bfloat16), flash_plan(B, S, H, Kv, d).bq)
+    return out, lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
+    output ``o``, logsumexp ``lse`` (B, H, S) f32 and the output gradient
+    ``do``: :func:`flash_attention_backward_plain` on the CPU, the
+    backward kernel on the card (counted in ``LAUNCHES[BWD]``)."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, lse, do,
+                                              causal=causal, window=window)
+    check_inputs(q, k, v)
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    check("o", o, q.dtype, (B, S, H, d), q.device)
+    check("do", do, q.dtype, (B, S, H, d), q.device)
+    check("lse", lse, torch.float32, (B, H, S), q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B:
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        cuda_build.launch(
+            SOURCES[BWD], LAUNCHES, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, H, Kv, d,
+            int(causal), window or 0, 1.0 / d ** 0.5,
+            int(q.dtype == torch.bfloat16))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward keeps the output and
+    each row's logsumexp, the backward recomputes the probabilities from
+    them (:func:`flash_attention_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do.to(q.dtype).contiguous(),
+            causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, S, H, d), k/v (B, T, Kv, d) -> (B, S, H, d) in q's dtype."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
-    check_inputs(q, k, v)
-    B, S, H, d = q.shape
-    T, Kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if B and S:
-        cuda_build.launch(
-            SOURCES[NAME], LAUNCHES, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, S, T, H, Kv, d, int(causal),
-            window or 0, 1.0 / d ** 0.5, int(q.dtype == torch.bfloat16),
-            flash_plan(B, S, H, Kv, d).bq)
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_forward(q, k, v, causal=causal,
+                                   window=window)[0]

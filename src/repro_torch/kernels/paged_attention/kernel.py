@@ -19,6 +19,9 @@ the current stream, raises if the launch reports an error, and adds one
 to ``LAUNCHES["paged_attention"]``. Head dims 96 and 120 run on the
 128-column instance (:func:`instance_d`) with the columns past d
 zero-filled. Nothing falls back from the kernel to the plain version.
+The kernel has no backward: on either device, an input that requires grad
+while grad mode is on raises (:func:`~repro_torch.kernels.cuda_build.
+refuse_grad`).
 """
 from __future__ import annotations
 
@@ -200,6 +203,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     seq_lens: torch.Tensor) -> torch.Tensor:
     """q (B, H, d) over the pool (n_pages, page, Kv, d) -> (B, H, d) in
     q's dtype."""
+    cuda_build.refuse_grad(NAME, q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      seq_lens)

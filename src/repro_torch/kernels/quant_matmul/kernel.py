@@ -19,7 +19,10 @@ not take, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to
 its own count in :data:`LAUNCHES` and to the count of the loop it ran in
 :data:`LOOP_LAUNCHES`. Nothing falls back from the kernel to the plain
-version, and a grouped call is never a loop of 2-D calls.
+version, and a grouped call is never a loop of 2-D calls. The kernels
+have no backward (the reference cannot train quantized weights either):
+on either device, an input that requires grad while grad mode is on
+raises (:func:`~repro_torch.kernels.cuda_build.refuse_grad`).
 
 The loop is planned on the host from the shapes alone
 (:func:`matmul_plan`, cached per shape and device). In bf16 both loops
@@ -365,6 +368,7 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x (M, K) @ dequant(codes int8 (K, N), scale f32 (N,)) -> (M, N)
     in the compute dtype."""
+    cuda_build.refuse_grad("int8_matmul", x, codes, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, codes, scale, compute_dtype)
     _check_x(x, compute_dtype)
@@ -376,6 +380,7 @@ def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x (M, K) @ dequant(packed uint8 (K/2, N), absmax f32 (K/block, N))
     -> (M, N) in the compute dtype."""
+    cuda_build.refuse_grad("nf4_matmul", x, packed, absmax)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, packed, absmax, compute_dtype)
     _check_x(x, compute_dtype)
@@ -388,6 +393,7 @@ def int8_matmul_grouped(x: torch.Tensor, codes: torch.Tensor,
                         compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x (E, C, K) @ dequant(codes int8 (E, K, N), scale f32 (E, N)) ->
     (E, C, N) in the compute dtype: every expert in one launch."""
+    cuda_build.refuse_grad("int8_matmul_grouped", x, codes, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, codes, scale, compute_dtype)
     _check_x(x, compute_dtype, ndim=3)
@@ -401,6 +407,7 @@ def nf4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
     """x (E, C, K) @ dequant(packed uint8 (E, K/2, N), absmax f32
     (E, K/block, N)) -> (E, C, N) in the compute dtype: every expert in
     one launch."""
+    cuda_build.refuse_grad("nf4_matmul_grouped", x, packed, absmax)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, packed, absmax, compute_dtype)
     _check_x(x, compute_dtype, ndim=3)

@@ -25,7 +25,7 @@ weights, no device): the paper's request distribution
         --pattern fixed --interval-ms 50 --n 500
 
 Without ``--full`` the config is the reduced variant, as in the JAX
-launcher. ``--dry`` waits for ROADMAP A7.
+launcher. ``--dry`` waits for ROADMAP A3 (launch and analysis).
 """
 from __future__ import annotations
 

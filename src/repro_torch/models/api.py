@@ -5,6 +5,8 @@ precision policy, device) and exposes
 
 * ``init(generator, quantize=False)``      -> params tree
 * ``quantize(params)``                     -> params with int8/nf4 leaves
+* ``forward_train(params, batch, remat=False)`` -> (hidden, aux) over the
+                                              full sequence (training)
 * ``prefill(params, batch, buf_len, lengths, with_aux=False)``
                                            -> (last logits, cache[, aux])
 * ``decode_step(params, tokens, cache)``   -> (logits, cache)
@@ -161,6 +163,45 @@ class Model:
         return torch.stack(ks), torch.stack(vs)
 
     # ------------------------------------------------------------------
+    def forward_train(self, params, batch: Dict[str, torch.Tensor],
+                      remat: bool = False):
+        """Returns (hidden (B, S_total, D) after the final norm, aux): the
+        stacks prefill runs, over every position, with no cache kept. aux
+        is the layer-mean MoE router metrics for the decoder families
+        (zeros without experts) and empty for ssm and hybrid, as in the
+        reference. ``remat`` recomputes each decoder layer in the
+        backward (the reference's ``jax.checkpoint``; the SSM and hybrid
+        stacks take no remat there either)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if cfg.family in ("dense", "moe", "vlm"):
+            x = self._embed_inputs(params, batch)
+            h, _, aux = tfm.decoder_forward_seq(
+                params["layers"], x, cfg, self.policy, causal=True,
+                window=self.window, remat=remat)
+        elif cfg.family == "audio":
+            enc_kv = self._cross_kv(
+                params, self._encode_audio(params, batch["frames"]))
+            x = embed(tokens, params["embed"], self.adt)
+            h, _, aux = tfm.decoder_forward_seq(
+                params["layers"], x, cfg, self.policy, causal=True,
+                window=self.window, enc_kv=enc_kv, remat=remat)
+        elif cfg.family in ("ssm", "hybrid"):
+            x = embed(tokens, params["embed"], self.adt)
+            B, S = tokens.shape
+            lengths = torch.full((B,), S, dtype=torch.int32,
+                                 device=tokens.device)
+            if cfg.family == "ssm":
+                h, _ = ssm_mod.forward_seq(params["layers"], x, cfg,
+                                           self.policy, lengths)
+            else:
+                h, _ = hybrid_mod.forward_seq(params, x, cfg, self.policy,
+                                              S, lengths)
+            aux = {}
+        else:
+            raise ValueError(cfg.family)
+        return rms_norm(h, params["final_norm"]), aux
+
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return linear_apply(params["lm_head"], hidden, self.policy).float()
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
@@ -73,23 +74,28 @@ def forward_seq(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     period = cfg.attn_period
     buf = max(buf_len, S)
-    kv_shape = (n_attn_sites(cfg), B, buf, cfg.num_kv_heads, cfg.head_dim)
-    kbuf = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
-    vbuf = torch.zeros_like(kbuf)
+    ks, vs = [], []
 
     def site(i, x):
         if (i + 1) % period:
             return x
         x, k, v = _shared_attn_seq(params["shared"], x, cfg, policy)
-        kbuf[i // period, :, :S] = k
-        vbuf[i // period, :, :S] = v
+        ks.append(k)
+        vs.append(v)
         return x
 
     x, cache = ssm_mod.forward_seq(params["layers"], x, cfg, policy,
                                    lengths, after_layer=site)
+
+    def ring(kv):            # the sites' K or V, padded to the ring
+        if not kv:
+            return torch.zeros((0, B, buf, cfg.num_kv_heads, cfg.head_dim),
+                               dtype=x.dtype, device=x.device)
+        return F.pad(torch.stack(kv), (0, 0, 0, 0, 0, buf - S))
+
     idx = torch.arange(buf, device=x.device)[None, :]
     cache.update(
-        shared_k=kbuf, shared_v=vbuf,
+        shared_k=ring(ks), shared_v=ring(vs),
         slot_pos=torch.where(idx < lengths[:, None], idx,
                              torch.full_like(idx, -1)).to(torch.int32))
     return x, cache

@@ -101,8 +101,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (b, nh, hd, ds) incoming state. Returns (y (b, S, nh, hd) in x's
     dtype, final state f32). A sequence that SSD_CHUNK does not divide
     is one chunk of S, as in the reference. The decay exp(l_i - l_j) is
-    infinite above the diagonal of a long chunk; it is dropped by a
-    select, never multiplied by a 0/1 mask (inf * 0 would be NaN)."""
+    infinite above the diagonal of a long chunk: the exponent is set to
+    0 there before the exp and the product dropped by a select after it,
+    never multiplied by a 0/1 mask (inf * 0 would be NaN). The select
+    before the exp keeps the gradient finite: the reference exponentiates
+    the raw differences, and its gradient through the dropped entries is
+    0 * inf = NaN (ROADMAP C11); the kept entries, and so the forward,
+    are the same bit for bit."""
     b, S, nh, hd = x.shape
     ng, ds = B.shape[2], B.shape[3]
     chunk = S if S % SSD_CHUNK else SSD_CHUNK
@@ -122,11 +127,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CB = torch.einsum("bnigs,bnjgs->bngij", Cc.float(), Bc.float())
     CB = CB.repeat_interleave(rep, dim=2)              # (b,nc,nh,L,L)
     lt = l.permute(0, 1, 3, 2)                         # (b,nc,nh,L)
-    decay = torch.exp(lt[..., :, None] - lt[..., None, :])
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=x.device))
-    att = torch.where(causal[None, None, None], CB * decay,
-                      torch.zeros((), dtype=torch.float32, device=x.device))
+                                   device=x.device))[None, None, None]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    decay = torch.exp(torch.where(causal, lt[..., :, None]
+                                  - lt[..., None, :], zero))
+    att = torch.where(causal, CB * decay, zero)
     xdt = xc.float() * dtc[..., None]                  # (b,nc,L,nh,hd)
     y_intra = torch.einsum("bngij,bnjgh->bnigh", att, xdt)
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
@@ -224,7 +225,8 @@ def decoder_forward_seq(layers: List[Dict[str, Any]], x: torch.Tensor,
                         window: Optional[int] = None,
                         collect_kv: bool = False,
                         enc_kv: Optional[Tuple[torch.Tensor,
-                                               torch.Tensor]] = None):
+                                               torch.Tensor]] = None,
+                        remat: bool = False):
     """Run the decoder stack over a full sequence.
 
     Returns (hidden, (k, v) stacked as (L, B, S, Kv, hd) or None, aux):
@@ -232,17 +234,29 @@ def decoder_forward_seq(layers: List[Dict[str, Any]], x: torch.Tensor,
     stack), summed layer by layer and divided once, as the reference's
     scan does. ``enc_kv``: the encoder K/V of every layer, each
     (L, B, T_enc, Kv, hd), for a cross-attention after each layer's
-    self-attention."""
+    self-attention. ``remat``: each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), the reference's
+    ``jax.checkpoint``: its activations are recomputed in the backward
+    instead of kept."""
     ks, vs = [], []
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in MOE_AUX}
-    for i, lp in enumerate(layers):
+
+    def layer(x, i, lp):
         x, k, v = attn_block_seq(lp, x, cfg, policy, causal=causal,
                                  window=window)
         if enc_kv is not None:
             x = cross_attn_block(lp, x, enc_kv[0][i], enc_kv[1][i], cfg,
                                  policy)
         x, a = ffn_block(lp, x, cfg, policy)
+        return x, k, v, a
+
+    for i, lp in enumerate(layers):
+        if remat:
+            x, k, v, a = torch.utils.checkpoint.checkpoint(
+                layer, x, i, lp, use_reentrant=False)
+        else:
+            x, k, v, a = layer(x, i, lp)
         if cfg.is_moe:
             aux = {key: aux[key] + a[key] for key in aux}
         if collect_kv:

@@ -1,6 +1,8 @@
 """Weights carried across from the JAX package.
 
-Counterpart of ``repro.training.checkpoint`` on the reading side. The
+Counterpart of ``repro.training.checkpoint`` on the reading side (the
+port's own ``repro_torch.training.checkpoint`` reads through :func:`nest`
+and :func:`unstack_layers` too). The
 reference's ``save_checkpoint`` writes an npz whose keys are the
 parameter paths joined with ``//``; quantized leaves add a
 ``@Int8Weight.<field>`` / ``@NF4Weight.<field>`` component, and bf16
@@ -31,10 +33,10 @@ def _tensor(key: str, arr: np.ndarray, device) -> torch.Tensor:
     if key.endswith(_BF16_TAG):
         # torch.from_numpy refuses ml_dtypes' bfloat16: go through the
         # 16-bit integer view the checkpoint stores
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+        t = torch.from_numpy(np.asarray(arr, order="C").view(np.int16)) \
             .view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.asarray(arr, order="C"))
     return t.to(device)
 
 
@@ -64,32 +66,47 @@ def _unstack(node: Any, n: int) -> list:
     return [node[i].contiguous() for i in range(n)]
 
 
+def nest(flat: Mapping[str, np.ndarray], device="cuda") -> Dict[str, Any]:
+    """The tree of a checkpoint's flattened entries (``//``-joined keys,
+    bf16 under ``@bf16``, quantized leaves tagged), as tensors on
+    ``device``, layers still stacked; ``__step__`` is skipped."""
+    tree: Dict[str, Any] = {}
+    for key, arr in flat.items():
+        if key == "__step__":
+            continue
+        path = key[:-len(_BF16_TAG)] if key.endswith(_BF16_TAG) else key
+        parts = path.split(_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _tensor(key, arr, device)
+    return _rebuild(tree)
+
+
+def unstack_layers(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``tree`` (params, or an optimizer moment mirroring them) with its
+    stacked layer trees (``layers``, ``enc_layers``) split into lists of
+    per-layer trees."""
+    tree = dict(tree)
+    for key in _STACKS:
+        if key in tree:
+            first = tree[key]
+            while isinstance(first, dict):
+                first = next(iter(first.values()))
+            n = (first[0] if isinstance(first, tuple) else first).shape[0]
+            tree[key] = _unstack(tree[key], n)
+    return tree
+
+
 def params_from_numpy(flat: Mapping[str, np.ndarray],
                       device="cuda") -> Dict[str, Any]:
     """The port's params tree from the reference's flattened params
     (``save_checkpoint``'s keys; a leading ``params//`` is optional and
     other top-level entries, such as optimizer state, are skipped)."""
-    tree: Dict[str, Any] = {}
-    for key, arr in flat.items():
-        path = key[:-len(_BF16_TAG)] if key.endswith(_BF16_TAG) else key
-        parts = path.split(_SEP)
-        if parts[0] == "params":
-            parts = parts[1:]
-        elif parts[0] in ("opt", "__step__"):
-            continue
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = _tensor(key, arr, device)
-    params = _rebuild(tree)
-    for key in _STACKS:
-        if key in params:
-            first = params[key]
-            while isinstance(first, dict):
-                first = next(iter(first.values()))
-            n = (first[0] if isinstance(first, tuple) else first).shape[0]
-            params[key] = _unstack(params[key], n)
-    return params
+    flat = {(k[len("params") + len(_SEP):] if k.startswith("params" + _SEP)
+             else k): v for k, v in flat.items()
+            if k.split(_SEP)[0] not in ("opt", "__step__")}
+    return unstack_layers(nest(flat, device))
 
 
 def load_jax_checkpoint(path: str, device="cuda") -> Dict[str, Any]:

@@ -11,6 +11,8 @@ REF_DIR = ROOT / "examples"
 EXAMPLES = sorted(p.stem for p in PORT_DIR.glob("*.py"))
 #: the examples that run a model; they take ``--device``
 MODEL_EXAMPLES = ("quickstart", "quantization_study", "serve_batched")
+#: the training example, which takes ``--device`` too
+TRAIN_EXAMPLE = "train_small"
 
 
 def _load(path: pathlib.Path, tag: str):

@@ -2,6 +2,7 @@
 package: moving arrays across as numpy, carrying a JAX model's weights
 into the port through the reference's npz checkpoint, and compiling the
 reference's int8 MoE, SSM and hybrid models on the CPU."""
+import contextlib
 import os
 
 import jax
@@ -80,3 +81,52 @@ def host_int8_matmul(monkeypatch):
         return jax.pure_callback(lambda x_, w_: host(x_, w_, cd), out, x, w)
 
     monkeypatch.setattr(jax_apply, "int8_matmul", called_back)
+
+
+@jax.custom_jvp
+def _exp_finite_grad(x):
+    return jnp.exp(x)
+
+
+@_exp_finite_grad.defjvp
+def _exp_finite_grad_jvp(primals, tangents):
+    (x,), (t,) = primals, tangents
+    y = jnp.exp(x)
+    return y, jnp.where(jnp.isinf(y), 0.0, y) * t
+
+
+class _JnpFiniteExpGrad:
+    """``jax.numpy`` with an ``exp`` whose derivative is 0 where its value
+    is infinite: the same forward, bit for bit."""
+
+    exp = staticmethod(_exp_finite_grad)
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def finite_ssd_grad(monkeypatch):
+    """Give the reference's SSD scan (``repro.models.ssm``) a finite
+    gradient. Its intra-chunk decay exponentiates l_i - l_j over the whole
+    chunk, infinite above the diagonal, and drops those entries with a
+    select after the exp: the forward is right, but the gradient through
+    the dropped entries is 0 * inf = NaN in every SSM and hybrid param
+    (ROADMAP C11). The port sets the exponent to 0 there before the exp;
+    here the reference's ``exp`` gets a derivative of 0 where its value is
+    infinite, which leaves its forward as it is and its gradient the
+    exact one."""
+    from repro.models import ssm as jax_ssm
+    monkeypatch.setattr(jax_ssm, "jnp", _JnpFiniteExpGrad())
+
+
+@contextlib.contextmanager
+def two_threads():
+    """Two intra-op threads for torch inside the block: the suite's
+    workers share the host's cores, and eager ops on small tensors stall
+    when each worker asks for all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

@@ -893,3 +893,68 @@ def test_cuda_hybrid_decode_matches_masked_attention():
         assert torch.equal(got.argmax(-1), ref.argmax(-1))
         assert _rel(got, ref) < 2e-5
         tok = ref.argmax(-1)[:, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,Kv,d,causal,window", [
+    (1, 70, 70, 4, 2, 64, True, None), (2, 33, 33, 8, 2, 64, True, None),
+    (2, 20, 33, 4, 4, 64, False, None), (1, 40, 70, 4, 2, 96, True, None),
+    (1, 70, 40, 4, 1, 120, True, None), (1, 131, 131, 2, 1, 120, True, 64),
+    (1, 200, 200, 4, 2, 128, True, None), (1, 2, 2, 2, 2, 64, True, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_matches_plain(B, S, T, H, Kv, d, causal, window,
+                                           dtype):
+    """On the card: the backward kernel, through the autograd Function,
+    against ``flash_attention_backward_plain`` on the forward kernel's
+    output and logsumexp, at ragged S and T (S != T both ways), G = 1, 2
+    and 4, head dims 64, 96, 120 and 128, windowed and unmasked: dq, dk
+    and dv each within 1e-5 (f32: the same f32 sums in other orders) or
+    1e-2 (bf16: each output rounded once) of its max |plain|; the forward
+    with the logsumexp kept gives the output it gives without; the kernel
+    is counted once a backward. ((2, 2) is the smallest shape whose dq and
+    dk are not all zero: over a single key the softmax is constant, so
+    they are 0 and the kernel and the plain version each return its
+    rounding noise.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    td = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(S + T + d)
+    q, do = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(td)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Kv, d), generator=gen, device="cuda").to(td)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(FK.LAUNCHES)
+    out = FK.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES[FK.NAME] == before[FK.NAME] + 1
+    assert FK.LAUNCHES[FK.BWD] == before[FK.BWD] + 1
+    assert torch.equal(out.detach(), FK.flash_attention(q, k, v, **kw))
+    _, lse = FK.flash_attention_forward(q, k, v, with_lse=True, **kw)
+    ref = FK.flash_attention_backward_plain(q, k, v, out.detach(), lse, do,
+                                            **kw)
+    for got, want in zip(grads, ref):
+        assert got.dtype == td and torch.isfinite(got.float()).all()
+        assert _rel(got, want) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_flash_backward_is_deterministic():
+    """No atomics: two backward calls on the same inputs agree bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, do = (torch.randn((2, 300, 8, 64), generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((2, 300, 2, 64), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out, lse = FK.flash_attention_forward(q, k, v, with_lse=True)
+    a = FK.flash_attention_backward(q, k, v, out, lse, do)
+    b = FK.flash_attention_backward(q, k, v, out, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

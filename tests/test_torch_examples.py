@@ -16,14 +16,19 @@ import pytest
 pytest.importorskip("torch")
 
 from _torch_examples import (EXAMPLES, MODEL_EXAMPLES, PORT_DIR,  # noqa: E402
-                             REF_DIR, run_example)
+                             REF_DIR, TRAIN_EXAMPLE, run_example)
+from _torch_parity import two_threads  # noqa: E402
 
-ANALYTIC = [s for s in EXAMPLES if s not in MODEL_EXAMPLES]
+ANALYTIC = [s for s in EXAMPLES
+            if s not in MODEL_EXAMPLES and s != TRAIN_EXAMPLE]
+# the training example shrunk to a few steps on the CPU
+TRAIN_ARGV = ["--device", "cpu", "--steps", "3"]
 
 
 def test_every_reference_example_but_training_is_ported():
-    want = sorted(p.stem for p in REF_DIR.glob("*.py")
-                  if p.stem != "train_small")    # training: ROADMAP A2
+    """Every reference example has its port, training's too (since
+    ROADMAP A2)."""
+    want = sorted(p.stem for p in REF_DIR.glob("*.py"))
     assert EXAMPLES == want
 
 
@@ -31,8 +36,9 @@ def test_every_reference_example_but_training_is_ported():
 def test_example_main_runs_warning_free(stem, tmp_path, monkeypatch,
                                         capsys):
     monkeypatch.chdir(tmp_path)
-    argv = ["--device", "cpu"] if stem in MODEL_EXAMPLES else []
-    with warnings.catch_warnings():
+    argv = (["--device", "cpu"] if stem in MODEL_EXAMPLES
+            else TRAIN_ARGV if stem == TRAIN_EXAMPLE else [])
+    with warnings.catch_warnings(), two_threads():
         warnings.simplefilter("error")
         out = run_example(PORT_DIR, stem, "torch", argv, monkeypatch,
                           capsys)
@@ -49,3 +55,23 @@ def test_analytic_example_prints_the_reference_output(stem, tmp_path,
         got, want = (re.sub(r"\[spec [0-9a-f]{12}\]", "[spec]", out)
                      for out in (got, want))
     assert got == want
+
+
+def test_train_example_saves_a_reference_checkpoint(tmp_path, monkeypatch,
+                                                    capsys):
+    """The training example at 3 steps on the CPU logs the reference's
+    lines (steps 0 and 2) and saves a checkpoint that the reference's
+    ``load_checkpoint`` reads: params, AdamW moments and the step."""
+    from repro.training.checkpoint import load_checkpoint
+    monkeypatch.chdir(tmp_path)
+    with two_threads():
+        out = run_example(PORT_DIR, TRAIN_EXAMPLE, "torch",
+                          TRAIN_ARGV + ["--out", "ck.npz"], monkeypatch,
+                          capsys)
+    steps = [ln.split()[1] for ln in out.splitlines()
+             if ln.startswith("step ")]
+    assert steps == ["0", "2"]
+    assert "checkpoint saved to ck.npz" in out
+    params, opt, step = load_checkpoint(str(tmp_path / "ck.npz"))
+    assert step == 3 and int(opt["step"]) == 3
+    assert sorted(opt["m"]) == sorted(params)

@@ -152,7 +152,9 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 20, 4, 2, 16))
     assert torch.equal(K.flash_attention(q, k, v, window=7),
                        K.flash_attention_plain(q, k, v, window=7))
-    assert K.LAUNCHES == {"flash_attention": 0}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    K.flash_attention(*leaves, window=7).sum().backward()
+    assert K.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():

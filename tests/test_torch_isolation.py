@@ -42,7 +42,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.weights, repro_torch.fleet.engine; "
+            "repro_torch.launch.train, repro_torch.training, "
+            "repro_torch.training.checkpoint, repro_torch.weights, "
+            "repro_torch.fleet.engine; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
