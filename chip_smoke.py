@@ -180,15 +180,17 @@ non-zero exit code:
    ``_ApiWindows``). Prints an api line a run: host wall, the weights'
    draw, peak memory and the analytic J/request (energies analytic).
 12. train: the flash backward kernel
-   (``flash_attention_bwd.cu``) against
+   (``flash_attention_bwd.cu``; bf16 on the TMA + wgmma passes of
+   ``flash_bwd_wgmma.cuh``) against
    ``flash_attention_backward_plain`` on the forward kernel's own output
    and logsumexp (``BWD_CELLS``: stablelm-1.6b's (4, 1024) at 32/32/64,
    granite-moe-1b-a400m's 16/8/64 at (4, 1024), h2o-danube-3-4b's
    32/8/120 at (2, 1024) plain and with a window of 256, and an unmasked
    (2, 256) over 64 keys; bf16 and f32), each of dq, dk, dv within
    ``BWD_REL_TOL``, the forward's output with the logsumexp kept equal
-   to its output without, with the kernel, forward + backward, plain and
-   SDPA forward + backward times and the bound (five products); one
+   to its output without, three CUDA kernels a call, with the kernel,
+   forward + backward, plain, SDPA forward + backward and SDPA backward
+   alone times and the bound (five products); one
    train step of stablelm-1.6b cut to 2 layers at full width, B = 4,
    S = 1024, through the kernels against the same step with attention
    through the plain versions (bf16 and f32, each grad leaf within
@@ -2422,9 +2424,11 @@ def bwd_phase(torch, FK) -> list:
     logsumexp: each of dq, dk, dv within BWD_REL_TOL; also SDPA's
     gradients against the plain version (reported, not gated). Times:
     the backward kernel alone, forward + backward through the autograd
-    Function, the plain backward, and SDPA forward + backward (the
-    library), eager; the bound is the larger of five products' FLOPs at
-    the dtype's peak and the bytes at HBM bandwidth."""
+    Function, the plain backward, SDPA forward + backward (the library),
+    and SDPA's backward alone (``torch.autograd.grad`` on a forward graph
+    kept with ``retain_graph``), eager; the bound is the larger of five
+    products' FLOPs at the dtype's peak and the bytes at HBM
+    bandwidth."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -2454,7 +2458,7 @@ def bwd_phase(torch, FK) -> list:
                           for t in (q, k, v))
             lout = sdpa(lq, lk, lv, enable_gqa=True, **mask)
             lib = torch.autograd.grad(lout, (lq, lk, lv),
-                                      do.transpose(1, 2))
+                                      do.transpose(1, 2), retain_graph=True)
             lib = [t.transpose(1, 2) for t in lib]
             torch.cuda.synchronize()
             rel = [((a.float() - b.float()).abs().max()
@@ -2465,7 +2469,7 @@ def bwd_phase(torch, FK) -> list:
                        for a, b in zip(lib, ref)]
             max_abs = max((a.float() - b.float()).abs().max().item()
                           for a, b in zip(got, ref))
-            del got, ref, lib, lout
+            del got, ref, lib
             qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
 
             def fwd_bwd(q_, k_, v_, do_):
@@ -2475,6 +2479,10 @@ def bwd_phase(torch, FK) -> list:
             def lib_fwd_bwd(q_, k_, v_, do_):
                 o = sdpa(q_, k_, v_, enable_gqa=True, **mask)
                 return torch.autograd.grad(o, (q_, k_, v_), do_)
+
+            def lib_bwd(do_):
+                return torch.autograd.grad(lout, (lq, lk, lv), do_,
+                                           retain_graph=True)
 
             times = (
                 timed_ms(torch, lambda *a: FK.flash_attention_backward(
@@ -2487,7 +2495,10 @@ def bwd_phase(torch, FK) -> list:
                     graph=False),
                 timed_ms(torch, lib_fwd_bwd, [(lq, lk, lv,
                                                do.transpose(1, 2))],
-                         reps=3, graph=False))
+                         reps=3, graph=False),
+                timed_ms(torch, lib_bwd, [(do.transpose(1, 2),)], reps=3,
+                         graph=False))
+            del lout
             nbytes = _bwd_bytes(B, S, T, H, Kv, d, es)
             bound, by = _bound(nbytes, 5 * 2 * d * pairs * B * H, dtype)
             tol = BWD_REL_TOL[dtype]
@@ -2500,6 +2511,7 @@ def bwd_phase(torch, FK) -> list:
                    "library_rel_err_dq_dk_dv": lib_rel,
                    "kernel_ms": times[0], "kernel_fwd_bwd_ms": times[1],
                    "plain_ms": times[2], "library_ms": times[3],
+                   "library_bwd_ms": times[4],
                    "bytes": nbytes, "flops": 5 * 2 * d * pairs * B * H,
                    "bound_ms": bound, "bound_by": by,
                    "cuda_launches_per_call": len(nodes)}
@@ -2909,9 +2921,11 @@ def main() -> int:
         "bound_by": head["bound_by"], "bytes": head["bytes"],
         "cuda_launches_per_call": head["cuda_launches_per_call"],
         "library_ms": head["library_ms"],
+        "library_bwd_ms": head["library_bwd_ms"],
         "library_is": "torch.nn.functional.scaled_dot_product_attention "
                       "forward + backward (enable_gqa) on the same inputs; "
-                      "compare kernel_fwd_bwd_ms",
+                      "compare kernel_fwd_bwd_ms (library_bwd_ms: its "
+                      "backward alone, beside ms)",
     })
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -17,34 +17,45 @@
 //   P  = exp(q k^T / sqrt(d) - lse), 0 where masked
 //   dV = P^T dO,  dP = dO v^T,  dS = P * (dP - D)
 //   dK = dS^T q / sqrt(d),  dQ = dS k / sqrt(d)
-// Inputs of either dtype are widened to f32 as they are staged; every
-// product sums in f32, and each output is rounded once to the input dtype.
-// No atomics: every output element is written by one thread, after sums in
-// a fixed order, so two calls on the same inputs agree bit for bit.
+// Every product sums in f32, and each output is rounded once to the input
+// dtype; bf16 also rounds P to bf16 before dV and dS before dK and dQ (the
+// operands of its tensor-core products). No atomics: every output element
+// is summed by one thread in an order fixed by the shapes, so two calls on
+// the same inputs agree bit for bit. Three launches a call: D, then dK/dV,
+// then dQ.
 //
 // Bound on an H100 SXM: by operations. Five products of 2 * d FLOP per
 // visible (query, key) pair and head: for stablelm-1.6b's causal (4, 1024)
 // at 32 heads of 64, 43 GFLOP over 42 MB of bf16 q, k, v, out, dO, dq, dk,
 // dv: 0.044 ms at the bf16 tensor-core peak against 0.013 ms for the bytes.
 //
-// What the design does about it: nothing beyond keeping every operand in
-// shared memory. This is the simple kernel: the products run on the CUDA
-// cores in f32 (a 16 x 16 thread grid, each thread a 4 x 4 block of
-// scores, rows ty + 16 i and keys tx + 16 j), which is far from the
-// tensor-core bound. Two passes, as FlashAttention-2:
-// - bwd_dkdv_kernel: a block owns 64 keys of one KV head and walks the
-//   query tiles that may see them, for each of the G query heads of its
-//   group, so dK and dV sum the group in registers; it recomputes S and
-//   dP (four products).
-// - bwd_dq_kernel: a block owns 64 query positions of one head and walks
-//   the key tiles they may see (the forward's key range); it recomputes S
-//   and dP and sums dQ (three products).
+// What the design does about it:
+// - bf16 (flash_bwd_wgmma.cuh): every product on wgmma, operands staged by
+//   TMA over the natural layouts, warp-specialised as the forward. A
+//   dK/dV block owns 128 keys of one KV head (64 at D = 128, its two
+//   warpgroups splitting the output columns) and walks the 64-position
+//   query tiles of its G query heads that may see them; a dQ block owns
+//   the forward's 128 (position, head) rows and walks the forward's key
+//   tiles. Both recompute S and dP (seven products against the bound's
+//   five), the price of keeping dQ free of atomics.
+// - f32 (bwd_dkdv_kernel, bwd_dq_kernel below): the CUDA cores, since
+//   TF32 would round the operands and the f32 products must hold 1e-5 of
+//   the plain version. A 16 x 16 thread grid, each thread a 4 x 4 block of
+//   scores (rows ty + 16 i and keys tx + 16 j), every operand widened to
+//   f32 in shared memory. Two passes, as FlashAttention-2:
+//   bwd_dkdv_kernel owns 64 keys of one KV head and walks the query tiles
+//   that may see them, for each of the G query heads of its group, so dK
+//   and dV sum the group in registers (four products); bwd_dq_kernel owns
+//   64 query positions of one head and walks the key tiles they may see
+//   (the forward's key range; three products).
 // Head dims 64 and 128 each have their instance; 96 and 120 run on the
-// 128-column instance with the columns past d staged as zeros and never
-// stored.
+// 128-column instance with the columns past d zero-filled (bf16: by TMA)
+// and never stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -53,20 +64,14 @@ constexpr int kTile = 64;    // query positions and keys of a tile
 constexpr int kSub = 4;      // rows and keys a thread owns: ty + 16 i
 constexpr int kGrid = 16;    // threads along each side of the 16 x 16 grid
 
+// the CUDA-core passes below run f32 only (bf16 takes flash_bwd_wgmma.cuh)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // the forward's mask (flash_wgmma.cuh, allowed)
@@ -358,11 +363,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
-                   const T* dout, const float* lse, float* delta, T* dq,
-                   T* dk, T* dv, int B, int S, int T_, int H, int Kv, int d,
-                   int causal, int window, float scale, cudaStream_t stream) {
+// the f32 D, dK/dV and dQ passes on the CUDA cores
+template <int D>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const float* o, const float* dout, const float* lse,
+                       float* delta, float* dq, float* dk, float* dv,
+                       int B, int S, int T_, int H, int Kv, int d, int causal,
+                       int window, float scale, cudaStream_t stream) {
+  using T = float;
   // raised once per instance, so that later launches, inside a CUDA graph
   // capture too, make no attribute call
   static bool ready = false;
@@ -402,50 +410,59 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const void* o, const void* dout, const float* lse,
-                     float* delta, void* dq, void* dk, void* dv, int B, int S,
-                     int T_, int H, int Kv, int d, int causal, int window,
-                     float scale, cudaStream_t s) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
-  const T* dt = static_cast<const T*>(dout);
-  T* dqt = static_cast<T*>(dq);
-  T* dkt = static_cast<T*>(dk);
-  T* dvt = static_cast<T*>(dv);
-  if (d == 64)
-    return launch<T, 64>(qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt, B, S,
-                         T_, H, Kv, d, causal, window, scale, s);
-  if (d == 96 || d == 120 || d == 128)
-    return launch<T, 128>(qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt, B,
-                          S, T_, H, Kv, d, causal, window, scale, s);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // q, out, dout and dq (B, S, H, d); k, v, dk and dv (B, T, Kv, d):
-// contiguous, bf16 when is_bf16 else f32. lse (B, H, S) f32 from the
-// forward; delta (B, H, S) f32 scratch. d is 64, 96, 120 or 128; H a
-// multiple of Kv. window <= 0 means no window. Three launches on `stream`
-// (D, then dK/dV, then dQ); does not synchronise; returns
-// cudaGetLastError() of the launches (cudaErrorInvalidValue for a shape
-// it does not take).
+// contiguous, 16-byte aligned, bf16 when is_bf16 else f32. lse (B, H, S)
+// f32 from the forward; delta (B, H, S) f32 scratch. d is 64, 96, 120 or
+// 128; H a multiple of Kv, at most 64 times it. window <= 0 means no
+// window. bf16 takes bq query positions a dQ block (the host's plan,
+// G * bq <= 128). Three launches on `stream` (D, then dK/dV, then dQ);
+// does not synchronise; returns cudaGetLastError() of the launches
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int B, int S, int T, int H, int Kv, int d, int causal,
-    int window, float scale, int is_bf16, void* stream) {
+    int window, float scale, int is_bf16, int bq, void* stream) {
   if (Kv <= 0 || H % Kv || B * H > 65535 || B * Kv > 65535)
     return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 96 && d != 120 && d != 128)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch_d<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq,
-                                        dk, dv, B, S, T, H, Kv, d, causal,
-                                        window, scale, s);
-  return (int)launch_d<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
-                              S, T, H, Kv, d, causal, window, scale, s);
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    const bf* qt = static_cast<const bf*>(q);
+    const bf* kt = static_cast<const bf*>(k);
+    const bf* vt = static_cast<const bf*>(v);
+    const bf* ot = static_cast<const bf*>(out);
+    const bf* dt = static_cast<const bf*>(dout);
+    bf* dqt = static_cast<bf*>(dq);
+    bf* dkt = static_cast<bf*>(dk);
+    bf* dvt = static_cast<bf*>(dv);
+    if (d == 64)
+      return (int)flash::bwd::launch<64, true>(
+          qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt, B, S, T, H, Kv, d,
+          causal, window, scale, bq, s);
+    if (d == 128)
+      return (int)flash::bwd::launch<128, true>(
+          qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt, B, S, T, H, Kv, d,
+          causal, window, scale, bq, s);
+    return (int)flash::bwd::launch<128, false>(
+        qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt, B, S, T, H, Kv, d,
+        causal, window, scale, bq, s);
+  }
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* ot = static_cast<const float*>(out);
+  const float* dt = static_cast<const float*>(dout);
+  float* dqt = static_cast<float*>(dq);
+  float* dkt = static_cast<float*>(dk);
+  float* dvt = static_cast<float*>(dv);
+  if (d == 64)
+    return (int)launch_f32<64>(qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt,
+                               B, S, T, H, Kv, d, causal, window, scale, s);
+  return (int)launch_f32<128>(qt, kt, vt, ot, dt, lse, delta, dqt, dkt, dvt,
+                              B, S, T, H, Kv, d, causal, window, scale, s);
 }

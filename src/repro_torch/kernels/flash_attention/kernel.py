@@ -9,7 +9,14 @@ Counterpart of ``repro.kernels.flash_attention.kernel`` (the Pallas
 map boxes are planned on the host from the shapes alone
 (:func:`flash_plan`). The backward's source is
 ``csrc/flash_attention_bwd.cu``; the Pallas kernel has none (the
-reference trains through XLA's attention).
+reference trains through XLA's attention). Its bf16 passes are TMA-fed
+wgmma kernels (``csrc/flash_bwd_wgmma.cuh``): a dK/dV pass whose blocks
+own 128 keys (64 at head_dim above 64) and walk the query tiles that may
+see them, and a dQ pass
+on the forward's blocks and key walk, both recomputing P from the
+forward's logsumexp, so that no output needs atomics; their grids,
+boxes and walks are planned on the host (:func:`flash_bwd_plan`). f32
+runs both passes on the CUDA cores.
 
 :func:`flash_attention` takes q (B, S, H, d) and k, v (B, T, Kv, d) with
 H a multiple of Kv, a causal flag and an optional sliding window, at any
@@ -50,9 +57,11 @@ SOURCES = {
         NAME, CSRC, (P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I),
         ("flash_wgmma.cuh", cuda_build.HOPPER_HEADER)),
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T, H, Kv, D,
-    # causal, window, scale, is_bf16
+    # causal, window, scale, is_bf16, bq
     BWD: cuda_build.Source(
-        BWD, CSRC, (P,) * 10 + (I,) * 8 + (F, I)),
+        BWD, CSRC, (P,) * 10 + (I,) * 8 + (F, I, I),
+        ("flash_bwd_wgmma.cuh", "flash_wgmma.cuh",
+         cuda_build.HOPPER_HEADER)),
 }
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
@@ -64,6 +73,7 @@ MAX_GROUP = 64          # query heads per KV head: the f32 kernel's 64 rows
 PLAIN_TILE = 128        # query and key tile of the plain version
 WG_ROWS = 128           # (position, head) rows of a bf16 block
 KEY_TILE = 64           # keys per tile of both kernels
+BWD_Q_TILE = 64         # query positions of a bf16 dK/dV tile
 BOX_COLS = 64           # head_dim columns of one tensor-map box (128 bytes)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -132,6 +142,73 @@ def key_tiles(q0: int, bq: int, S: int, T: int, causal: bool,
     begin = (max(0, q0 - window + 1) // KEY_TILE * KEY_TILE
              if window is not None else 0)
     return -(-(end - begin) // KEY_TILE) if end > begin else 0
+
+
+def key_tile_starts(q0: int, bq: int, S: int, T: int, causal: bool,
+                    window: Optional[int]) -> range:
+    """First keys of the tiles a block of positions q0 .. q0 + bq - 1
+    walks: the forward's and the dQ pass's key walk."""
+    begin = (max(0, q0 - window + 1) // KEY_TILE * KEY_TILE
+             if causal and window is not None else 0)
+    n = key_tiles(q0, bq, S, T, causal, window)
+    return range(begin, begin + n * KEY_TILE, KEY_TILE)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """The bf16 backward's two launches after the delta pass. dK/dV: a
+    grid of (B * Kv, key blocks) blocks of ``keys`` keys each (d = 64: 128
+    keys, 64 to a consumer warpgroup; d > 64, the 128-column instance: 64
+    keys, the two warpgroups splitting dK's and dV's columns), block
+    (bx, by) holding keys ``by * keys`` on of KV head ``bx % Kv`` of batch
+    row ``bx // Kv`` (the key blocks that walk the most query tiles start
+    first), q and dO over (d, H, S, B) with box ``q_box``, k and v over
+    (d, Kv, T, B) with box ``kv_box``;
+    each block walks, for each of the G heads of its KV head, the query
+    tiles of :func:`dkdv_query_tiles`. dQ: the forward's plan ``dq``
+    (its grid, rows and boxes, q and dO each read once a block) and its
+    key walk (:func:`key_tile_starts`). ``d_boxes`` boxes of 64 columns
+    to a row, the last one zero-filled past d when d is 96 or 120."""
+
+    S: int
+    T: int
+    causal: bool
+    window: Optional[int]
+    keys: int
+    dkdv_grid: Tuple[int, int]
+    q_box: Tuple[int, int, int, int]
+    kv_box: Tuple[int, int, int, int]
+    dq: FlashPlan
+    d_boxes: int
+
+
+def flash_bwd_plan(B: int, S: int, T: int, H: int, Kv: int, d: int,
+                   causal: bool, window: Optional[int]) -> FlashBwdPlan:
+    """The bf16 backward's plan from the shapes alone."""
+    keys = 128 if d == 64 else 64
+    return FlashBwdPlan(
+        S=S, T=T, causal=causal, window=window, keys=keys,
+        dkdv_grid=(B * Kv, -(-T // keys)),
+        q_box=(BOX_COLS, 1, BWD_Q_TILE, 1),
+        kv_box=(BOX_COLS, 1, keys, 1),
+        dq=flash_plan(B, S, H, Kv, d), d_boxes=-(-d // BOX_COLS))
+
+
+def dkdv_query_tiles(plan: FlashBwdPlan, by: int) -> range:
+    """First positions of the query tiles dK/dV block row ``by`` walks
+    (the kernel's query_range): under the causal mask from the block's
+    first key on, and with a window up to its last key + window - 1;
+    unmasked, every tile. As the forward's key walk, the window narrows
+    the walk only under the causal mask (an unmasked windowed call walks
+    tiles it may not see, and masks them)."""
+    k0 = by * plan.keys
+    q_begin, q_end = 0, plan.S
+    if plan.causal:
+        q_begin = k0
+        if plan.window is not None:
+            last = min(plan.T, k0 + plan.keys) - 1
+            q_end = min(plan.S, last + plan.window)
+    return range(q_begin, max(q_begin, q_end), BWD_Q_TILE)
 
 
 def _key_range(q0: int, q1: int, T: int, causal: bool,
@@ -225,7 +302,12 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     to f32; D = rowsum(do * o); P = exp(q k^T / sqrt(d) - lse), 0 where
     masked; dV = P^T dO; dS = P * (dO v^T - D); dQ = dS k / sqrt(d);
     dK = dS^T q / sqrt(d), dK and dV summed over each KV head's G query
-    heads; each cast once to its input's dtype."""
+    heads; each cast once to its input's dtype. For bf16 inputs P is
+    rounded to bf16 before the dV product and dS before the dK and dQ
+    products (dS from the f32 P), as the kernel rounds them: its products
+    run on the tensor cores with bf16 operands, as FlashAttention-2 and 3
+    round them and as the forward rounds p before PV. f32 keeps P and dS
+    in f32."""
     B, S, H, d = q.shape
     T, Kv = k.shape[1], k.shape[2]
     G = H // Kv
@@ -243,8 +325,13 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     p = torch.where(allow, torch.exp(s - lse.reshape(B, Kv, G, S)[..., None]),
                     torch.zeros((), device=q.device))
     del s
-    dv = torch.matmul(p.transpose(-1, -2), dog).sum(dim=2)
-    ds = p * (torch.matmul(dog, vt.transpose(-1, -2)) - delta[..., None])
+
+    def operand(t):                    # a tensor-core operand: bf16 rounds
+        return t.to(q.dtype).float() if q.dtype == torch.bfloat16 else t
+
+    dv = torch.matmul(operand(p).transpose(-1, -2), dog).sum(dim=2)
+    ds = operand(p * (torch.matmul(dog, vt.transpose(-1, -2))
+                      - delta[..., None]))
     del p
     dq = torch.matmul(ds, kt) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2) * scale
@@ -324,6 +411,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     check("o", o, q.dtype, (B, S, H, d), q.device)
     check("do", do, q.dtype, (B, S, H, d), q.device)
     check("lse", lse, torch.float32, (B, H, S), q.device)
+    if o.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("o and do must be 16-byte aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B:
         delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -332,7 +421,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, H, Kv, d,
             int(causal), window or 0, 1.0 / d ** 0.5,
-            int(q.dtype == torch.bfloat16))
+            int(q.dtype == torch.bfloat16),
+            flash_bwd_plan(B, S, T, H, Kv, d, causal, window).dq.bq)
     return dq, dk, dv
 
 

@@ -5,6 +5,7 @@ kernels compute their offsets as these functions do; the ``gpu`` tests in
 ``test_torch_cuda.py`` hold the kernels themselves on the card."""
 import itertools
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -63,6 +64,60 @@ def test_flash_blocks_with_most_key_tiles_start_first(G, window):
         half = len(tiles) // 2
         assert sum(tiles[:half]) >= sum(tiles[-half:])
     assert FK.key_tiles(0, plan.bq, S, S, False, None) == -(-S // 64)
+
+
+# (S, T, G, d, causal, window): the shapes of the flash gradient tests
+# (test_torch_training_flash.py CASES), chip_smoke's BWD_CELLS
+# (stablelm-1.6b, granite-moe-1b-a400m, h2o-danube-3-4b plain and windowed,
+# seamless's unmasked cross-attention) and an unmasked windowed call
+BWD_SHAPES = [(70, 70, 2, 64, True, None), (150, 150, 1, 64, True, 40),
+              (33, 33, 4, 64, True, None), (20, 33, 1, 64, False, None),
+              (40, 70, 2, 96, True, None), (70, 40, 4, 120, True, None),
+              (131, 131, 2, 120, True, 64), (1024, 1024, 1, 64, True, None),
+              (1024, 1024, 2, 64, True, None),
+              (1024, 1024, 4, 120, True, None),
+              (1024, 1024, 4, 120, True, 256), (256, 64, 1, 64, False, None),
+              (200, 300, 64, 128, False, 30)]
+
+
+@pytest.mark.parametrize("S,T,G,d,causal,window", BWD_SHAPES)
+def test_flash_bwd_plan_walks_cover_every_visible_pair_once(S, T, G, d,
+                                                            causal, window):
+    """The bf16 backward's two walks over (query, key) pairs, for each
+    head: the dK/dV blocks' query tiles and the dQ blocks' key tiles each
+    cover every pair of ``visible`` exactly once, and no tile without a
+    visible pair, except an unmasked windowed call's (the window narrows
+    the walks only under the causal mask, as the forward's key walk).
+    The dQ pass is the forward's plan; the boxes stay within TMA's 256."""
+    B, Kv = 2, 2
+    plan = FK.flash_bwd_plan(B, S, T, G * Kv, Kv, d, causal, window)
+    assert plan.keys == (128 if d == 64 else 64)
+    assert plan.dkdv_grid == (B * Kv, -(-T // plan.keys))
+    assert plan.q_box == (64, 1, FK.BWD_Q_TILE, 1)
+    assert plan.kv_box == (64, 1, plan.keys, 1)
+    assert plan.dq == FK.flash_plan(B, S, G * Kv, Kv, d)
+    assert plan.d_boxes == -(-d // 64)
+    assert all(x <= 256 for x in plan.q_box + plan.kv_box)
+    vis = FK.visible(S, T, causal, window, "cpu").numpy()
+    empty_ok = not causal and window is not None
+    for walk in ("dkdv", "dq"):
+        cover = np.zeros((S, T), dtype=np.int64)
+        if walk == "dkdv":
+            tiles = [(q0, q0 + FK.BWD_Q_TILE, k0, k0 + plan.keys)
+                     for by, k0 in enumerate(range(0, T, plan.keys))
+                     for q0 in FK.dkdv_query_tiles(plan, by)]
+        else:
+            tiles = []
+            for by in range(plan.dq.grid[1]):
+                q0 = FK.block_origin(plan.dq, 0, by, Kv)[2]
+                tiles += [(q0, q0 + plan.dq.bq, k0, k0 + FK.KEY_TILE)
+                          for k0 in FK.key_tile_starts(q0, plan.dq.bq, S, T,
+                                                       causal, window)]
+        for q0, q1, k0, k1 in tiles:
+            assert 0 <= q0 < S and 0 <= k0 < T
+            cover[q0:q1, k0:k1] += 1
+            assert vis[q0:q1, k0:k1].any() or empty_ok, (walk, q0, k0)
+        assert cover.max() <= 1 and (cover[vis] == 1).all(), walk
 
 
 def _valid_slots(table_row, seq_len, page, n_pool):

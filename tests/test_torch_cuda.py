@@ -958,3 +958,40 @@ def test_cuda_flash_backward_is_deterministic():
     a = FK.flash_attention_backward(q, k, v, out, lse, do)
     b = FK.flash_attention_backward(q, k, v, out, lse, do)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,Kv,d,causal,window", [
+    (1, 300, 300, 16, 2, 128, True, 100),
+    (4, 1024, 1024, 32, 32, 64, True, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_at_wide_cells(B, S, T, H, Kv, d, causal, window,
+                                          dtype):
+    """On the card, at head_dim 128 with G = 8 and a window (the bf16
+    dK/dV pass walks eight heads a block, its query walk cut by the
+    window) and at stablelm-1.6b's training shape: the backward kernel
+    against ``flash_attention_backward_plain`` within 1e-5 (f32) or 1e-2
+    (bf16) of each output's max |plain|, bit for bit the same on a second
+    call, and three CUDA kernels a call (D, dK/dV, dQ)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    td = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(S + H + d)
+    q, do = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(td)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Kv, d), generator=gen, device="cuda").to(td)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    out, lse = FK.flash_attention_forward(q, k, v, with_lse=True, **kw)
+    got = FK.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    again = FK.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    ref = FK.flash_attention_backward_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, a, want in zip(got, again, ref):
+        assert g.dtype == td and torch.isfinite(g.float()).all()
+        assert torch.equal(g, a)
+        assert _rel(g, want) < tol
+    assert _graph_nodes(lambda: FK.flash_attention_backward(
+        q, k, v, out, lse, do, **kw)) == [0, 0, 0]

@@ -4,7 +4,11 @@ CPU path (``flash_attention`` on inputs that require grad) against
 ``jax.vjp`` of the reference's ``repro.models.layers.attention`` (the
 attention its training differentiates), f32, within 2e-5: causal,
 windowed, GQA and unmasked cross-attention, head_dim 64, 96 and 120,
-ragged S != T. Also the logsumexp the forward keeps, and the wrappers
+ragged S != T. In bf16, the plain backward against the same ``jax.vjp``
+in f32 on the bf16-rounded inputs, and its rounding points (P and dS to
+bf16 before their products, as the kernel's tensor cores take them)
+against explicit f32 einsums. Also the logsumexp the forward keeps, and
+the wrappers
 that have no backward (the quant and paged kernels) refusing inputs
 that require grad. tests/test_torch_cuda.py holds the CUDA kernels
 against these plain versions on the card."""
@@ -42,6 +46,14 @@ CASES = [
 ]
 IDS = [f"B{c[0]}S{c[1]}T{c[2]}H{c[3]}Kv{c[4]}d{c[5]}"
        f"{'c' if c[6] else 'x'}{c[7] or ''}" for c in CASES]
+# bf16: GQA, windowed, head_dim 120 with S > T, unmasked S < T
+BF16 = [2, 1, 5, 3]
+# bf16 plain backward vs the f32 reference on the same rounded inputs:
+# max |error| over max |reference|, each of dq, dk, dv. The output, P and
+# dS each round to bf16 (2^-9 of an element), so an output is off by a few
+# 2^-9 of the max (about 5e-3 at these shapes); chip_smoke holds the
+# kernel to its plain version within the same 1e-2
+BF16_TOL = 1e-2
 
 
 def _inputs(B, S, T, H, Kv, d, seed=0):
@@ -52,12 +64,19 @@ def _inputs(B, S, T, H, Kv, d, seed=0):
             rng.standard_normal((B, S, H, d)).astype(np.float32))
 
 
+def _bf16(a):
+    return torch.from_numpy(a).bfloat16()
+
+
 @functools.lru_cache(maxsize=None)
-def _reference(case):
-    """The case's inputs, and the reference's output and gradients: one
-    compiled ``jax.vjp``, shared by the tests of a case."""
+def _reference(case, rounded=False):
+    """The case's inputs (with ``rounded``, rounded to bf16 and held in
+    f32), and the reference's output and gradients: one compiled
+    ``jax.vjp``, shared by the tests of a case."""
     B, S, T, H, Kv, d, causal, window = case
     q, k, v, do = _inputs(B, S, T, H, Kv, d)
+    if rounded:
+        q, k, v, do = (_bf16(a).float().numpy() for a in (q, k, v, do))
 
     @jax.jit
     def fwd_bwd(q_, k_, v_, do_):
@@ -86,6 +105,73 @@ def test_backward_plain_matches_jax_vjp(case):
                                              causal=causal, window=window)
     for got, want in zip(grads, grads_ref):
         _close(got, want)
+
+
+@pytest.mark.parametrize("case", [CASES[i] for i in BF16],
+                         ids=[IDS[i] for i in BF16])
+def test_bf16_backward_plain_matches_jax_vjp(case):
+    """The bf16 plain backward (the kernel's rounding points) on the
+    plain bf16 forward's output and logsumexp, against the reference's
+    f32 gradients on the same bf16-rounded inputs, within BF16_TOL."""
+    causal, window = case[6:]
+    (q, k, v, do), _, grads_ref = _reference(case, rounded=True)
+    tq, tk, tv, tdo = map(_bf16, (q, k, v, do))
+    out, lse = K.flash_attention_plain(tq, tk, tv, causal=causal,
+                                       window=window, return_lse=True)
+    grads = K.flash_attention_backward_plain(tq, tk, tv, out, lse, tdo,
+                                             causal=causal, window=window)
+    for got, want in zip(grads, grads_ref):
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+        assert err < BF16_TOL
+
+
+def _explicit_bf16_grads(q, k, v, o, lse, do, causal, window, rounded):
+    """(dq, dk, dv) as f32 einsums over every head and key at once, from
+    bf16 inputs: P and dS rounded to bf16 before their products when
+    ``rounded``, else kept in f32; each output rounded once to bf16."""
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = 1.0 / d ** 0.5
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf, vf = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    allow = K.visible(S, T, causal, window, "cpu")
+    p = torch.where(allow, torch.exp(s - lse[..., None]), torch.zeros(()))
+    delta = (dof * of).sum(-1).permute(0, 2, 1)
+    ds = p * (torch.einsum("bshd,bthd->bhst", dof, vf) - delta[..., None])
+    if rounded:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    return (dq.bfloat16(),
+            dk.reshape(B, T, Kv, G, d).sum(3).bfloat16(),
+            dv.reshape(B, T, Kv, G, d).sum(3).bfloat16())
+
+
+@pytest.mark.parametrize("case", [CASES[i] for i in BF16],
+                         ids=[IDS[i] for i in BF16])
+def test_bf16_backward_plain_rounds_p_and_ds(case):
+    """The bf16 plain backward equals the explicit einsums that round P
+    and dS to bf16 (up to one bf16 step where the two sums in other
+    orders straddle a rounding point, on at most 1e-3 of the elements),
+    and not the ones that keep them in f32 (which differ on about 40% of
+    the elements): the rounding points the kernel mirrors."""
+    B, S, T, H, Kv, d, causal, window = case
+    q, k, v, do = map(_bf16, _inputs(B, S, T, H, Kv, d))
+    out, lse = K.flash_attention_plain(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+    got = K.flash_attention_backward_plain(q, k, v, out, lse, do,
+                                           causal=causal, window=window)
+    want = _explicit_bf16_grads(q, k, v, out, lse, do, causal, window, True)
+    f32 = _explicit_bf16_grads(q, k, v, out, lse, do, causal, window, False)
+    for g, w, f in zip(got, want, f32):
+        gf, wf = g.float(), w.float()
+        assert ((gf - wf).abs() <= wf.abs() * 2.0 ** -7).all()
+        assert (g != w).float().mean().item() <= 1e-3
+        assert (g != f).float().mean().item() > 0.1
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
