@@ -206,8 +206,31 @@ non-zero exit code:
    and paged) to the tokens of the params in memory; and ``python -m
    repro_torch.launch.train --arch granite-moe-1b-a400m --steps 5
    --device cuda`` as a subprocess.
+13. dryrun: the launch analysis (``repro_torch.launch.dryrun``, PR 24).
+   The reference's default sweep: every ARCH_IDS config at every
+   INPUT_SHAPES shape (40 records) on the 16 x 16 mesh (a fake process
+   group), bf16,
+   every tensor on the meta device, in DRY_WORKERS spawned processes;
+   one line a record (per-GPU GB = arguments + the peak of live
+   intermediates, fits, bottleneck, the three roofline terms priced on
+   the H100 SXM, useful-FLOP ratio, seconds), each ok with FLOPs and
+   bytes counted. Then two cells the card runs, each dry-run on a
+   one-rank mesh and run on the card (``_dry_cell``): stablelm-1.6b's
+   train step (B 4, S 1024, remat) and llama-3.1-8b's bf16 decode
+   (batch 4, a full ring of 512): the bytes of the tree the card holds
+   must equal the dry run's argument bytes, the counted FLOPs be within
+   2x of ``core/workload.py``'s estimate, and the step's kernel
+   launches equal the dry run's kernel calls (the kernels' meta
+   branches); the line prints the measured peak beside argument + temp
+   and the host-wall step beside the roofline's step time. Last, one
+   MoE layer of granite-moe-1b-a400m at full width (bf16, 2048 tokens)
+   through ``expert_parallel`` on a one-rank NCCL group against
+   ``moe_ffn``'s local path, within 1e-2 relative (``ep_check``); the
+   group is destroyed before the phase ends.
 
-The line before the last holds the card's name and power limit, the one
+After each phase from 3 on, a ``phase_wall`` line gives its host wall
+and the script's so far. The line before the last holds the card's name
+and power limit, the one
 before it the ``kernels`` summary, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is visible.
@@ -500,6 +523,7 @@ def kernel_phase(torch, K, cells):
     """Both quant kernels' 2-D calls at ``cells`` (:func:`quant_cells`)
     against their plain versions, bf16, each row naming the loop that ran
     and the serve cells that make the call."""
+    from repro_torch.kernels import cost
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {"int8_matmul": [], "nf4_matmul": []}
@@ -531,8 +555,7 @@ def kernel_phase(torch, K, cells):
                             reps=3, graph=False)
             l_ms = timed_ms(torch, lambda w_: torch.matmul(x, w_),
                             [(t,) for t in lsets])
-            nbytes = 2 * M * Kd + wbytes + 2 * M * N
-            flops = 2 * M * Kd * N
+            nbytes, flops = cost.quant_matmul(M, Kd, N, wbytes)
             bound, by = _bound(nbytes, flops, "bfloat16")
             row = {"phase": "kernel", "name": name, "M": M, "K": Kd,
                    "N": N, "serves": ms[M], "loop": loop,
@@ -561,6 +584,7 @@ def grouped_phase(torch, K, cells):
     (less work: no dequantization), and a Python loop of the 2-D kernel
     over the experts, timed from eager launches (what E launches cost the
     host)."""
+    from repro_torch.kernels import cost
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = {"int8_matmul_grouped": [], "nf4_matmul_grouped": []}
@@ -599,8 +623,7 @@ def grouped_phase(torch, K, cells):
                             reps=3, graph=False)
             l_ms = timed_ms(torch, lambda w_: torch.bmm(x, w_), lsets)
             loop_ms = timed_ms(torch, loop_2d, wsets, reps=3, graph=False)
-            nbytes = 2 * E * C * Kd + wbytes + 2 * E * C * N
-            flops = 2 * E * C * Kd * N
+            nbytes, flops = cost.quant_matmul(C, Kd, N, wbytes, 2, E)
             bound, by = _bound(nbytes, flops, "bfloat16")
             row = {"phase": "kernel", "name": entry, "E": E, "C": C,
                    "K": Kd, "N": N, "serves": cs[C], "loop": loop,
@@ -807,6 +830,7 @@ def flash_phase(torch, FK, causal_cells, full_cells):
     library time is scaled_dot_product_attention on the same q, k, v laid
     out (B, H, S, d) beforehand, causal (with the window as a boolean
     mask) or unmasked."""
+    from repro_torch.kernels import cost
     from repro_torch.models.layers import attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -817,7 +841,7 @@ def flash_phase(torch, FK, causal_cells, full_cells):
         td = getattr(torch, dtype)
         es = torch.finfo(td).bits // 8
         for B, S, T, (H, Kv, d), window, causal in cells:
-            nbytes = es * (2 * B * S * H * d + 2 * B * T * Kv * d)
+            nbytes = cost.flash_attention(B, S, T, H, Kv, d, 0, es)[0]
             sets = [tuple(torch.randn(shape, generator=gen,
                                       device="cuda").to(td)
                           for shape in ((B, S, H, d), (B, T, Kv, d),
@@ -852,6 +876,11 @@ def flash_phase(torch, FK, causal_cells, full_cells):
                 control = row_rel_err(ctrl, ref)
                 lkw = {}
             pairs = int(allow.sum())
+            want = cost.attention_pairs(S, T, causal, window)
+            if pairs != want:
+                raise SystemExit(f"flash_attention at {(S, T, window)}: "
+                                 f"{pairs} pairs, the cost formula's "
+                                 f"{want}")
             del ctrl
             lsets = [tuple(t.transpose(1, 2).contiguous() for t in st)
                      for st in sets]
@@ -869,7 +898,9 @@ def flash_phase(torch, FK, causal_cells, full_cells):
                 timed_ms(torch, lib_fn, lsets))
             rows.append(_attn_row(
                 torch, "flash_attention", dtype, got, ref, control, lib,
-                times, nbytes, 4 * B * H * d * pairs, launched, B=B, S=S,
+                times, nbytes,
+                cost.flash_attention(B, S, T, H, Kv, d, pairs, es)[1],
+                launched, B=B, S=S,
                 T=T, H=H, Kv=Kv, d=d, window=window, causal=causal))
             del sets, lsets, got, ref, lib
             torch.cuda.empty_cache()
@@ -885,6 +916,7 @@ def paged_phase(torch, PK, cells):
     library time is scaled_dot_product_attention over the same cache laid
     out (B, Kv, W, d) beforehand, with the valid slots as a boolean
     mask."""
+    from repro_torch.kernels import cost
     import numpy as np
     from repro_torch.models.layers import ring_cache_pages
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -938,11 +970,11 @@ def paged_phase(torch, PK, cells):
                      timed_ms(torch, PK.paged_attention_plain, sets[:1],
                               reps=3, graph=False),
                      timed_ms(torch, lib_fn, lsets))
-            nbytes = es * (2 * B * H * d + 2 * n_valid * Kv * d) \
-                + 4 * (table.numel() + B)
+            nbytes, flops = cost.paged_attention(B, H, Kv, d, n_valid,
+                                                 table.numel(), es)
             rows.append(_attn_row(
                 torch, "paged_attention", dtype, got, ref, control, lib,
-                times, nbytes, 4 * H * d * n_valid, launched, B=B, W=W,
+                times, nbytes, flops, launched, B=B, W=W,
                 H=H, Kv=Kv, d=d, page=page,
                 seq_lens=[int(x) for x in lens],
                 unassigned_page=n > 1))
@@ -2412,12 +2444,6 @@ LAUNCHER = ["-m", "repro_torch.launch.train", "--arch",
             "granite-moe-1b-a400m", "--steps", "5", "--device", "cuda"]
 
 
-def _bwd_bytes(B, S, T, H, Kv, d, es) -> int:
-    """Each input read once (q, k, v, out, dout and the f32 lse), each
-    output written once (dq, dk, dv)."""
-    return es * (4 * B * S * H * d + 4 * B * T * Kv * d) + 4 * B * H * S
-
-
 def bwd_phase(torch, FK) -> list:
     """The flash backward kernel against ``flash_attention_backward_plain``
     at BWD_CELLS in bf16 and f32, on the forward kernel's own output and
@@ -2429,6 +2455,7 @@ def bwd_phase(torch, FK) -> list:
     kept with ``retain_graph``), eager; the bound is the larger of five
     products' FLOPs at the dtype's peak and the bytes at HBM
     bandwidth."""
+    from repro_torch.kernels import cost
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -2499,8 +2526,9 @@ def bwd_phase(torch, FK) -> list:
                 timed_ms(torch, lib_bwd, [(do.transpose(1, 2),)], reps=3,
                          graph=False))
             del lout
-            nbytes = _bwd_bytes(B, S, T, H, Kv, d, es)
-            bound, by = _bound(nbytes, 5 * 2 * d * pairs * B * H, dtype)
+            nbytes, flops = cost.flash_attention_bwd(B, S, T, H, Kv, d,
+                                                     pairs, es)
+            bound, by = _bound(nbytes, flops, dtype)
             tol = BWD_REL_TOL[dtype]
             row = {"phase": "kernel", "name": FK.BWD, "dtype": dtype,
                    "B": B, "S": S, "T": T, "H": H, "Kv": Kv, "d": d,
@@ -2512,7 +2540,7 @@ def bwd_phase(torch, FK) -> list:
                    "kernel_ms": times[0], "kernel_fwd_bwd_ms": times[1],
                    "plain_ms": times[2], "library_ms": times[3],
                    "library_bwd_ms": times[4],
-                   "bytes": nbytes, "flops": 5 * 2 * d * pairs * B * H,
+                   "bytes": nbytes, "flops": flops,
                    "bound_ms": bound, "bound_by": by,
                    "cuda_launches_per_call": len(nodes)}
             emit(row)
@@ -2814,6 +2842,258 @@ def train_phase(torch, mods) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the launch analysis (repro_torch.launch.dryrun) on the meta device
+# ---------------------------------------------------------------------------
+DRY_WORKERS = 8                   # processes of the sweep (the host's cores)
+DRY_TRAIN = ("stablelm-1.6b", (1024, 4, "train"))   # TRAIN's cell
+DRY_DECODE = ("llama-3.1-8b", (512, 4, "decode"))   # the serve cells' ring
+DRY_FLOP_RATIO = 2.0              # counted FLOPs within 2x of the estimate
+EP_ARCH, EP_TOKENS, EP_REL_TOL = "granite-moe-1b-a400m", 2048, 1e-2
+ONE_RANK = ((1, 1), ("data", "model"))
+
+
+def _dry_one(combo):
+    """One record of the sweep (a worker process): the production mesh,
+    bf16, on the meta device; the summary the phase prints."""
+    from repro_torch.launch import dryrun
+    arch, shape = combo
+    t0 = time.perf_counter()
+    try:
+        r = dryrun.run_one(arch, shape, False, "bfloat16", save=False)
+    except Exception as e:                   # reported, and fails the phase
+        import traceback
+        where = [f"{f.filename.split('/src/')[-1]}:{f.lineno} {f.name}"
+                 for f in traceback.extract_tb(e.__traceback__)][-8:]
+        return {"phase": "dryrun", "arch": arch, "shape": shape,
+                "ok": False, "error": repr(e)[:1500], "where": where,
+                "seconds": time.perf_counter() - t0}
+    rf, mem = r["roofline"], r["memory_analysis"]
+    return {"phase": "dryrun", "arch": arch, "shape": shape,
+            "mesh": r["mesh"], "ok": r["ok"], "hlo_flops": r["hlo_flops"],
+            "hlo_bytes": r["hlo_bytes"],
+            "collective_bytes": r["collective_bytes"],
+            "per_gpu_gb": (mem["argument_size_in_bytes"]
+                           + mem["temp_size_in_bytes"]) / 1e9,
+            "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+            "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+            "fits": mem["fits"], "bottleneck": rf["bottleneck"],
+            "t_compute_s": rf["t_compute_s"], "t_memory_s": rf["t_memory_s"],
+            "t_collective_s": rf["t_collective_s"],
+            "useful_flop_ratio": rf["useful_flop_ratio"],
+            "seconds": time.perf_counter() - t0}
+
+
+def dry_sweep() -> list:
+    """The reference's default sweep: every ARCH_IDS config at every
+    INPUT_SHAPES shape on the 16 x 16 mesh, bf16, on the meta device, in
+    DRY_WORKERS processes; each record must be ok, count FLOPs and bytes,
+    and name a bottleneck."""
+    import multiprocessing as mp
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+    combos = [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(DRY_WORKERS) as pool:
+        rows = pool.map(_dry_one, combos, chunksize=1)
+    for row in rows:
+        emit(row)
+    bad = [(r["arch"], r["shape"]) for r in rows
+           if not (r["ok"] and r["hlo_flops"] > 0 and r["hlo_bytes"] > 0
+                   and r["bottleneck"] in ("compute", "memory",
+                                           "collective"))]
+    emit({"phase": "dryrun_sweep", "records": len(rows), "failed": bad,
+          "wall_s": time.perf_counter() - t0})
+    if bad or len(rows) != len(combos):
+        raise SystemExit(f"dryrun: records not ok: {bad}")
+    return rows
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core.op_analysis import tree_bytes
+    return tree_bytes(tree)
+
+
+def _dry_cell(torch, mods, arch, dims):
+    """One cell the card runs: the dry run on a one-rank mesh, the same
+    tree allocated on the card (bytes equal), the step run there (launch
+    counts equal to the dry run's kernel calls; measured peak and host
+    wall step beside the dry run's argument + temp and roofline step)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import workload as W
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import make_train_step
+    seq, batch, kind = dims
+    shape = ShapeConfig(f"{kind}_cell", seq, batch, kind)
+    t0 = time.perf_counter()
+    rec, dry_cost = dryrun.dry_run(arch, shape.name, False, "bfloat16",
+                                   shape=shape, mesh=ONE_RANK)
+    dry_s = time.perf_counter() - t0
+    calls = dry_cost.kernels
+    mem, rf = rec["memory_analysis"], rec["roofline"]
+    step_time = max(rf["t_compute_s"], rf["t_memory_s"]) \
+        + rf["t_collective_s"]
+    cfg = dryrun.arch_config(arch)
+    model = build_model(cfg, fmt="bfloat16", device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq if kind == "train"
+                                             else 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    if kind == "train":
+        opt = adamw_init(params)
+        args = (params, opt, {"tokens": toks, "labels": toks})
+        step = make_train_step(model, remat=True)
+        estimate = W.train_step_workload(cfg, batch, seq).flops
+    else:
+        cache = model.init_cache(batch, seq)
+        args = (params, toks, cache)
+        estimate = W.decode_step_workload(cfg, batch, seq).flops
+
+        def step(params, toks, cache):
+            # a full ring: every slot holds a position, pos at its end
+            cache["pos"].fill_(seq - 1)
+            cache["slot_pos"].copy_(torch.arange(seq, device="cuda")
+                                    .expand(batch, seq))
+            with torch.no_grad():
+                return model.decode_step(params, toks, cache)
+    torch.cuda.synchronize()
+    card_bytes = _tree_bytes(args)
+    allocated = torch.cuda.memory_allocated() - before
+    step(*args)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        step(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    counts = {k: v // reps for k, v in read_launches(mods).items()}
+    launched = {k: v for k, v in counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    counted = rec["hlo_flops"]
+    line = {"phase": "dryrun_card", "arch": arch, "kind": kind,
+            "batch": batch, "seq": seq, "dry_s": dry_s,
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "card_tree_bytes": card_bytes, "card_allocated_bytes": allocated,
+            "temp_bytes": mem["temp_size_in_bytes"],
+            "argument_plus_temp_gb": (mem["argument_size_in_bytes"]
+                                      + mem["temp_size_in_bytes"]) / 1e9,
+            "measured_peak_gb": peak / 1e9,
+            "peak_ratio": peak / (mem["argument_size_in_bytes"]
+                                  + mem["temp_size_in_bytes"]),
+            "counted_flops": counted, "workload_flops": estimate,
+            "flop_ratio": counted / estimate,
+            "roofline_step_s": step_time, "measured_step_s": wall,
+            "step_ratio": wall / step_time, "bottleneck": rf["bottleneck"],
+            "dry_kernel_calls": calls, "launches": launched}
+    emit(line)
+    del args, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    faults = []
+    if card_bytes != mem["argument_size_in_bytes"]:
+        faults.append(f"the card holds {card_bytes} bytes, the dry run "
+                      f"counts {mem['argument_size_in_bytes']}")
+    if not estimate / DRY_FLOP_RATIO < counted < estimate * DRY_FLOP_RATIO:
+        faults.append(f"counted {counted} FLOPs, the workload estimate "
+                      f"{estimate}")
+    if launched != calls or not launched:
+        faults.append(f"the step launched {launched}, the dry run counted "
+                      f"{calls} kernel calls")
+    if faults:
+        raise SystemExit(f"dryrun {arch} {kind}: " + "; ".join(faults))
+    return counts
+
+
+def ep_check(torch) -> dict:
+    """One MoE layer of granite-moe-1b-a400m at full width, bf16, on
+    EP_TOKENS tokens (one prefill): the expert-parallel path over a
+    one-rank NCCL group against moe_ffn's local path, within EP_REL_TOL
+    relative."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import make_policy
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_moe_params
+    cfg = get_config(EP_ARCH)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        p = init_moe_params(gen, cfg, torch.bfloat16)
+        x = torch.randn((EP_TOKENS, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kw = dict(top_k=cfg.experts_per_token,
+                  policy=make_policy("bfloat16"),
+                  capacity_factor=cfg.moe_capacity_factor)
+        calls = []
+        body = moe._ep_body
+        moe._ep_body = lambda *a, **k: calls.append(1) or body(*a, **k)
+        try:
+            ref, _ = moe.moe_ffn(p, x, **kw)
+            with moe.expert_parallel(mesh, data_axes=("data",)):
+                got, aux = moe.moe_ffn(p, x, **kw)
+        finally:
+            moe._ep_body = body
+        torch.cuda.synchronize()
+        rel = ((got.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        line = {"phase": "dryrun_ep", "arch": EP_ARCH, "tokens": EP_TOKENS,
+                "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+                "group": "nccl, 1 rank, mesh (1, 1)",
+                "expert_parallel_calls": len(calls), "max_rel_err": rel,
+                "rel_tol": EP_REL_TOL,
+                "aux": {k: float(v) for k, v in aux.items()}}
+        emit(line)
+    finally:
+        dist.destroy_process_group()
+    if len(calls) != 1 or not rel <= EP_REL_TOL:
+        raise SystemExit(f"dryrun_ep: {len(calls)} expert-parallel calls, "
+                         f"rel {rel} > {EP_REL_TOL}")
+    return line
+
+
+def dryrun_phase(torch, mods) -> dict:
+    """The launch analysis: the sweep, the two cells the card runs, and
+    the expert-parallel path; every group destroyed before the next step.
+    Returns the launch counts of the cells' steps."""
+    t0 = time.perf_counter()
+    dry_sweep()
+    counts = {}
+    for arch, dims in (DRY_TRAIN, DRY_DECODE):
+        counts[("dryrun", arch)] = _dry_cell(torch, mods, arch, dims)
+    ep_check(torch)
+    emit({"phase": "dryrun_done", "wall_s": time.perf_counter() - t0})
+    return counts
+
+
+def _phase_timer(t_start: float):
+    """``timed(name, fn, *args)``: fn(*args), and a ``phase_wall`` line
+    with its host wall and the script's so far."""
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        emit({"phase": "phase_wall", "of": name, "wall_s": now - t0,
+              "script_s": now - t_start})
+        return out
+    return timed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2831,7 +3111,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = cuda_build.build(src for m in mods for src in m.SOURCES.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs]})
@@ -2842,18 +3122,23 @@ def main() -> int:
     causal, full, paged = attention_cells(configs)
     check_attention_cells(configs, (causal, full, paged))
     two_d, grouped = quant_cells(configs)
-    rows = kernel_phase(torch, K, two_d)
-    rows.update(grouped_phase(torch, K, grouped))
-    rows["flash_attention"] = flash_phase(torch, FK, causal, full)
-    rows["paged_attention"] = paged_phase(torch, PK, paged)
-    launches = serve_phase(torch, mods)
-    launches.update(model_phase(torch, mods))
-    launches.update(arrival_phase(torch, mods))
-    launches.update(orchestration_phase(torch, mods))
-    launches.update(api_phase(torch, mods))
-    rows[FK.BWD] = bwd_phase(torch, FK)
-    step_checks(torch, mods, FK)
-    launches[("train", TRAIN_ARCH)] = train_phase(torch, mods)
+    timed = _phase_timer(t_start)
+    rows = timed("kernel", kernel_phase, torch, K, two_d)
+    rows.update(timed("grouped", grouped_phase, torch, K, grouped))
+    rows["flash_attention"] = timed("flash", flash_phase, torch, FK, causal,
+                                    full)
+    rows["paged_attention"] = timed("paged", paged_phase, torch, PK, paged)
+    launches = timed("serve", serve_phase, torch, mods)
+    launches.update(timed("model", model_phase, torch, mods))
+    launches.update(timed("arrival", arrival_phase, torch, mods))
+    launches.update(timed("orchestration", orchestration_phase, torch,
+                          mods))
+    launches.update(timed("api", api_phase, torch, mods))
+    rows[FK.BWD] = timed("bwd", bwd_phase, torch, FK)
+    timed("train_step", step_checks, torch, mods, FK)
+    launches[("train", TRAIN_ARCH)] = timed("train", train_phase, torch,
+                                            mods)
+    launches.update(timed("dryrun", dryrun_phase, torch, mods))
 
     kernels = []
     for name in K.ENTRY_POINTS:

@@ -3,7 +3,8 @@
 The fields, the ``head_dim`` derivation, ``reduced()`` and
 ``param_count`` are the reference's, so a config means the same model in
 both packages, and so are the ten architecture ids (:data:`ARCH_IDS`,
-:func:`get_config`), each a module of this package. All six families
+:func:`get_config`), each a module of this package, and the four input
+shapes of the launch analysis (:data:`INPUT_SHAPES`). All six families
 run in the port.
 """
 from __future__ import annotations
@@ -78,6 +79,12 @@ class ModelConfig:
     def has_attention(self) -> bool:
         return self.num_heads > 0
 
+    @property
+    def subquadratic(self) -> bool:
+        """Natively supports 500k-token decode without a full KV cache."""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def param_count(self, active_only: bool = False) -> int:
         d, L = self.d_model, self.num_layers
         embed = self.vocab_size * d
@@ -136,6 +143,27 @@ class ModelConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+#: the four input shapes of the launch analysis (:mod:`repro_torch.launch.
+#: dryrun`), the reference's
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = (
     "qwen3-moe-30b-a3b",
     "stablelm-1.6b",
@@ -154,6 +182,10 @@ def get_config(arch: str) -> ModelConfig:
     mod_name = arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
 
 
 def list_archs() -> Tuple[str, ...]:

@@ -5,3 +5,7 @@ from repro_torch.core.precision import (  # noqa: F401
 from repro_torch.core.profiler import (  # noqa: F401
     GenerateProfile, PhaseProfiler, WallClock,
 )
+from repro_torch.core.roofline import (  # noqa: F401
+    RooflineTerms, terms_from_counts,
+)
+from repro_torch.core.op_analysis import OpCost, analyze_step  # noqa: F401

@@ -1,0 +1,57 @@
+"""The work of each hand-written kernel: one formula per kernel.
+
+Each function returns (bytes, FLOPs) of one call from its shapes: the
+bytes it must move (each input read once, each output written once) and
+the multiply-add operations of its products (two FLOPs each). The same
+formulas price a kernel's bound in ``chip_smoke.py`` and its call in the
+dry run (each wrapper's ``meta`` branch reports them to
+:func:`repro_torch.core.op_analysis.record`), so the two cannot drift.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+
+def quant_matmul(M: int, K: int, N: int, weight_bytes: int,
+                 es: int = 2, E: int = 1) -> Tuple[int, int]:
+    """x (E, M, K) in the compute dtype (``es`` bytes an element) against
+    E quantized (K, N) weights of ``weight_bytes`` in all, out (E, M, N)."""
+    return es * E * M * K + weight_bytes + es * E * M * N, 2 * E * M * K * N
+
+
+def attention_pairs(S: int, T: int, causal: bool,
+                    window: Optional[int] = None) -> int:
+    """The (query, key) pairs a flash call computes: all S * T, or, causal
+    (S <= T), those with key <= query and key > query - window."""
+    if not causal:
+        return S * T
+    m = min(S, T)
+    total = m * (m + 1) // 2 + max(0, S - T) * T
+    if window is not None:            # less the keys at or below q - window
+        n = max(0, S - window)
+        total -= n * (n + 1) // 2
+    return total
+
+
+def flash_attention(B: int, S: int, T: int, H: int, Kv: int, d: int,
+                    pairs: int, es: int) -> Tuple[int, int]:
+    """q and out (B, S, H, d), k and v (B, T, Kv, d); two products over
+    each of ``pairs`` (query, key) pairs per head."""
+    return (es * (2 * B * S * H * d + 2 * B * T * Kv * d),
+            4 * B * H * d * pairs)
+
+
+def flash_attention_bwd(B: int, S: int, T: int, H: int, Kv: int, d: int,
+                        pairs: int, es: int) -> Tuple[int, int]:
+    """q, out, dout, dq (B, S, H, d), k, v, dk, dv (B, T, Kv, d) and the
+    f32 logsumexp (B, H, S); five products over each pair per head."""
+    return (es * (4 * B * S * H * d + 4 * B * T * Kv * d) + 4 * B * H * S,
+            5 * 2 * d * pairs * B * H)
+
+
+def paged_attention(B: int, H: int, Kv: int, d: int, n_valid: int,
+                    table_entries: int, es: int) -> Tuple[int, int]:
+    """q and out (B, H, d), the ``n_valid`` K/V slots the rows read
+    (summed over the rows), the page table and the lengths (int32)."""
+    return (es * (2 * B * H * d + 2 * n_valid * Kv * d)
+            + 4 * (table_entries + B), 4 * H * d * n_valid)

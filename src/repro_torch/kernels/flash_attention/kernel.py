@@ -35,6 +35,15 @@ the launch reports an error, and adds one to
 Head dims 96 and 120 run on the 128-column instances with the columns
 past d zero-filled. Nothing falls back from a kernel to its plain
 version.
+
+On the ``meta`` device under a cost analysis (the dry run; outside one a
+meta tensor has no kernel) the forward and the backward return
+empty outputs of the kernels' shapes and dtypes and report the kernels'
+bytes and FLOPs (:mod:`repro_torch.kernels.cost`) to the active
+:class:`~repro_torch.core.op_analysis.OpCounter`; they never enter the
+plain versions, whose tiled loops would run tens of thousands of
+iterations at the dry run's lengths. On DTensors :func:`flash_attention`
+runs on each rank's shards: the output is placed as q.
 """
 from __future__ import annotations
 
@@ -44,8 +53,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import F, I, P, check
+from repro_torch.core.sharded import is_sharded, on_shards
 
 NAME = "flash_attention"
 BWD = "flash_attention_bwd"
@@ -378,6 +389,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                                          window=window, return_lse=True)
         return flash_attention_plain(q, k, v, causal=causal,
                                      window=window), None
+    if q.is_meta and op_analysis.counting():
+        return _meta_forward(q, k, causal, window, with_lse)
     check_inputs(q, k, v)
     B, S, H, d = q.shape
     T, Kv = k.shape[1], k.shape[2]
@@ -405,6 +418,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do,
                                               causal=causal, window=window)
+    if q.is_meta and op_analysis.counting():
+        return _meta_backward(q, k, v, causal, window)
     check_inputs(q, k, v)
     B, S, H, d = q.shape
     T, Kv = k.shape[1], k.shape[2]
@@ -424,6 +439,33 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             int(q.dtype == torch.bfloat16),
             flash_bwd_plan(B, S, T, H, Kv, d, causal, window).dq.bq)
     return dq, dk, dv
+
+
+def _meta_cost(name: str, fn, q: torch.Tensor, k: torch.Tensor,
+               causal: bool, window: Optional[int]) -> None:
+    from repro_torch.kernels import cost
+    B, S, H, d = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    pairs = cost.attention_pairs(S, T, causal, window)
+    nbytes, flops = fn(B, S, T, H, Kv, d, pairs, q.element_size())
+    op_analysis.record(name, flops, nbytes)
+
+
+def _meta_forward(q, k, causal, window, with_lse):
+    """The forward's meta branch: (empty out, empty lse or None)."""
+    from repro_torch.kernels import cost
+    _meta_cost(NAME, cost.flash_attention, q, k, causal, window)
+    B, S, H, _ = q.shape
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device="meta")
+           if with_lse else None)
+    return torch.empty_like(q), lse
+
+
+def _meta_backward(q, k, v, causal, window):
+    """The backward's meta branch: empty (dq, dk, dv)."""
+    from repro_torch.kernels import cost
+    _meta_cost(BWD, cost.flash_attention_bwd, q, k, causal, window)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -455,7 +497,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {q.device}")
+        if is_sharded(q, k, v):
+            return on_shards(flash_attention, list(q.placements), q, k, v,
+                             causal=causal, window=window)
+        if not (q.is_meta and op_analysis.counting()):
+            raise ValueError(f"no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_forward(q, k, v, causal=causal,

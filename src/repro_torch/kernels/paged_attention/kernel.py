@@ -22,6 +22,13 @@ zero-filled. Nothing falls back from the kernel to the plain version.
 The kernel has no backward: on either device, an input that requires grad
 while grad mode is on raises (:func:`~repro_torch.kernels.cuda_build.
 refuse_grad`).
+
+On the ``meta`` device under a cost analysis (the dry run; outside one a
+meta tensor has no kernel) it returns an empty output and
+reports the kernel's bytes and FLOPs (:func:`repro_torch.kernels.cost.
+paged_attention`, every slot of the table counted as valid: the lengths
+are data) to the active :class:`~repro_torch.core.op_analysis.
+OpCounter`. On DTensors it runs on each rank's shards (:func:`_on_shards`).
 """
 from __future__ import annotations
 
@@ -31,8 +38,10 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import F, I, P, check
+from repro_torch.core.sharded import is_sharded, on_shards
 
 NAME = "paged_attention"
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -198,6 +207,45 @@ def check_inputs(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("q and the pages must be 16-byte aligned")
 
 
+def _meta(q: torch.Tensor, k_pages: torch.Tensor,
+          page_table: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels import cost
+    B, H, d = q.shape
+    page, Kv = k_pages.shape[1], k_pages.shape[2]
+    n_max = page_table.shape[1]
+    nbytes, flops = cost.paged_attention(B, H, Kv, d, B * n_max * page,
+                                         page_table.numel(),
+                                         q.element_size())
+    op_analysis.record(NAME, flops, nbytes)
+    return torch.empty_like(q)
+
+
+def _on_shards(q, k_pages, v_pages, page_table, seq_lens):
+    """The kernel on each rank's shards. Where the pool's pages are split
+    across a mesh axis that does not split the rows of q (the ring cut
+    along its length, the reference's decode sharding), q is replicated
+    on that axis and each rank attends over its part of every row: the
+    output is a partial result there, placed ``Partial``, so that the
+    combine the reference lowers to small all-reduces is counted as one
+    all-reduce of the output."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    q_pl, out_pl = [], []
+    for qp, kp in zip(q.placements, k_pages.placements):
+        split = isinstance(kp, Shard) and kp.dim == 0
+        if split and not (isinstance(qp, Shard) and qp.dim == 0):
+            q_pl.append(Replicate())
+            out_pl.append(Partial())
+        else:
+            q_pl.append(qp)
+            out_pl.append(qp)
+    return on_shards(paged_attention, out_pl, q, k_pages, v_pages,
+                     page_table, seq_lens,
+                     in_placements=[q_pl] + [getattr(t, "placements", None)
+                                             for t in (k_pages, v_pages,
+                                                       page_table,
+                                                       seq_lens)])
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     seq_lens: torch.Tensor) -> torch.Tensor:
@@ -208,7 +256,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      seq_lens)
     if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+        if is_sharded(q, k_pages, v_pages, page_table, seq_lens):
+            return _on_shards(q, k_pages, v_pages, page_table, seq_lens)
+        if not (q.is_meta and op_analysis.counting()):
+            raise ValueError(f"no kernel for device {q.device}")
+        return _meta(q, k_pages, page_table)
     check_inputs(q, k_pages, v_pages, page_table, seq_lens)
     B, H, d = q.shape
     n_pool, page, Kv = k_pages.shape[:3]

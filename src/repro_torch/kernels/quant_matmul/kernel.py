@@ -24,6 +24,17 @@ have no backward (the reference cannot train quantized weights either):
 on either device, an input that requires grad while grad mode is on
 raises (:func:`~repro_torch.kernels.cuda_build.refuse_grad`).
 
+On the ``meta`` device under a cost analysis (the dry run,
+:mod:`repro_torch.launch.dryrun`; outside one a meta tensor has no
+kernel and raises, as any device but the two) a wrapper returns an
+empty output of the kernel's shape and dtype and reports the kernel's
+bytes and FLOPs (:func:`repro_torch.kernels.cost.quant_matmul`) to the
+active :class:`~repro_torch.core.op_analysis.OpCounter`; it never enters
+the plain version. On DTensors it runs that
+branch on each rank's shards (:func:`_on_meta`): a weight sharded on
+its output columns gives an output sharded on its columns, one sharded
+on its input rows (``wo``, ``w_down``) a partial sum on that mesh axis.
+
 The loop is planned on the host from the shapes alone
 (:func:`matmul_plan`, cached per shape and device). In bf16 both loops
 are the TMA + wgmma kernel of ``csrc/qmm_wgmma.cuh``: "decode" for M <= 8
@@ -47,8 +58,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import counting
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import I, P, check as _check
+from repro_torch.core.sharded import (is_sharded, matmul_placements,
+                                     on_shards)
 from repro_torch.quant.nf4 import codebook, unpack_codes
 
 KERNELS = ("int8_matmul", "nf4_matmul")
@@ -264,6 +278,38 @@ def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+def _meta(entry: str, x: torch.Tensor, wargs, compute_dtype) -> torch.Tensor:
+    """The meta branch: an empty output, the kernel's cost reported. The
+    weight's local shape gives N (its side fields stay replicated)."""
+    from repro_torch.core import op_analysis
+    from repro_torch.kernels import cost
+    *lead, M, K = x.shape
+    N = wargs[0].shape[-1]
+    E = lead[0] if lead else 1
+    es = torch.finfo(compute_dtype).bits // 8
+    nbytes, flops = cost.quant_matmul(
+        M, K, N, sum(op_analysis.tensor_bytes(w) for w in wargs), es, E)
+    op_analysis.record(entry, flops, nbytes)
+    return torch.empty((*lead, M, N), dtype=compute_dtype, device="meta")
+
+
+def _on_meta(entry: str, fn, x: torch.Tensor, wargs,
+             compute_dtype) -> torch.Tensor:
+    """A wrapper's ``meta`` branch: on DTensors ``fn`` (the wrapper) on
+    each rank's shards, placed by the weight's main field (codes, packed)
+    as :func:`~repro_torch.core.sharded.matmul_placements` says; else, under
+    a cost analysis, :func:`_meta`. Outside one a meta tensor has no
+    kernel."""
+    if is_sharded(x, *wargs):
+        x_pl, out_pl, _, _ = matmul_placements(x, wargs[0])
+        return on_shards(fn, out_pl, x, *wargs, compute_dtype,
+                         in_placements=[x_pl] + [t.placements for t in wargs]
+                         + [None])
+    if not counting():
+        raise ValueError(f"no kernel for device {x.device}")
+    return _meta(entry, x, wargs, compute_dtype)
+
+
 def _check_x(x: torch.Tensor, compute_dtype, ndim: int = 2) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -371,6 +417,9 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     cuda_build.refuse_grad("int8_matmul", x, codes, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, codes, scale, compute_dtype)
+    if x.is_meta:
+        return _on_meta("int8_matmul", int8_matmul, x, (codes, scale),
+                        compute_dtype)
     _check_x(x, compute_dtype)
     return _int8_launch(x[None], codes[None], scale[None], compute_dtype,
                         "int8_matmul", grouped=False)[0]
@@ -383,6 +432,9 @@ def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
     cuda_build.refuse_grad("nf4_matmul", x, packed, absmax)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, packed, absmax, compute_dtype)
+    if x.is_meta:
+        return _on_meta("nf4_matmul", nf4_matmul, x, (packed, absmax),
+                        compute_dtype)
     _check_x(x, compute_dtype)
     return _nf4_launch(x[None], packed[None], absmax[None], compute_dtype,
                        "nf4_matmul", grouped=False)[0]
@@ -396,6 +448,9 @@ def int8_matmul_grouped(x: torch.Tensor, codes: torch.Tensor,
     cuda_build.refuse_grad("int8_matmul_grouped", x, codes, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, codes, scale, compute_dtype)
+    if x.is_meta:
+        return _on_meta("int8_matmul_grouped", int8_matmul_grouped, x,
+                        (codes, scale), compute_dtype)
     _check_x(x, compute_dtype, ndim=3)
     return _int8_launch(x, codes, scale, compute_dtype,
                         "int8_matmul_grouped", grouped=True)
@@ -410,6 +465,9 @@ def nf4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
     cuda_build.refuse_grad("nf4_matmul_grouped", x, packed, absmax)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, packed, absmax, compute_dtype)
+    if x.is_meta:
+        return _on_meta("nf4_matmul_grouped", nf4_matmul_grouped, x,
+                        (packed, absmax), compute_dtype)
     _check_x(x, compute_dtype, ndim=3)
     return _nf4_launch(x, packed, absmax, compute_dtype,
                        "nf4_matmul_grouped", grouped=True)

@@ -23,6 +23,7 @@ from repro_torch.kernels.quant_matmul.kernel import (int8_matmul,
                                                      int8_matmul_grouped,
                                                      nf4_matmul,
                                                      nf4_matmul_grouped)
+from repro_torch.core.sharded import gather_last, is_sharded
 from repro_torch.quant.int8 import Int8Weight
 from repro_torch.quant.nf4 import NF4Weight
 
@@ -37,6 +38,8 @@ def int8_matmul_kernel(x: torch.Tensor, q: Int8Weight,
     x2, lead = _as_2d(x, compute_dtype)
     out = int8_matmul(x2, q.codes, q.scale, compute_dtype)
     if q.outlier_idx.shape[0]:
+        if is_sharded(x2):        # the dry run: its rows, whole
+            x2 = gather_last(x2)
         x_out = torch.index_select(x2, -1, q.outlier_idx.long())
         out = out + torch.matmul(
             x_out.float(), q.outlier_w.to(compute_dtype).float()

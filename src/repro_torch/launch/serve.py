@@ -25,7 +25,9 @@ weights, no device): the paper's request distribution
         --pattern fixed --interval-ms 50 --n 500
 
 Without ``--full`` the config is the reduced variant, as in the JAX
-launcher. ``--dry`` waits for ROADMAP A3 (launch and analysis).
+launcher. ``--dry`` runs the full config's decode step (decode_32k) on
+the production mesh on the meta device (:mod:`repro_torch.launch.
+dryrun`) and prints the reference's "dry ... OK" line.
 """
 from __future__ import annotations
 
@@ -158,7 +160,7 @@ def serve(arch: str = "llama-3.1-8b", fmt: str = "bfloat16", n: int = 24,
                        report=report)
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-3.1-8b",
                     choices=sorted(PAPER_MODELS) + list(ARCH_IDS))
@@ -177,7 +179,18 @@ def main() -> None:
     ap.add_argument("--sim", action="store_true",
                     help="the analytic backend alone at full width: no "
                          "weights, no device")
-    args = ap.parse_args()
+    ap.add_argument("--dry", action="store_true",
+                    help="the full config's decode step on the production "
+                         "mesh, on the meta device (launch.dryrun)")
+    args = ap.parse_args(argv)
+
+    if args.dry:
+        from repro_torch.launch import dryrun
+        dryrun.run_one(args.arch, "decode_32k", multi_pod=False,
+                       fmt="bfloat16", force=True, save=False,
+                       kv_quant=args.kv_quant)
+        print("dry serve_step lower+compile OK")
+        return
     arrivals = pattern_arrivals(args.pattern, args.n,
                                 args.interval_ms / 1e3)
 

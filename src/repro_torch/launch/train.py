@@ -6,9 +6,10 @@ REDUCED variant of ``--arch`` on the synthetic pipeline
 flags, on ``--device`` (``cuda`` by default; without a CUDA device,
 ``--device cpu``), and saves the params and optimizer state with
 :func:`~repro_torch.training.checkpoint.save_checkpoint` when given
-``--checkpoint`` (the reference's npz layout). ``--dry`` (lower and
-compile the full config on a production mesh) waits for the
-launch/analysis slice, ROADMAP A3, and raises.
+``--checkpoint`` (the reference's npz layout). ``--dry`` runs the full
+config's train step (train_4k) on the production mesh on the meta device
+(:mod:`repro_torch.launch.dryrun`) instead, and prints the reference's
+"dry ... OK" line.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b \
         --steps 50 --device cpu
@@ -36,14 +37,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device the model trains on (default cuda)")
     ap.add_argument("--dry", action="store_true",
-                    help="lower/compile the FULL config on the production "
-                         "mesh instead of training (ROADMAP A3)")
+                    help="run the FULL config's train step on the "
+                         "production mesh, on the meta device, instead of "
+                         "training")
     args = ap.parse_args(argv)
 
     if args.dry:
-        raise NotImplementedError(
-            "--dry lowers the full config on a production mesh: the "
-            "port's dry run is the launch/analysis slice, ROADMAP A3")
+        from repro_torch.launch import dryrun
+        dryrun.run_one(args.arch, "train_4k", multi_pod=False,
+                       fmt="bfloat16", force=True, save=False)
+        print("dry train_step lower+compile OK")
+        return
 
     cfg = get_config(args.arch).reduced()
     model = build_model(cfg, fmt=args.fmt, device=args.device)

@@ -10,8 +10,11 @@ precision policy, device) and exposes
 * ``prefill(params, batch, buf_len, lengths, with_aux=False)``
                                            -> (last logits, cache[, aux])
 * ``decode_step(params, tokens, cache)``   -> (logits, cache)
-* ``init_cache(batch, buf_len)``           -> empty decode cache (not audio)
+* ``init_cache(batch, buf_len, enc_len=0)`` -> empty decode cache (audio:
+                                              with ``enc_len`` frames)
 * ``logits(params, hidden)``               -> LM-head projection
+* ``abstract_params(quantize=False)``      -> the params tree on ``meta``
+* ``input_specs(shape)``                   -> meta stand-ins for the inputs
 
 Families: dense, moe and vlm share the decoder stack
 (:mod:`repro_torch.models.transformer`); audio adds a bidirectional
@@ -39,8 +42,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.precision import PrecisionPolicy, make_policy
+from repro_torch.core.sharded import split_heads
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
@@ -133,6 +137,22 @@ class Model:
         """Post-training quantization under the model's policy."""
         return quantize_params(params, self.policy)
 
+    def abstract_params(self, quantize: bool = False) -> Dict[str, Any]:
+        """The tree :meth:`init` builds (quantized with ``quantize``), with
+        no draw: every leaf an empty tensor of its shape and dtype on the
+        ``meta`` device, the reference's ``jax.eval_shape(model.init)``.
+        :meth:`init` runs on a CPU twin of the model under a fake-tensor
+        mode, which allocates nothing, and :meth:`quantize` on the meta
+        masters; the CPU and CUDA draws are not touched."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils._pytree import tree_map
+        twin = dataclasses.replace(self, device=torch.device("cpu"))
+        with FakeTensorMode():
+            fake = twin.init(torch.Generator())
+        params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta"), fake)
+        return self.quantize(params) if quantize else params
+
     # ------------------------------------------------------------------
     def _embed_inputs(self, params, batch: Dict[str, torch.Tensor]):
         """Token embeddings; for vlm, the patch embeddings in front."""
@@ -156,10 +176,12 @@ class Model:
         B, T = enc_out.shape[0], enc_out.shape[1]
         ks, vs = [], []
         for lp in params["layers"]:
-            ks.append(linear_apply(lp["cross"]["wk"], enc_out, self.policy)
-                      .reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
-            vs.append(linear_apply(lp["cross"]["wv"], enc_out, self.policy)
-                      .reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
+            ks.append(split_heads(
+                linear_apply(lp["cross"]["wk"], enc_out, self.policy),
+                cfg.num_kv_heads, cfg.head_dim))
+            vs.append(split_heads(
+                linear_apply(lp["cross"]["wv"], enc_out, self.policy),
+                cfg.num_kv_heads, cfg.head_dim))
         return torch.stack(ks), torch.stack(vs)
 
     # ------------------------------------------------------------------
@@ -311,16 +333,18 @@ class Model:
         h = rms_norm(h, params["final_norm"])
         return self.logits(params, h[:, -1]), cache
 
-    def init_cache(self, batch: int, buf_len: int) -> Dict[str, Any]:
+    def init_cache(self, batch: int, buf_len: int,
+                   enc_len: int = 0) -> Dict[str, Any]:
         """The empty decode cache of ``batch`` lanes and a ring of
         ``buf_len`` slots (at most the window). An audio cache holds its
-        encoder's K/V, which only :meth:`prefill` computes: it has no
-        empty form, and asking for one raises."""
+        encoder's K/V: with ``enc_len`` > 0 they are empty (zeros) over
+        that many frames, the reference's ``init_cache``; without, only
+        :meth:`prefill` computes them, and asking for the cache raises."""
         cfg, dev, adt = self.cfg, self.device, self.adt
-        if cfg.family == "audio":
+        if cfg.family == "audio" and enc_len <= 0:
             raise ValueError(f"{cfg.name}: an audio decode cache holds the "
                              f"encoder K/V of its frames; build it with "
-                             f"prefill")
+                             f"prefill, or give enc_len")
         W = min(buf_len, self.window) if self.window else buf_len
         if cfg.family in ATTENTION_FAMILIES:
             c = init_kv_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
@@ -334,6 +358,11 @@ class Model:
                                            dtype=torch.float32, device=dev)
                 c["v_scale"] = torch.zeros(c["v"].shape[:-1],
                                            dtype=torch.float32, device=dev)
+            if cfg.family == "audio":
+                enc = (cfg.num_layers, batch, enc_len, cfg.num_kv_heads,
+                       cfg.head_dim)
+                c["enc_k"] = torch.zeros(enc, dtype=adt, device=dev)
+                c["enc_v"] = torch.zeros(enc, dtype=adt, device=dev)
             return c
         dims = ssm_mod.ssm_dims(cfg)
         c = {
@@ -354,6 +383,26 @@ class Model:
             c["slot_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
                                        device=dev)
         return c
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Empty ``meta`` stand-ins for every input of a step at ``shape``:
+        tokens; labels for train; patches for vlm; frames for audio."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        specs = {"tokens": meta(B, S)}
+        if shape.kind == "train":
+            specs["labels"] = meta(B, S)
+        if cfg.family == "vlm":
+            specs["patches"] = meta(B, cfg.num_patches, cfg.d_model,
+                                    dtype=self.adt)
+        if cfg.family == "audio":
+            specs["frames"] = meta(B, S // cfg.enc_frames_ratio, cfg.d_model,
+                                   dtype=self.adt)
+        return specs
 
 
 def build_model(cfg: ModelConfig, fmt: str = "bfloat16",

@@ -29,10 +29,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.core.sharded import is_sharded, on_shards
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_rope, cache_write_decode,
                                        gated_mlp, ring_cache_pages,
-                                       rms_norm)
+                                       rms_norm, write_rows)
 from repro_torch.models.transformer import _project_qkv, init_decoder_layer
 from repro_torch.quant.apply import linear_apply
 
@@ -91,7 +92,11 @@ def forward_seq(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         if not kv:
             return torch.zeros((0, B, buf, cfg.num_kv_heads, cfg.head_dim),
                                dtype=x.dtype, device=x.device)
-        return F.pad(torch.stack(kv), (0, 0, 0, 0, 0, buf - S))
+        stacked = torch.stack(kv)
+        if is_sharded(stacked):              # the dry run: shard by shard
+            return on_shards(_pad_ring, list(stacked.placements), stacked,
+                             buf - S)
+        return _pad_ring(stacked, buf - S)
 
     idx = torch.arange(buf, device=x.device)[None, :]
     cache.update(
@@ -99,6 +104,12 @@ def forward_seq(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         slot_pos=torch.where(idx < lengths[:, None], idx,
                              torch.full_like(idx, -1)).to(torch.int32))
     return x, cache
+
+
+def _pad_ring(kv: torch.Tensor, n: int) -> torch.Tensor:
+    """The sites' K or V (sites, B, S, Kv, hd) padded by n empty slots
+    along S."""
+    return F.pad(kv, (0, 0, 0, 0, 0, n))
 
 
 def decode_step(params: Dict[str, Any], x: torch.Tensor,
@@ -113,8 +124,7 @@ def decode_step(params: Dict[str, Any], x: torch.Tensor,
     shared = params["shared"]
     pos = cache["pos"]                                   # (B,)
     W = cache["shared_k"].shape[2]
-    rows = torch.arange(B, device=x.device)
-    cache["slot_pos"][rows, pos.long() % W] = pos
+    write_rows(pos.long() % W, (cache["slot_pos"], pos))
     k_pages, v_pages, page_table, seq_lens = ring_cache_pages(
         cache["shared_k"], cache["shared_v"], pos)
     pos1 = pos[:, None]

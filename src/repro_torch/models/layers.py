@@ -10,7 +10,8 @@ the model's prefill and decode call the attention kernels instead
 over :func:`ring_cache_pages`). Scores, softmax and sums are f32.
 
 Where the reference builds new arrays, the cache functions here write
-into the cache tensors in place.
+into the cache tensors in place (:func:`write_rows`, :func:`write_layer`;
+on DTensors, in the dry run, shard by shard).
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.sharded import (gather_dim, is_sharded, on_shards,
+                                     split_lookup)
 from repro_torch.quant.apply import linear_apply
 
 NEG_INF = -1e30
@@ -38,6 +41,15 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
+    """Rows of the table. On DTensors (the dry run) a table split on its
+    vocabulary is looked up shard by shard and the rows summed (one
+    all-reduce), the reference's lowering."""
+    if is_sharded(tokens, table):
+        return split_lookup(
+            lambda tab, idx, inside: torch.where(
+                inside[..., None], tab[idx], torch.zeros((), dtype=tab.dtype,
+                                                         device=tab.device)),
+            table, tokens, tokens.placements, 0).to(dtype)
     return table[tokens.long()].to(dtype)
 
 
@@ -94,6 +106,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
     G = H // Kv
+    if is_sharded(q):
+        q = gather_dim(q, 2, Kv)
     scores = _gqa_scores(q.reshape(B, S, Kv, G, hd), k) / math.sqrt(hd)
     qpos = torch.arange(S, device=q.device) + q_offset
     kpos = torch.arange(T, device=q.device)
@@ -182,6 +196,56 @@ def init_kv_cache(n_layers: int, batch: int, buf_len: int, n_kv: int,
     }
 
 
+def write_rows(slot: torch.Tensor, *pairs) -> None:
+    """dst[b, slot[b]] = value[b] for every row b of each (dst, value) of
+    ``pairs``, in place: dst (B, W, ...), slot (B,) int, value (B, ...).
+    On DTensors (the dry run) each rank writes its own shards."""
+    dst, value = pairs[0]
+    if is_sharded(dst, slot, value):
+        for dst, value in pairs:
+            _write_shards(_write_rows_local, dst, 1, slot, value)
+        return
+    rows = torch.arange(dst.shape[0], device=dst.device)
+    for dst, value in pairs:
+        dst[rows, slot] = value.to(dst.dtype)
+
+
+def write_layer(dst: torch.Tensor, i: int, value: torch.Tensor) -> None:
+    """dst[i] = value, in place (one layer of a stacked cache); on
+    DTensors (the dry run) shard by shard."""
+    if is_sharded(dst, value):
+        def local(d, v):
+            d[i] = v
+
+        _write_shards(local, dst, 0, value)
+        return
+    dst[i] = value
+
+
+def _write_rows_local(dst, slot, value) -> None:
+    rows = torch.arange(dst.shape[0], device=dst.device)
+    dst[rows, slot % dst.shape[1]] = value.to(dst.dtype)
+
+
+def _write_shards(fn, dst: torch.Tensor, gone: int, *args) -> None:
+    """``fn(dst, *args)`` on each rank's shards, the arguments placed to
+    match dst's shards: dst's dim ``gone`` is indexed away in them (the
+    ring slot, or the layer), so a dim after it is one lower there; a
+    (B,) slot index follows dst's rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    pls = []
+    for a in args:
+        pl = []
+        for p in dst.placements:
+            d = p.dim if isinstance(p, Shard) else None
+            if d is None or d == gone or (a.ndim == 1 and d != 0):
+                pl.append(Replicate())
+            else:
+                pl.append(Shard(d - 1 if d > gone else d))
+        pls.append(pl)
+    on_shards(fn, None, dst, *args, in_placements=[dst.placements] + pls)
+
+
 def cache_write_decode(cache_layer_k: torch.Tensor,
                        cache_layer_v: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor,
@@ -189,11 +253,8 @@ def cache_write_decode(cache_layer_k: torch.Tensor,
     """Write one token's K/V at per-row ring slot pos % W, in place.
 
     cache_layer_k/v: (B, W, Kv, hd); k/v: (B, 1, Kv, hd); pos: (B,)."""
-    B, W = cache_layer_k.shape[0], cache_layer_k.shape[1]
-    slot = pos.long() % W
-    rows = torch.arange(B, device=pos.device)
-    cache_layer_k[rows, slot] = k[:, 0].to(cache_layer_k.dtype)
-    cache_layer_v[rows, slot] = v[:, 0].to(cache_layer_v.dtype)
+    write_rows(pos.long() % cache_layer_k.shape[1], (cache_layer_k, k[:, 0]),
+               (cache_layer_v, v[:, 0]))
 
 
 def decode_attention_mask(slot_pos: torch.Tensor, pos: torch.Tensor,
@@ -251,6 +312,8 @@ def ring_cache_pages(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
     prefill (slot_pos -1) lie at or past pos + 1 until decode overwrites
     them; after it wraps, every slot holds a position <= pos. A released
     lane keeps decoding in place and follows the same rule."""
+    if is_sharded(k, v, pos):
+        return _ring_cache_pages_sharded(k, v, pos)
     *lead, B, W, Kv, hd = k.shape
     page = ring_page_size(W)
     n = W // page
@@ -260,6 +323,28 @@ def ring_cache_pages(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
                               device=k.device).view(B, n)
     seq_lens = torch.clamp(pos + 1, max=W).to(torch.int32)
     return k_pages, v_pages, page_table, seq_lens
+
+
+def _ring_cache_pages_sharded(k, v, pos):
+    """:func:`ring_cache_pages` on each rank's shards (the dry run): the
+    pool's page axis is sharded wherever the rows or the ring are, the
+    page table on its rows and pages, the lengths on the rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    b_dim = k.ndim - 4
+    pool, table, lens = [], [], []
+    for p in k.placements:
+        d = p.dim if isinstance(p, Shard) else None
+        if d in (b_dim, b_dim + 1):
+            pool.append(Shard(b_dim))
+            table.append(Shard(d - b_dim))
+            lens.append(Shard(0) if d == b_dim else Replicate())
+        else:
+            pool.append(Replicate() if d is None else
+                        Shard(d - 1 if d > b_dim else d))
+            table.append(Replicate())
+            lens.append(Replicate())
+    return on_shards(ring_cache_pages, (pool, pool, table, lens), k, v, pos,
+                     in_placements=[k.placements, k.placements, lens])
 
 
 def encoder_kv_pages(k: torch.Tensor, v: torch.Tensor):

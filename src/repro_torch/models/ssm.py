@@ -36,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.models.layers import rms_norm
+from repro_torch.core.sharded import gather_last, is_sharded, on_shards
+from repro_torch.models.layers import rms_norm, write_layer
 from repro_torch.quant.apply import linear_apply
 
 #: the SSD scan's chunk length, the reference's; a sequence it does not
@@ -58,6 +59,8 @@ def ssm_dims(cfg: ModelConfig) -> Dict[str, int]:
 def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
     d = ssm_dims(cfg)
     di = d["d_inner"]
+    if is_sharded(zxbcdt):
+        zxbcdt = gather_last(zxbcdt)
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:di + d["conv_channels"]]
     dt = zxbcdt[..., di + d["conv_channels"]:]
@@ -159,6 +162,47 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.reshape(b, S, nh, hd).to(x.dtype), h.float()
 
 
+# Where each argument, then each output, of the SSM's ops is split in the
+# dry run: (its dim on a mesh axis that splits the rows, its dim on the
+# "model" axis when that divides the heads or channels); None: replicated.
+_CONV = ((0, None, None, 0),                   # xBC, conv_w, conv_b -> y
+         (2, 1, 0, 2))
+_CONV_STEP = ((0, 0, None, None, 0, 0),        # x_t, cache, w, b -> x_t,
+              (1, 2, 1, 0, 1, 2))              # cache
+_SSD_STEP = ((0, 0, None, 0, 0, None, 0, 0, 0),    # x dt A B C D h -> y h
+             (1, 1, 0, None, None, 0, 1, 1, 1))
+_SSD = ((0, 0, None, 0, 0, None, 0, 0, 0),         # x dt A B C D h0 -> y h
+        (2, 2, 0, None, None, 0, 1, 2, 1))
+
+
+def _sharded(fn, dims, *args):
+    """``fn(*args)``; on DTensors (the dry run) on each rank's shards, as
+    ``dims`` (one of the tables above) places them. On a mesh axis that
+    splits the first argument's rows, every argument and output is split
+    on its rows dim; on the ``model`` axis, when it divides the first
+    argument's heads (or channels), on its heads dim; elsewhere all are
+    replicated."""
+    if not is_sharded(*args):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    rows, heads = dims
+    lead = args[0]
+    mesh = lead.device_mesh
+    pls = [[] for _ in rows]
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, lead.placements)):
+        if isinstance(p, Shard) and p.dim == 0:
+            pick = rows
+        elif name == "model" and lead.shape[heads[0]] % mesh.size(i) == 0:
+            pick = heads
+        else:
+            pick = (None,) * len(rows)
+        for lst, d in zip(pls, pick):
+            lst.append(Replicate() if d is None else Shard(d))
+    outs = pls[len(args):]
+    return on_shards(fn, outs[0] if len(outs) == 1 else tuple(outs), *args,
+                     in_placements=pls[:len(args)])
+
+
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                     h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -180,6 +224,8 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _heads(xBC: torch.Tensor, d: Dict[str, int], lead):
     """(x (*lead, nh, hd), B, C (*lead, ng, ds)) from the conv output."""
     di, gs = d["d_inner"], d["ngroups"] * d["dstate"]
+    if is_sharded(xBC):
+        xBC = gather_last(xBC)
     return (xBC[..., :di].reshape(*lead, d["nheads"], d["headdim"]),
             xBC[..., di:di + gs].reshape(*lead, d["ngroups"], d["dstate"]),
             xBC[..., di + gs:].reshape(*lead, d["ngroups"], d["dstate"]))
@@ -218,12 +264,13 @@ def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         xBC, 1, idx.clamp(0, S - 1)[:, :, None].expand(-1, -1,
                                                         xBC.shape[-1]))
     tail = tail * valid[:, :, None].to(tail.dtype)
-    xs, Bs, Cs = _heads(causal_conv(xBC, p["conv_w"], p["conv_b"]), d,
-                        (b, S))
+    xs, Bs, Cs = _heads(_sharded(causal_conv, _CONV, xBC, p["conv_w"],
+                                 p["conv_b"]), d, (b, S))
     dt = _softplus(dt.float() + p["dt_bias"].float()) \
         * seq_mask[..., None].float()
     A = -torch.exp(p["A_log"].float())
-    y, h = ssd_chunked(xs, dt, A, Bs, Cs, p["D"].float(), h0)
+    y, h = _sharded(ssd_chunked, _SSD, xs, dt, A, Bs, Cs, p["D"].float(),
+                    h0)
     out = _gated_out(p, y.reshape(b, S, d["d_inner"]), z, policy)
     return res + out, h, tail
 
@@ -239,12 +286,14 @@ def mamba_block_decode(p: Dict[str, Any], x: torch.Tensor,
     xn = rms_norm(x, p["norm"])
     zxbcdt = linear_apply(p["w_in"], xn, policy)
     z, xBC, dt = _split_in_proj(zxbcdt, cfg)
-    xBC, conv_cache = conv_step(xBC, conv_cache, p["conv_w"], p["conv_b"])
+    xBC, conv_cache = _sharded(conv_step, _CONV_STEP, xBC, conv_cache,
+                               p["conv_w"], p["conv_b"])
     b = x.shape[0]
     xs, Bs, Cs = _heads(xBC, d, (b,))
     dt = _softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    y, h = ssd_decode_step(xs, dt, A, Bs, Cs, p["D"].float(), h)
+    y, h = _sharded(ssd_decode_step, _SSD_STEP, xs, dt, A, Bs, Cs,
+                    p["D"].float(), h)
     out = _gated_out(p, y.reshape(b, d["d_inner"]), z, policy)
     return res + out, h, conv_cache
 
@@ -289,8 +338,8 @@ def decode_step(layers, x2d: torch.Tensor, cache: Dict[str, Any],
         x2d, h, conv = mamba_block_decode(lp, x2d, cfg, policy,
                                           cache["ssm_state"][i],
                                           cache["conv"][i])
-        cache["ssm_state"][i] = h
-        cache["conv"][i] = conv
+        write_layer(cache["ssm_state"], i, h)
+        write_layer(cache["conv"], i, conv)
         if after_layer is not None:
             x2d = after_layer(i, x2d)
     cache["pos"] = cache["pos"] + 1

@@ -27,12 +27,13 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.core.sharded import split_heads
 from repro_torch.models.layers import (apply_rope, attention,
                                        cache_write_decode,
                                        decode_attention_mask,
                                        encoder_kv_pages, gated_mlp,
                                        PREFILL_PAST_RING, ring_cache_pages,
-                                       rms_norm)
+                                       rms_norm, write_rows)
 from repro_torch.quant.apply import linear_apply
 
 
@@ -128,7 +129,6 @@ def init_decoder_layer(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 def _project_qkv(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                  policy: PrecisionPolicy):
-    B, S = x.shape[0], x.shape[1]
     hd = cfg.head_dim
     q = linear_apply(p["wq"], x, policy)
     k = linear_apply(p["wk"], x, policy)
@@ -137,9 +137,9 @@ def _project_qkv(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    return (q.reshape(B, S, cfg.num_heads, hd),
-            k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+    return (split_heads(q, cfg.num_heads, hd),
+            split_heads(k, cfg.num_kv_heads, hd),
+            split_heads(v, cfg.num_kv_heads, hd))
 
 
 def attn_block_seq(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
@@ -172,8 +172,8 @@ def cross_attn_block(p: Dict[str, Any], x: torch.Tensor,
     enc_k/enc_v are not read."""
     B, S = x.shape[0], x.shape[1]
     xn = rms_norm(x, p["cross_norm"])
-    q = linear_apply(p["cross"]["wq"], xn, policy) \
-        .reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = split_heads(linear_apply(p["cross"]["wq"], xn, policy),
+                    cfg.num_heads, cfg.head_dim)
     if pages is None:
         o = flash_attention(q, enc_k, enc_v, causal=False)
     else:
@@ -282,9 +282,8 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
     pos = cache["pos"]                                         # (B,)
     W = cache["k"].shape[2]
     B = x.shape[0]
-    rows = torch.arange(B, device=x.device)
     slot = pos.long() % W
-    cache["slot_pos"][rows, slot] = pos
+    write_rows(slot, (cache["slot_pos"], pos))
     quant = "k_scale" in cache
     # The paged kernel sees the first min(pos + 1, W) slots of each row,
     # which are exactly the slots the decode mask allows while every row
@@ -315,10 +314,9 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
         if quant:
             kq, ksc = quantize_kv(k)
             vq, vsc = quantize_kv(v)
-            cache_write_decode(ck, cv, kq, vq, pos)
             ks, vs = cache["k_scale"][i], cache["v_scale"][i]
-            ks[rows, slot] = ksc[:, 0]
-            vs[rows, slot] = vsc[:, 0]
+            write_rows(slot, (ck, kq[:, 0]), (cv, vq[:, 0]),
+                       (ks, ksc[:, 0]), (vs, vsc[:, 0]))
             kf = dequantize_kv(ck, ks, policy.activation_dtype)
             vf = dequantize_kv(cv, vs, policy.activation_dtype)
             o = attention(q, kf, vf, mask=mask)

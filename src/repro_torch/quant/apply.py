@@ -23,6 +23,8 @@ import torch
 
 from repro_torch.core.precision import INT8, NF4, PrecisionPolicy
 from repro_torch.kernels.quant_matmul import ops as qops
+from repro_torch.core.sharded import (is_sharded, reduce_partial,
+                                     sharded_matmul)
 from repro_torch.quant.int8 import Int8Weight, dequantize_int8, \
     quantize_int8
 from repro_torch.quant.nf4 import NF4Weight, dequantize_nf4, quantize_nf4
@@ -44,8 +46,22 @@ def linear_apply(w: Any, x: torch.Tensor,
     The output dtype is the compute dtype. For 16-bit policies the
     matmul accumulates in f32 and rounds its output to the compute dtype
     once, as the reference's ``preferred_element_type`` rule does; f32
-    policies stay f32 end to end."""
+    policies stay f32 end to end. On DTensors (the dry run) a plain
+    weight's product is :func:`~repro_torch.core.sharded.
+    sharded_matmul`, and the partial sums of a product sharded on its
+    inner dim (``wo``, ``w_down``) are all-reduced at once, so that
+    activations keep their features replicated between blocks, as the
+    reference's sharding leaves them."""
     cd = policy.compute_dtype
+    if not x.is_meta:
+        return _linear(w, x, cd)
+    if isinstance(w, torch.Tensor) and is_sharded(x, w):
+        return sharded_matmul(x, w, cd)
+    y = _linear(w, x, cd)
+    return reduce_partial(y) if is_sharded(y) else y
+
+
+def _linear(w: Any, x: torch.Tensor, cd) -> torch.Tensor:
     if isinstance(w, Int8Weight):
         if w.codes.ndim == 3:
             return qops.int8_matmul_grouped_kernel(x, w, compute_dtype=cd)

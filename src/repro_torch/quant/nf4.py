@@ -51,10 +51,11 @@ def _nearest_code(x: torch.Tensor) -> torch.Tensor:
     """Index of the nearest NF4 code point for x in [-1, 1] (first index
     on ties, as ``jnp.argmin``). Works in chunks along the last axis so
     that a full-width weight never builds its whole (..., 16) distance
-    tensor at once."""
+    tensor at once (on the meta device, which holds no data, one chunk)."""
     cb = codebook(x.device)
     rows = x[..., :1].numel()
-    step = max(1, _NEAREST_CHUNK_ELEMS // (16 * rows))
+    step = (x.shape[-1] if x.device.type == "meta"
+            else max(1, _NEAREST_CHUNK_ELEMS // (16 * rows)))
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     for j in range(0, x.shape[-1], step):
         d = (x[..., j:j + step, None] - cb).abs()

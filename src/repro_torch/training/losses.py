@@ -14,6 +14,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.sharded import (is_sharded, reduce_partial,
+                                     split_lookup)
 from repro_torch.quant.apply import linear_apply
 
 LOSS_CHUNK = 512
@@ -38,13 +40,38 @@ def chunked_cross_entropy(hidden: torch.Tensor, lm_head: Any,
     for c0 in range(0, S, chunk):
         logits = linear_apply(lm_head, hidden[:, c0:c0 + chunk],
                               policy).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+        logz = _logsumexp(logits)
+        gold = gold_logits(logits, labels[:, c0:c0 + chunk])
         mc = mask[:, c0:c0 + chunk]
         tot = tot + ((logz - gold) * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim; on DTensors with the vocabulary split,
+    by a max and a sum each all-reduced (the reference's lowering)."""
+    if not is_sharded(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = reduce_partial(logits.detach().amax(dim=-1))
+    return reduce_partial((logits - m[..., None]).exp().sum(dim=-1)).log() \
+        + m
+
+
+def gold_logits(logits: torch.Tensor, labels: torch.Tensor
+                ) -> torch.Tensor:
+    """logits (..., V) at labels (...). On DTensors (the dry run) with
+    the vocabulary split, each rank picks the labels in its part and one
+    all-reduce sums them, the reference's lowering."""
+    if not is_sharded(logits, labels):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+    def pick(lg, idx, inside):
+        g = torch.gather(lg, -1, idx[..., None])[..., 0]
+        return torch.where(inside, g, torch.zeros_like(g))
+
+    # the labels follow the logits' rows
+    return split_lookup(pick, logits, labels, logits.placements, -1)
 
 
 def lm_loss(model, params, batch: Dict[str, torch.Tensor],

@@ -15,8 +15,57 @@ from repro.training.checkpoint import save_checkpoint
 from repro_torch.weights import load_jax_checkpoint
 
 
+# ---------------------------------------------------------------------------
+# diagnostics for an f32 comparison that misses now and then (ROADMAP C12)
+# ---------------------------------------------------------------------------
+_COMPARED_IN = []        # this process's test files, in the order seen
+#                          (by the helpers here that they called)
+
+
+def process_state() -> str:
+    """The process-global state an f32 product on the CPU depends on, and
+    the test files this process compared arrays in before."""
+    mk = torch.backends.mkldnn
+    state = {
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "mkldnn.enabled": mk.enabled,
+        "mkldnn.matmul.fp32_precision": getattr(
+            getattr(mk, "matmul", None), "fp32_precision", None),
+        "num_threads": torch.get_num_threads(),
+        "num_interop_threads": torch.get_num_interop_threads(),
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+        "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+        "jax_enable_x64": jax.config.jax_enable_x64,
+        "worker": os.environ.get("PYTEST_XDIST_WORKER"),
+        "env": {k: v for k, v in os.environ.items()
+                if k.startswith(("ONEDNN", "DNNL", "MKL", "OMP", "XLA"))},
+        "earlier_test_files": _COMPARED_IN[:-1],   # that used this module
+    }
+    return "process state (ROADMAP C12): " + repr(state)
+
+
+def _note_test_file() -> None:
+    test = os.environ.get("PYTEST_CURRENT_TEST", "")
+    name = test.split("::")[0]
+    if name and (not _COMPARED_IN or _COMPARED_IN[-1] != name):
+        if name in _COMPARED_IN:
+            _COMPARED_IN.remove(name)
+        _COMPARED_IN.append(name)
+
+
+def check_allclose(actual, desired, **kwargs) -> None:
+    """``numpy.testing.assert_allclose``, whose failure message also
+    carries :func:`process_state`: the comparisons ROADMAP C12 names."""
+    _note_test_file()
+    try:
+        np.testing.assert_allclose(actual, desired, **kwargs)
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n{process_state()}") from None
+
+
 def to_torch(a) -> torch.Tensor:
     """A JAX (or numpy) array as a CPU tensor of the same dtype."""
+    _note_test_file()
     a = np.asarray(a)
     if a.dtype == jnp.bfloat16:
         return torch.from_numpy(a.view(np.int16).copy()) \
@@ -26,6 +75,7 @@ def to_torch(a) -> torch.Tensor:
 
 def to_numpy(t) -> np.ndarray:
     """A tensor or JAX array as f32 numpy (bf16 widened exactly)."""
+    _note_test_file()
     if isinstance(t, torch.Tensor):
         return t.detach().float().numpy()
     return np.asarray(t, np.float32)

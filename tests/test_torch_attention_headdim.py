@@ -20,7 +20,7 @@ from repro.kernels.paged_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
 
-from _torch_parity import to_numpy, to_torch  # noqa: E402
+from _torch_parity import check_allclose, to_numpy, to_torch  # noqa: E402
 
 F32_TOL = 2e-5      # tests/test_kernels.py's f32 attention tolerance
 BF16_ABS = 0.05     # and its bf16 flash bound, absolute
@@ -50,12 +50,11 @@ def test_flash_plain_matches_pallas(d, B, S, H, Kv, window):
                                    torch.from_numpy(v), causal=True,
                                    window=window)
     assert got.shape == (B, S, H, d)
-    np.testing.assert_allclose(to_numpy(got), to_numpy(ref), rtol=F32_TOL,
-                               atol=F32_TOL)
+    check_allclose(to_numpy(got), to_numpy(ref), rtol=F32_TOL, atol=F32_TOL)
     oracle = attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            causal=True, window=window)
-    np.testing.assert_allclose(to_numpy(got), to_numpy(oracle),
-                               rtol=F32_TOL, atol=F32_TOL)
+    check_allclose(to_numpy(got), to_numpy(oracle), rtol=F32_TOL,
+                   atol=F32_TOL)
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)

@@ -20,7 +20,7 @@ from repro_torch.kernels.flash_attention import ops as pt_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as pt_ref  # noqa: E402
 from repro_torch.models import layers as pl  # noqa: E402
 
-from _torch_parity import to_numpy, to_torch  # noqa: E402
+from _torch_parity import check_allclose, to_numpy, to_torch  # noqa: E402
 
 F32_TOL = 2e-5      # tests/test_kernels.py's f32 attention tolerance
 BF16_ABS = 0.05     # and its bf16 flash bound, absolute against f32
@@ -119,8 +119,8 @@ def test_plain_tiling_does_not_change_the_result(tile):
     got = _plain(q, k, v, causal=True, window=30, tile=tile)
     direct = pl.attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), causal=True, window=30)
-    np.testing.assert_allclose(to_numpy(got), to_numpy(direct),
-                               rtol=F32_TOL, atol=F32_TOL)
+    check_allclose(to_numpy(got), to_numpy(direct), rtol=F32_TOL,
+                   atol=F32_TOL)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),

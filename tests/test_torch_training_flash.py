@@ -30,6 +30,7 @@ from repro_torch.kernels.quant_matmul import kernel as QK  # noqa: E402
 from repro_torch.quant import int8 as pt_int8  # noqa: E402
 from repro_torch.quant import nf4 as pt_nf4  # noqa: E402
 
+from _torch_parity import check_allclose  # noqa: E402
 from _torch_training import few_threads  # noqa: E402,F401
 
 TOL = 2e-5      # tests/test_kernels.py's f32 attention tolerance
@@ -89,8 +90,7 @@ def _reference(case, rounded=False):
 
 
 def _close(got, want):
-    np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
-                               atol=TOL)
+    check_allclose(got.detach().numpy(), want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Host wall time of one decode step of the PyTorch/CUDA port, for one
+tree, on one NVIDIA GPU.
+
+    python3 tools/decode_step_times.py [--src DIR] [--fmt bfloat16 int8] [--steps 300]
+
+``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
+timed (default: this checkout's), so that one call can time two commits
+in turns, each from its own ``git archive``. For each format it builds
+llama-3.1-8b at full width with random weights from seed 0 and an empty
+cache of 4 lanes over a ring of 512 (chip_smoke's serve cells), then
+runs ``Model.decode_step`` ``--warmup`` times and ``--steps`` times
+more, each step timed on the host from its call to its logits' argmax on
+the host (the serving loop's reading). It prints one JSON line a format:
+the steps' median, quartiles, min and mean in ms. The first line holds
+the card's name and power limit. Exits non-zero when no CUDA device is
+visible.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--fmt", nargs="+", default=["bfloat16", "int8"])
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--warmup", type=int, default=20)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("decode_step_times: no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.configs.paper_zoo import PAPER_MODELS
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.kernels.quant_matmul import kernel as K
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models.api import build_model
+    if not Path(FK.__file__).resolve().is_relative_to(
+            Path(args.src).resolve()):
+        raise SystemExit(f"decode_step_times: imported {FK.__file__}, not "
+                         f"the tree under {args.src}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "src": args.src}), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.build(src for m in (K, FK, PK) for src in m.SOURCES.values())
+    batch, ring = 4, 512
+    for fmt in args.fmt:
+        cfg = PAPER_MODELS["llama-3.1-8b"]
+        model = build_model(cfg, fmt=fmt, device="cuda")
+        params = build_params(model, seed=0)
+        cache = model.init_cache(batch, ring)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        times = []
+        with torch.no_grad():
+            for i in range(args.warmup + args.steps):
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(params, toks, cache)
+                nxt = logits.argmax(-1).cpu()
+                if i >= args.warmup:
+                    times.append(1e3 * (time.perf_counter() - t0))
+                toks = nxt.to(device="cuda", dtype=torch.int32)[:, None]
+        q1, med, q3 = statistics.quantiles(times, n=4)
+        print(json.dumps({"fmt": fmt, "steps": len(times),
+                          "median_ms": med, "q1_ms": q1, "q3_ms": q3,
+                          "min_ms": min(times),
+                          "mean_ms": statistics.mean(times)}), flush=True)
+        del model, params, cache
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
