@@ -65,8 +65,18 @@ non-zero exit code:
    a batched prefill: C up to 512) in the formats the cell serves,
    against its plain version, each call one kernel node, beside
    ``torch.bmm`` on the weights already dequantized to bf16 and a Python
-   loop of the 2-D kernel over the experts. Every attention geometry a
-   serve cell runs must be among the flash and paged cells.
+   loop of the 2-D kernel over the experts, in three occupancy cases:
+   (a) every row kept (rows=None, timed: ``kernel_ms``); (b) the kept
+   rows of a seeded top-8 routing of the cell's tokens through the
+   port's dispatch (``dispatch``: its active experts, kernel time and
+   bound over their weights); (c) no expert kept (``none_kept``). Past
+   the counts the output must be exact zeros, and the first kept
+   expert's rows the same bits alone, among the others and with
+   rows=None. Then one qwen3-moe-30b-a3b MoE layer at full width, batch-4
+   decode, int8 and nf4, must give the same bits with the dispatch's
+   counts and with rows=None (the ``moe_layer_rows`` line). Every
+   attention geometry a serve cell runs must be among the flash and
+   paged cells.
 4. serve: llama-3.1-8b at full width (random weights from
    ``torch.Generator(device="cuda").manual_seed(0)``) under each of the
    five formats: a continuous run of 8 requests through
@@ -303,16 +313,21 @@ REPLACES = {
 ATTN_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 ATTN_DTYPES = ("bfloat16", "float32")
 # the serve cells' grouped expert products under the reference's capacity
-# dispatch (moe.py, _expert_dense), in both formats: (arch, E, C, K, N)
-# of qwen3-moe-30b-a3b's w_gate/w_up and w_down at decode (C = 8 rows an
-# expert: 4 tokens, top 8 of 128 experts, capacity factor 1.25, at least
-# 8) and at prefill (C = 40: 512 tokens), and granite-moe-1b-a400m's (32
-# experts: C = 8 and 160, two row tiles). quant_cells adds every other
-# capacity the serve cells run.
-GROUPED_SHAPES = [("qwen3-moe-30b-a3b", 128, C, Kd, N)
-                  for C in (8, 40) for Kd, N in ((2048, 768), (768, 2048))] \
-    + [("granite-moe-1b-a400m", 32, C, Kd, N)
-       for C in (8, 160) for Kd, N in ((1024, 512), (512, 1024))]
+# dispatch (moe.py, _expert_dense), in both formats: (arch, E, C, tokens,
+# K, N) of qwen3-moe-30b-a3b's w_gate/w_up and w_down at decode (C = 8
+# rows an expert: 4 tokens, top 8 of 128 experts, capacity factor 1.25,
+# at least 8) and at prefill (C = 40: 512 tokens), and
+# granite-moe-1b-a400m's (32 experts: C = 8 and 160, two row tiles).
+# quant_cells adds every other capacity the serve cells run, with the
+# tokens that give it.
+GROUPED_SHAPES = [("qwen3-moe-30b-a3b", 128, C, T, Kd, N)
+                  for C, T in ((8, 4), (40, 512))
+                  for Kd, N in ((2048, 768), (768, 2048))] \
+    + [("granite-moe-1b-a400m", 32, C, T, Kd, N)
+       for C, T in ((8, 4), (160, 512))
+       for Kd, N in ((1024, 512), (512, 1024))]
+# both MoE configs route each token to its top 8 experts
+GROUPED_TOP_K = 8
 HEADLINE_GROUPED = (128, 8, 2048, 768)
 LLAMA_HEADS = (32, 8, 128)          # H, Kv, head_dim
 QWEN_HEADS = (14, 2, 64)            # qwen2.5-0.5b
@@ -448,7 +463,7 @@ def quant_cells(configs) -> tuple:
     prefill, under the config's capacity factor and the no-drop one (E /
     top_k) of the logit pair. ``configs`` maps an arch to its config.
     Returns ({(name, K, N): {M: [arch, ...]}}, {(name, E, K, N): {C:
-    [arch, ...]}})."""
+    {arch: tokens routed}}})."""
     from repro_torch.models.moe import expert_capacity
     two_d, grouped = {}, {}
 
@@ -461,9 +476,13 @@ def quant_cells(configs) -> tuple:
     for Kd, N in SHAPES_KN:
         for name in ("int8_matmul", "nf4_matmul"):
             add(two_d, (name, Kd, N), SHAPES_M, "llama-3.1-8b")
-    for arch, E, C, Kd, N in GROUPED_SHAPES:
+    def add_grouped(key, C, arch, tokens):
+        grouped.setdefault(key, {}).setdefault(C, {}).setdefault(arch,
+                                                                 tokens)
+
+    for arch, E, C, T, Kd, N in GROUPED_SHAPES:
         for name in ("int8_matmul", "nf4_matmul"):
-            add(grouped, (name + "_grouped", E, Kd, N), [C], arch)
+            add_grouped((name + "_grouped", E, Kd, N), C, arch, T)
     cells = [(arch, formats, kw, [1, kw["max_batch"],
                                   kw["max_prefill_batch"]
                                   * kw["prompt_len"][1]])
@@ -493,12 +512,14 @@ def quant_cells(configs) -> tuple:
                 continue
             batched = kw["max_prefill_batch"] * kw["prompt_len"][1]
             E, k = cfg.num_experts, cfg.experts_per_token
-            cs = sorted({expert_capacity(T, E, k, cf)
-                         for T in (kw["max_batch"], kw["prompt_len"][1],
-                                   batched)
-                         for cf in (cfg.moe_capacity_factor, E / k)})
-            for Kd, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
-                add(grouped, (name + "_grouped", E, Kd, N), cs, arch)
+            assert k == GROUPED_TOP_K, arch
+            for T in (kw["max_batch"], kw["prompt_len"][1], batched):
+                for cf in (cfg.moe_capacity_factor, E / k):
+                    C = expert_capacity(T, E, k, cf)
+                    for Kd, N in ((cfg.d_model, cfg.d_ff),
+                                  (cfg.d_ff, cfg.d_model)):
+                        add_grouped((name + "_grouped", E, Kd, N), C, arch,
+                                    T)
     return two_d, grouped
 
 
@@ -576,18 +597,86 @@ def kernel_phase(torch, K, cells):
     return rows
 
 
+def dispatch_rows(torch, E: int, C: int, tokens: int, seed: int):
+    """Each expert's kept rows (int32 (E,) on the card) of a seeded top-8
+    routing of ``tokens`` tokens through the port's capacity dispatch
+    (``models/moe.py::_dispatch``), as an MoE layer hands them to its
+    grouped products."""
+    from repro_torch.models.moe import _dispatch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((tokens, 256), generator=gen, device="cuda")
+    w_router = torch.randn((256, E), generator=gen, device="cuda")
+    return _dispatch(x, w_router, GROUPED_TOP_K, E, C)[1][-1]
+
+
+def kept_rows_cost(cost, E: int, C: int, K: int, N: int, active_bytes: int,
+                   kept: int) -> tuple:
+    """(bytes, FLOPs) of a grouped call that computes only ``kept`` rows of
+    the active experts (their weights ``active_bytes``): each kept row of x
+    read and its products (``kernels/cost.py::quant_matmul`` with a row a
+    problem), and the whole (E, C, N) output written, its zero rows
+    included."""
+    nbytes, flops = cost.quant_matmul(1, K, N, active_bytes, 2, kept)
+    return nbytes + 2 * (E * C - kept) * N, flops
+
+
+def _grouped_occupancy(torch, K, entry, x, wargs, rows, bf16, wbytes):
+    """Case (b) or (c) of a grouped cell: the kernel with ``rows`` against
+    the plain version with them; its rows past the counts must be exact
+    zeros (x's rows there are zero, as the dispatch leaves them). Returns
+    (output, max abs error, max rel error, active experts, the active
+    experts' weight bytes)."""
+    name = entry.replace("_grouped", "")
+    E, C, _ = x.shape
+    kern, plain = getattr(K, entry), getattr(K, name + "_plain")
+    got = kern(x, *wargs, bf16, rows)
+    ref = plain(x, *wargs, bf16, rows)
+    torch.cuda.synchronize()
+    past = torch.arange(C, device="cuda") >= rows[:, None]
+    if got[past].view(torch.int16).any():
+        raise SystemExit(f"{entry}: rows past the counts are not zero")
+    diff = (got.float() - ref.float()).abs().max().item()
+    rel = diff / max(ref.float().abs().max().item(), 1e-30)
+    active = int((rows > 0).sum())
+    return got, diff, rel, active, wbytes * active // E
+
+
+def _check_alone(torch, K, entry, x, wargs, rows, bf16, got) -> int:
+    """The first expert the dispatch keeps gets the same bits alone, among
+    the dispatch's experts (``got``) and with rows=None. Returns it."""
+    e = int(torch.nonzero(rows)[0])
+    r = int(rows[e])
+    alone = torch.zeros_like(rows)
+    alone[e] = r
+    kern = getattr(K, entry)
+    for other in (kern(x, *wargs, bf16, alone), kern(x, *wargs, bf16)):
+        if not torch.equal(other[e, :r], got[e, :r]):
+            raise SystemExit(f"{entry}: expert {e}'s kept rows depend on "
+                             f"the other experts' counts")
+    return e
+
+
 def grouped_phase(torch, K, cells):
     """The grouped launch of both quant kernels (all E experts of an MoE
     projection in one launch) against its plain grouped version at
-    ``cells`` (:func:`quant_cells`), bf16; each call one kernel node. Two
-    yardsticks: ``torch.bmm`` on the weights already dequantized to bf16
-    (less work: no dequantization), and a Python loop of the 2-D kernel
-    over the experts, timed from eager launches (what E launches cost the
-    host)."""
+    ``cells`` (:func:`quant_cells`), bf16, in three cases: (a) every row
+    kept (random x, rows=None: the worst case, timed); (b) the kept rows
+    of a seeded top-8 routing of the cell's tokens through the port's
+    dispatch (:func:`dispatch_rows`; x zero past the counts; timed, with
+    its bound over the active experts' weights beside the all-expert
+    one, which counts the kept rows' reads and products and the whole
+    output written: :func:`kept_rows_cost`); (c) no expert kept
+    (checked). Past the counts the output must
+    be exact zeros; the first kept expert's rows the same bits alone,
+    among the dispatch's experts and with rows=None; each call one kernel
+    node. Two yardsticks at (a): ``torch.bmm`` on the weights already
+    dequantized to bf16 (less work: no dequantization), and a Python loop
+    of the 2-D kernel over the experts, timed from eager launches (what E
+    launches cost the host). Ends with :func:`moe_layer_rows_check`."""
     from repro_torch.kernels import cost
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows = {"int8_matmul_grouped": [], "nf4_matmul_grouped": []}
+    rows_out = {"int8_matmul_grouped": [], "nf4_matmul_grouped": []}
     for (entry, E, Kd, N), cs in cells.items():
         name = entry.replace("_grouped", "")
         w = torch.randn((E, Kd, N), generator=gen, device="cuda") * Kd ** -0.5
@@ -600,6 +689,7 @@ def grouped_phase(torch, K, cells):
         lsets = [(wdeq,)] + [(wdeq.clone(),)
                              for _ in range(_copies(2 * E * Kd * N) - 1)]
         for C in sorted(cs):
+            tokens = min(cs[C].values())
             x = torch.randn((E, C, Kd), generator=gen,
                             device="cuda").to(bf16)
             before = dict(K.LOOP_LAUNCHES[entry])
@@ -625,24 +715,115 @@ def grouped_phase(torch, K, cells):
             loop_ms = timed_ms(torch, loop_2d, wsets, reps=3, graph=False)
             nbytes, flops = cost.quant_matmul(C, Kd, N, wbytes, 2, E)
             bound, by = _bound(nbytes, flops, "bfloat16")
+
+            # (b) the dispatch's counts, x zero past them
+            rows = dispatch_rows(torch, E, C, tokens, seed=E + C)
+            xb = x * (torch.arange(C, device="cuda")
+                      < rows[:, None])[..., None].to(bf16)
+            got_b, diff_b, rel_b, active, abytes = _grouped_occupancy(
+                torch, K, entry, xb, wargs, rows, bf16, wbytes)
+            _check_alone(torch, K, entry, xb, wargs, rows, bf16, got_b)
+            check_one_launch(torch, entry,
+                             lambda: kern(xb, *wargs, bf16, rows))
+            del got_b
+            kb_ms = timed_ms(torch, lambda *a: kern(xb, *a, bf16, rows),
+                             wsets)
+            nbytes_b, flops_b = kept_rows_cost(cost, E, C, Kd, N, abytes,
+                                               int(rows.sum()))
+            bound_b, by_b = _bound(nbytes_b, flops_b, "bfloat16")
+            # (c) no expert kept
+            none = torch.zeros_like(rows)
+            got_c, *_ = _grouped_occupancy(torch, K, entry, x, wargs, none,
+                                           bf16, wbytes)
+            if got_c.view(torch.int16).any():
+                raise SystemExit(f"{entry}: a call with no kept row wrote "
+                                 f"a non-zero")
+            del got_c, xb
+
             row = {"phase": "kernel", "name": entry, "E": E, "C": C,
-                   "K": Kd, "N": N, "serves": cs[C], "loop": loop,
-                   "max_abs_err": diff, "max_rel_err": rel,
+                   "K": Kd, "N": N, "serves": sorted(cs[C]), "loop": loop,
+                   "max_abs_err": max(diff, diff_b),
+                   "max_rel_err": max(rel, rel_b),
                    "rel_tol": KERNEL_REL_TOL, "kernel_ms": k_ms,
                    "plain_ms": p_ms, "library_ms": l_ms,
                    "loop_of_2d_calls_ms": loop_ms, "bytes": nbytes,
                    "flops": flops, "bound_ms": bound, "bound_by": by,
-                   "cuda_launches_per_call": launched}
+                   "cuda_launches_per_call": launched,
+                   "dispatch": {"tokens": tokens, "active_experts": active,
+                                "kept_rows": int(rows.sum()),
+                                "rel_err": rel_b, "kernel_ms": kb_ms,
+                                "bytes": nbytes_b, "bound_ms": bound_b,
+                                "bound_by": by_b},
+                   "none_kept": "zeros"}
             emit(row)
-            if not rel <= KERNEL_REL_TOL:
-                raise SystemExit(f"{entry} disagrees with its plain version "
-                                 f"at E={E} C={C} K={Kd} N={N}: rel {rel} "
-                                 f"> {KERNEL_REL_TOL}")
-            rows[entry].append(row)
+            for case, r in (("every row", rel), ("dispatch", rel_b)):
+                if not r <= KERNEL_REL_TOL:
+                    raise SystemExit(
+                        f"{entry} disagrees with its plain version at E={E}"
+                        f" C={C} K={Kd} N={N} ({case}): rel {r} > "
+                        f"{KERNEL_REL_TOL}")
+            rows_out[entry].append(row)
             del x
         del wargs, wdeq, wsets, lsets
         torch.cuda.empty_cache()
-    return rows
+    emit(moe_layer_rows_check(torch, K))
+    return rows_out
+
+
+def moe_layer_rows_check(torch, K) -> dict:
+    """One qwen3-moe-30b-a3b MoE layer (``moe_ffn``) at full width (d 2048,
+    128 experts of d_ff 768, top 8), weights from seed 5, in int8 and nf4,
+    at the serve cells' batch-4 decode: the output with the dispatch's
+    counts (the path the serve cells run, one grouped launch a product)
+    must equal, bit for bit, the output with every expert's grouped
+    products given rows=None."""
+    from repro_torch.core.precision import make_policy
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.models import moe
+    from repro_torch.quant.apply import quantize_params
+    cfg = arch_config("qwen3-moe-30b-a3b")
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = {"w_router": torch.randn((D, E), generator=gen, device="cuda")
+         * D ** -0.5}
+    for key, (i, o) in (("experts_gate", (D, Fd)), ("experts_up", (D, Fd)),
+                        ("experts_down", (Fd, D))):
+        p[key] = torch.randn((E, i, o), generator=gen, device="cuda") \
+            * i ** -0.5
+    x = torch.randn((4, D), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {"phase": "kernel", "check": "moe_layer_rows",
+           "arch": "qwen3-moe-30b-a3b", "tokens": 4}
+    dense = moe._expert_dense
+    for fmt in ("int8", "nf4"):
+        pol = make_policy(fmt)
+        q = quantize_params(p, pol)
+        entry = f"{fmt}_matmul_grouped"
+        before = K.LAUNCHES[entry]
+        with torch.no_grad():
+            y_rows, _ = moe.moe_ffn(q, x, top_k=cfg.experts_per_token,
+                                    policy=pol)
+            try:
+                moe._expert_dense = (lambda w, x_, policy, rows=None:
+                                     dense(w, x_, policy))
+                y_none, _ = moe.moe_ffn(q, x, top_k=cfg.experts_per_token,
+                                        policy=pol)
+            finally:
+                moe._expert_dense = dense
+        torch.cuda.synchronize()
+        if K.LAUNCHES[entry] - before != 6:
+            raise SystemExit(f"moe layer {fmt}: {K.LAUNCHES[entry] - before}"
+                             f" grouped launches, expected 6")
+        same = torch.equal(y_rows, y_none)
+        out[fmt] = {"bit_identical": same,
+                    "max_abs": (y_rows.float() - y_none.float()).abs().max()
+                    .item()}
+        if not same:
+            raise SystemExit(f"moe layer {fmt}: the output with the "
+                             f"dispatch's counts differs from rows=None")
+        del q
+    del p
+    torch.cuda.empty_cache()
+    return out
 
 
 def _model_geometry(cfg, lens) -> tuple:
@@ -3166,8 +3347,9 @@ def main() -> int:
             "bound_by": head["bound_by"], "bytes": head["bytes"],
             "cuda_launches_per_call": head["cuda_launches_per_call"],
             "library_ms": head["library_ms"], "library_is": library,
-            **({"loop_of_2d_calls_ms": head["loop_of_2d_calls_ms"]}
-               if grouped else {}),
+            **({"loop_of_2d_calls_ms": head["loop_of_2d_calls_ms"],
+                # case (b): the dispatch's kept rows of a batch-4 decode
+                "dispatch": head["dispatch"]} if grouped else {}),
         })
     for name, shape in HEADLINE_ATTN.items():
         head = next(r for r in rows[name]

@@ -141,20 +141,24 @@ struct Int8Stage {
 
 // x (E, M, K) and out (E, M, N) in the compute dtype (bf16 when is_bf16,
 // else f32); codes int8 (E, K, N); scale f32 (E, N); E = 1 for a 2-D
-// call. All row-major and contiguous;
-// codes 4-byte aligned. `loop` is the host plan's loop (qmm::Loop); for
-// the wgmma and decode loops, (bm, bn) its tile and `grid` its blocks,
-// and for the decode loop `part` and `counter` its scratch (kernel.py,
-// decode_scratch). Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for
-// a loop the shape does not allow.
+// call. All row-major and contiguous; codes 4-byte aligned. `rows`: each
+// expert's kept rows (E,) int32, or null for all M; rows at or past the
+// count are written as zeros. `loop` is the host plan's loop (qmm::Loop);
+// for the wgmma and decode loops, (bm, bn) its tile and `grid` its
+// blocks, and for the decode loop `part` and `counter` its scratch and
+// `seg` its K segments a column tile (0: the 2-D walk; kernel.py,
+// matmul_plan and decode_scratch). Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a loop the shape does not allow.
 extern "C" int int8_matmul_launch(const void* x, const void* codes,
                                   const void* scale, void* out, void* part,
-                                  void* counter, int E, int M, int N, int K,
-                                  int is_bf16, int loop, int bm, int bn,
-                                  int grid, void* stream) {
+                                  void* counter, const void* rows, int E,
+                                  int M, int N, int K, int is_bf16, int loop,
+                                  int bm, int bn, int grid, int seg,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E < 1) return (int)cudaErrorInvalidValue;
+  const int* kept = static_cast<const int*>(rows);
   if (loop == qmm::kLoopWgmma || loop == qmm::kLoopDecode) {
     if (!is_bf16) return (int)cudaErrorInvalidValue;
     qmm::wg::Args<Int8Stage> a;
@@ -167,10 +171,12 @@ extern "C" int int8_matmul_launch(const void* x, const void* codes,
     a.out = static_cast<__nv_bfloat16*>(out);
     a.part = static_cast<float*>(part);
     a.counter = static_cast<int*>(counter);
+    a.rows = kept;
     a.E = E;
     a.M = M;
     a.N = N;
     a.K = K;
+    a.seg = seg;
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     if (loop == qmm::kLoopDecode)
       return (int)qmm::wg::launch_decode(a, xb, bn, grid, s);
@@ -181,8 +187,9 @@ extern "C" int int8_matmul_launch(const void* x, const void* codes,
                  static_cast<const float*>(scale)};
   if (is_bf16)
     return (int)qmm::launch_tile(static_cast<const __nv_bfloat16*>(x), fmt,
-                                 static_cast<__nv_bfloat16*>(out), E, M, N,
-                                 K, s);
+                                 static_cast<__nv_bfloat16*>(out), kept, E,
+                                 M, N, K, s);
   return (int)qmm::launch_tile(static_cast<const float*>(x), fmt,
-                               static_cast<float*>(out), E, M, N, K, s);
+                               static_cast<float*>(out), kept, E, M, N, K,
+                               s);
 }

@@ -27,23 +27,31 @@
 //   128 or 256 rows of x; BN = 64 or 128 output columns, one consumer
 //   warpgroup per 64) and a grid of at most one block per SM from the
 //   shapes alone (quant_matmul/kernel.py, matmul_plan). Prefill: each
-//   block walks output tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...,
-//   column tile t / m_tiles, row tile t % m_tiles, so blocks that run
-//   together read the same weight columns; every tile walks the whole K
-//   axis in one block. Decode: one block per SM, and the column tiles' K
-//   steps laid end to end and cut into equal ranges, one a block (walk),
-//   so that every SM streams the same bytes even where there are fewer
-//   column tiles than SMs (wk/wv: 8 tiles of 128 columns). Grouped, the
-//   tiles are numbered expert by expert (tile t is tile t % tiles_e of
-//   expert t / tiles_e), so prefill blocks that run together read one
-//   expert's weights and decode splits the K steps of all experts' column
-//   tiles evenly over the blocks. A tile cut
-//   between blocks is split: each writes its f32 partial sums to a
-//   workspace, and the last to finish (an atomic counter per tile, which
-//   it resets) adds them in block order and writes the output, in the
-//   same launch. Every sum is taken in one fixed order that does not
-//   depend on M: the output is the same bits run to run, and a row of x
-//   gets the same sums alone or in a batch.
+//   block walks whole output tiles t = blockIdx.x, blockIdx.x + gridDim.x,
+//   ..., row tile fastest, so blocks that run together read the same
+//   weight columns; every tile walks the whole K axis in one block.
+//   Decode: one block per SM, and the column tiles' K steps laid end to
+//   end and cut into equal ranges, one a block, so that every SM streams
+//   the same bytes even where there are fewer column tiles than SMs
+//   (wk/wv: 8 tiles of 128 columns). A tile cut between blocks is split:
+//   each writes its f32 partial sums to a workspace, and the last to
+//   finish (an atomic counter per split tile, which it resets) adds them
+//   in a fixed order and writes the output, in the same launch. Every sum
+//   is taken in one fixed order that does not depend on M: the output is
+//   the same bits run to run, and a row of x gets the same sums alone or
+//   in a batch.
+// - Grouped (the experts of an MoE layer), the launch takes each expert's
+//   kept-row count from the dispatch, on the device (a.rows; the rows past
+//   it are zeros and never reach a token). Every block reads the E counts
+//   and scans them in shared memory (plan_work), so the walks cover only
+//   the kept rows' work: prefill, the row tiles that hold a kept row of
+//   the experts that have one; decode, the column tiles of those experts,
+//   each tile's K steps cut into a fixed number of segments (by the shapes
+//   alone), the segments of all of them shared out evenly over the
+//   blocks. A tile's segments are added in segment order, so an expert's
+//   sums do not depend on the other experts' rows. Idle producer threads
+//   write the zero rows. Only the kept experts' weights are read, in one
+//   launch with no host sync.
 // - Warp specialisation: one producer thread (in the last warpgroup,
 //   which gives its registers to the consumers) keeps a ring of as many
 //   stages as fit in shared memory (5-8) full with TMA copies. A stage
@@ -238,19 +246,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 // bytes from a 1024-aligned base: the x tiles of the stages, then their
 // raw weight tiles (each rounded up to 1024 bytes), as many stages as fit
 // (at most 8; a deeper decode ring, 16, read slower at int8's w_gate).
-constexpr int kSmemMax = 232448;   // a block's dynamic shared memory, H100
+constexpr int kSmemMax = 232448;   // a block's shared memory, H100
+constexpr int kSmemStatic = 4096;  // kept for the static shared memory
 constexpr int kDecM = 8;           // rows of x of the decode loop (M <= 8)
 constexpr int kMaxStages = 8;
 // stages a decode warp takes at a time, all their shared-memory reads in
 // flight together
 constexpr int kDecGroup = 2;
+// experts a grouped call of these loops may have (one a thread of the
+// work plan below)
+constexpr int kMaxE = 256;
+// the producer warpgroup's threads past its first warp, which write the
+// zero rows of a grouped call while the first issues the copies
+constexpr int kFillThreads = 96;
 
 template <class Stage, int BM, int BN>
 struct Layout {
   static constexpr int x_bytes = BM * kBK * 2;
   static constexpr int raw_bytes =
       (Stage::template raw_bytes<BN>() + 1023) / 1024 * 1024;
-  static constexpr int fit = (kSmemMax - 2048) / (x_bytes + raw_bytes);
+  static constexpr int fit = (kSmemMax - kSmemStatic) / (x_bytes + raw_bytes);
   static constexpr int stages = fit < kMaxStages ? fit : kMaxStages;
   static constexpr int raw_off = stages * x_bytes;
   static constexpr int total = raw_off + stages * raw_bytes + 1024;
@@ -264,53 +279,238 @@ struct Args {
   CUtensorMap x;
   Stage st;        // the format's tensor maps and epilogue data
   __nv_bfloat16* out;   // (E, M, N)
-  // decode only: the f32 partial sums of split tiles, (grid + tiles - 1)
-  // slots of kDecM x BN, and one counter per column tile, at 0 between
-  // launches
+  // decode only: the f32 partial sums of split tiles and one counter per
+  // split tile, at 0 between launches (kernel.py, decode_scratch)
   float* part;
   int* counter;
-  // E problems of M rows each; m_tiles row tiles and tiles_e output tiles
-  // an expert, tiles = E * tiles_e in all
-  int E, M, N, K, m_tiles, tiles_e, tiles;
+  // each expert's kept rows (E,) int32, or null: all M. The rows at or
+  // past an expert's count (every row of an expert with none) are
+  // written as zeros, and only the kept rows' tiles are computed.
+  const int* rows;
+  int E, M, N, K;
+  // decode: the K segments of each column tile of the grouped walk
+  // (walk_segments), or 0 for the 2-D call's even split (walk_steps)
+  int seg;
 };
 
-// expert e, first row m0 and first column n0 of output tile t
+// What the blocks share out: each expert's kept rows (clamped to 0..M)
+// and the prefix over the experts of their work items, the output tiles
+// of the rows they keep (prefill: row tiles holding a kept row times the
+// column tiles) or, in the grouped decode walk, K segments (`seg` of
+// each column tile of an expert with a kept row); pre[kMaxE] is all of
+// them. Every block computes it from a.rows in the same launch.
+struct Work {
+  int rows[kMaxE];
+  int pre[kMaxE + 1];
+  int wsum[kMaxE / 32];
+};
+
+// Fill w: threads 0..kMaxE-1 one expert each, a scan within each warp,
+// then the warps' sums. Every thread of the block calls it (it holds the
+// block's first two barriers).
 template <int BM, int BN, class A>
-__device__ __forceinline__ void tile_at(const A& a, int t, int& e, int& m0,
-                                        int& n0) {
-  e = t / a.tiles_e;
-  const int r = t - e * a.tiles_e;
-  m0 = (r % a.m_tiles) * BM;
-  n0 = (r / a.m_tiles) * BN;
+__device__ __forceinline__ void plan_work(const A& a, Work& w, int tid) {
+  const int n_col = (a.N + BN - 1) / BN;
+  int items = 0, incl = 0;
+  if (tid < kMaxE) {
+    if (tid < a.E) {
+      const int r = a.rows ? min(max(a.rows[tid], 0), a.M) : a.M;
+      items = BM == kDecM ? (r > 0 ? n_col * max(a.seg, 1) : 0)
+                          : (r + BM - 1) / BM * n_col;
+      w.rows[tid] = r;
+    }
+    incl = items;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if ((tid & 31) >= d) incl += y;
+    }
+    if ((tid & 31) == 31) w.wsum[tid >> 5] = incl;
+  }
+  __syncthreads();
+  if (tid < kMaxE) {
+    int off = 0;
+    for (int i = 0; i < (tid >> 5); ++i) off += w.wsum[i];
+    w.pre[tid] = off + incl - items;
+    if (tid == kMaxE - 1) w.pre[kMaxE] = off + incl;
+  }
+  __syncthreads();
 }
 
-// The block of a decode grid of G blocks over U K steps whose range holds
-// step x: block b walks steps [b U / G, (b + 1) U / G).
+// The expert whose work items hold item u < w.pre[kMaxE]: the last e with
+// pre[e] <= u, which has items (an expert without shares its pre with the
+// next).
+__device__ __forceinline__ int expert_of(const Work& w, int E, int u) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (w.pre[mid] <= u)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// One run of a block's walk: K steps [k0, k1) of the output tile of
+// expert e whose first element is (m0, n0), all this block holds of it.
+// Decode only: b0 .. b1, the blocks that share the tile (b0 == b1: this
+// block's alone); s0 .. s1 - 1, the run's K segments in the grouped walk
+// (s0 = -1: the 2-D walk, whose run is summed as one); slot, the
+// workspace slot of a 2-D run's partial sums (a grouped run's segment s
+// takes slot first + s); key, the tile's counter; first .. first + n -
+// 1, the slots the merge adds, in order.
+struct Seg {
+  int e, m0, n0, k0, k1;
+  int b0, b1, s0, s1, slot, key, first, n;
+};
+
+// The block of a decode grid of G blocks over U items whose range holds
+// item x: block b walks items [b U / G, (b + 1) U / G).
 __device__ __forceinline__ int split_block(long long x, long long U, int G) {
   return (int)(((x + 1) * G - 1) / U);
 }
 
-// The segments (output tile t, K steps [k0, k1)) block blockIdx.x walks,
-// in order, each passed to f. Prefill (BM > kDecM): whole tiles t =
-// blockIdx.x, blockIdx.x + gridDim.x, ..., so that blocks that run
-// together read the same weight columns. Decode (BM = kDecM, one row
-// tile): the tiles' K steps laid end to end, tile by tile, and cut into
-// gridDim.x ranges whose lengths differ by at most one step; a tile whose
-// steps fall to several blocks is split.
-template <int BM, class F>
-__device__ __forceinline__ void walk(int tiles, int nk, F&& f) {
-  if constexpr (BM == kDecM) {
-    const long long U = (long long)tiles * nk;
-    int u = (int)(U * blockIdx.x / gridDim.x);
-    const int hi = (int)(U * (blockIdx.x + 1) / gridDim.x);
-    while (u < hi) {
-      const int t = u / nk, k0 = u - t * nk;
-      const int k1 = min(nk, hi - t * nk);
-      f(t, k0, k1);
-      u = t * nk + k1;
+// Prefill (BM > kDecM): the output tiles of the kept rows (Work), whole,
+// t = blockIdx.x, blockIdx.x + gridDim.x, ..., numbered expert by expert
+// and within an expert row tile fastest, so that blocks that run
+// together read the same weight columns. A 2-D call (E = 1, no rows)
+// walks every tile, as a grouped call with rows = null walks every
+// expert's.
+template <int BM, int BN, class A, class F>
+__device__ __forceinline__ void walk_tiles(const A& a, const Work& w, int nk,
+                                           F&& f) {
+  for (int t = blockIdx.x; t < w.pre[kMaxE]; t += gridDim.x) {
+    Seg g;
+    g.e = expert_of(w, a.E, t);
+    const int l = t - w.pre[g.e];
+    const int mt = (w.rows[g.e] + BM - 1) / BM;
+    g.m0 = (l % mt) * BM;
+    g.n0 = (l / mt) * BN;
+    g.k0 = 0;
+    g.k1 = nk;
+    g.s0 = -1;
+    f(g);
+  }
+}
+
+// The 2-D decode walk (seg = 0): the column tiles' K steps laid end to
+// end, tile by tile (expert by expert), and cut into gridDim.x ranges
+// whose lengths differ by at most one step. A tile whose steps fall to
+// several blocks is split: block b's partial sums go to slot b + t, the
+// tile's counter is t, and the merge adds slots b0 + t .. b1 + t, in
+// block (that is K) order.
+template <int BN, class A, class F>
+__device__ __forceinline__ void walk_steps(const A& a, int nk, F&& f) {
+  const int n_col = (a.N + BN - 1) / BN;
+  const long long U = (long long)a.E * n_col * nk;
+  int u = (int)(U * blockIdx.x / gridDim.x);
+  const int hi = (int)(U * (blockIdx.x + 1) / gridDim.x);
+  while (u < hi) {
+    const int t = u / nk;
+    Seg g;
+    g.e = t / n_col;
+    g.m0 = 0;
+    g.n0 = (t - g.e * n_col) * BN;
+    g.k0 = u - t * nk;
+    g.k1 = min(nk, hi - t * nk);
+    g.b0 = split_block((long long)t * nk, U, gridDim.x);
+    g.b1 = split_block((long long)(t + 1) * nk - 1, U, gridDim.x);
+    g.s0 = -1;
+    g.slot = blockIdx.x + t;
+    g.key = t;
+    g.first = g.b0 + t;
+    g.n = g.b1 - g.b0 + 1;
+    f(g);
+    u = t * nk + g.k1;
+  }
+}
+
+// The grouped decode walk (seg > 0). Each column tile's K steps are cut
+// into a.seg segments, by the shapes alone (segment s holds steps
+// [s nk / seg, (s + 1) nk / seg)); the segments of the column tiles of
+// the experts with a kept row (Work) are laid end to end, expert by
+// expert, and cut into G = min(gridDim.x, U) ranges of the U whose
+// lengths differ by at most one segment (so every block from a tile's
+// first to its last holds part of it; the blocks past G have none). So
+// only those experts' weights are read, and the blocks share them out
+// evenly however few they are. A block gets one run a tile it touches.
+// Each segment's sums start from zero, and a tile's segments are added
+// in segment order, in registers where the tile is one block's alone,
+// else by the merge: a split tile's first block b0 owns slots b0 seg ..
+// b0 seg + seg - 1 (one a segment) and counter b0, since a block is the
+// first of at most one split tile, the last it touches. An expert's sums,
+// and their order, therefore do not depend on the other experts' rows.
+template <int BN, class A, class F>
+__device__ __forceinline__ void walk_segments(const A& a, const Work& w,
+                                              int nk, F&& f) {
+  const int S = a.seg, n_col = (a.N + BN - 1) / BN;
+  const int U = w.pre[kMaxE];
+  const int G = min((int)gridDim.x, U);
+  const int b = blockIdx.x;
+  if (b >= G) return;
+  const int lo = (int)((long long)U * b / G);
+  const int hi = (int)((long long)U * (b + 1) / G);
+  // the first piece's expert, column tile and segment; then each tile's
+  // successor: the next column tile, or the next expert with kept rows
+  int e = expert_of(w, a.E, lo);
+  const int l = lo - w.pre[e];
+  int ct = l / S, s = l - ct * S;
+  for (int u = lo; u < hi;) {
+    const int ut = u - s;   // the tile's first segment
+    const int s1 = min(S, hi - ut);
+    Seg g;
+    g.e = e;
+    g.m0 = 0;
+    g.n0 = ct * BN;
+    // b0 == b1 unless the tile starts before this block's range or ends
+    // past it, the only tiles whose blocks need a division
+    g.b0 = ut >= lo ? b : split_block(ut, U, G);
+    g.b1 = ut + S <= hi ? b : split_block((long long)ut + S - 1, U, G);
+    g.key = g.b0;
+    g.first = g.b0 * S;
+    g.n = S;
+    g.s0 = s;
+    g.s1 = s1;
+    g.k0 = s * nk / S;
+    g.k1 = s1 * nk / S;
+    f(g);
+    u = ut + s1;
+    s = 0;
+    if (++ct == n_col) {
+      ct = 0;
+      do ++e;
+      while (e < a.E && w.pre[e + 1] == w.pre[e]);
     }
+  }
+}
+
+// The runs block blockIdx.x walks, in order, each passed to f.
+template <int BM, int BN, class A, class F>
+__device__ __forceinline__ void walk(const A& a, const Work& w, int nk,
+                                     F&& f) {
+  if constexpr (BM == kDecM) {
+    if (a.seg > 0)
+      walk_segments<BN>(a, w, nk, f);
+    else
+      walk_steps<BN>(a, nk, f);
   } else {
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) f(t, 0, nk);
+    walk_tiles<BM, BN>(a, w, nk, f);
+  }
+}
+
+// Zeros in every output row at or past its expert's kept count, 16 bytes
+// a store, shared out over the fill threads of all blocks (N is a
+// multiple of 16, so each expert's zero rows are whole 16-byte chunks).
+template <class A>
+__device__ __forceinline__ void zero_fill(const A& a, const Work& w, int i) {
+  const int stride = gridDim.x * kFillThreads;
+  const int j0 = blockIdx.x * kFillThreads + i;
+  for (int e = 0; e < a.E; ++e) {
+    const int r = w.rows[e];
+    uint4* z = reinterpret_cast<uint4*>(a.out + ((size_t)e * a.M + r) * a.N);
+    const int n = (a.M - r) * a.N / 8;
+    for (int j = j0; j < n; j += stride) z[j] = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -343,6 +543,7 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
   __shared__ __align__(8) uint64_t full[S], empty[S];
   __shared__ float lut[16];
   __shared__ int last_split;
+  __shared__ Work work;
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
   const int nk = a.K / kBK;
@@ -355,28 +556,29 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   a.st.prepare(lut, tid);
-  __syncthreads();
+  plan_work<BM, BN>(a, work, tid);
 
   if (tid >= NT) {
     // producer warpgroup: gives its registers to the consumers; one
-    // thread issues every copy, S stages ahead
+    // thread issues every copy, S stages ahead, and its last three warps
+    // write the zero rows
     if constexpr (NWG == 2)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == NT) {
       int it = 0;
-      walk<BM>(a.tiles, nk, [&](int t, int k0, int k1) {
-        int e, m0, n0;
-        tile_at<BM, BN>(a, t, e, m0, n0);
-        for (int kt = k0; kt < k1; ++kt, ++it) {
+      walk<BM, BN>(a, work, nk, [&](const Seg& g) {
+        for (int kt = g.k0; kt < g.k1; ++kt, ++it) {
           const int s = it % S;
           mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
           mbar_expect_tx(&full[s], L::x_bytes + a.st.template tx_bytes<BN>());
-          tma_load_3d(smem + s * L::x_bytes, &a.x, &full[s], kt * kBK, m0,
-                      e);
+          tma_load_3d(smem + s * L::x_bytes, &a.x, &full[s], kt * kBK, g.m0,
+                      g.e);
           a.st.template load<BN>(smem + L::raw_off + s * L::raw_bytes,
-                                 &full[s], e * a.K + kt * kBK, n0);
+                                 &full[s], g.e * a.K + kt * kBK, g.n0);
         }
       });
+    } else if (a.rows && tid >= NT + 32) {
+      zero_fill(a, work, tid - NT - 32);
     }
   } else {
     if constexpr (NWG == 2)
@@ -389,8 +591,9 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     // is column c + h of the tile; D column j * 8 + 2 (lane % 4) + e, that
     // is row j * 8 + 2 (lane % 4) + e of the tile
     const int c = nb + 2 * (lane / 4);
-    // rows m0 .. of expert ex (its rows past M are not stored)
-    auto store = [&](const float* acc, int ex, int m0, int n0) {
+    // rows m0 .. of expert ex below lim, its kept rows (the others are
+    // the zero fill's)
+    auto store = [&](const float* acc, int ex, int m0, int n0, int lim) {
       const int n = n0 + c;
       if (n >= a.N) return;   // N is even, so n + 1 < N too
       const size_t col = (size_t)ex * a.N + n;
@@ -399,7 +602,7 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int m = m0 + j * 8 + 2 * (lane % 4) + e;
-          if (m < a.M)
+          if (m < lim)
             *reinterpret_cast<uint32_t*>(
                 a.out + ((size_t)ex * a.M + m) * a.N + n) =
                 pack_bf16(a.st.epilogue(acc[j * 4 + e], col),
@@ -407,55 +610,133 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
         }
     };
     int it = 0;
-    walk<BM>(a.tiles, nk, [&](int t, int k0, int k1) {
-      int ex, m0, n0;
-      tile_at<BM, BN>(a, t, ex, m0, n0);
-      float acc[BM / 2];
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    walk<BM, BN>(a, work, nk, [&](const Seg& g) {
+      const int lim = work.rows[g.e];
       if constexpr (BM == kDecM) {
-        // decode: the products on mma.sync m16n8k16 per warp (the A
-        // fragments as for wgmma, x rows 0..7 as the B fragments by
-        // ldmatrix over the 128-byte swizzled rows, chunk q of a row
-        // holding K 8q .. 8q+7). A warp takes kDecGroup stages at a time:
-        // it waits for all, reads all (their shared-memory reads in flight
-        // together), runs the products in stage order and releases the
-        // stages.
-        for (int kt = k0; kt < k1; kt += kDecGroup) {
-          const int n = min(kDecGroup, k1 - kt);
-          uint32_t f[kDecGroup][kBK / 16][4], xb[kDecGroup][kBK / 16][2];
+        // decode: the products of K steps [k0, k1) into acc, on mma.sync
+        // m16n8k16 per warp (the A fragments as for wgmma, x rows 0..7 as
+        // the B fragments by ldmatrix over the 128-byte swizzled rows,
+        // chunk q of a row holding K 8q .. 8q+7). A warp takes kDecGroup
+        // stages at a time: it waits for all, reads all (their
+        // shared-memory reads in flight together), runs the products in
+        // stage order and releases the stages.
+        auto run = [&](float (&acc)[4], int k0, int k1) {
 #pragma unroll
-          for (int i = 0; i < kDecGroup; ++i)
-            if (i < n) mbar_wait(&full[(it + i) % S], ((it + i) / S) & 1);
+          for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+          for (int kt = k0; kt < k1; kt += kDecGroup) {
+            const int n = min(kDecGroup, k1 - kt);
+            uint32_t f[kDecGroup][kBK / 16][4], xb[kDecGroup][kBK / 16][2];
 #pragma unroll
-          for (int i = 0; i < kDecGroup; ++i)
-            if (i < n) {
-              const int s = (it + i) % S;
-              a.st.template fragments<BN>(
-                  smem + L::raw_off + s * L::raw_bytes, lut, nb, lane, f[i]);
-              const uint32_t xa = smem_u32(smem + s * L::x_bytes);
+            for (int i = 0; i < kDecGroup; ++i)
+              if (i < n) mbar_wait(&full[(it + i) % S], ((it + i) / S) & 1);
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                uint32_t b[4];
-                ldmatrix_x4(b, swz(xa, lane & 7, 4 * h + (lane >> 3)));
-                xb[i][2 * h][0] = b[0];
-                xb[i][2 * h][1] = b[1];
-                xb[i][2 * h + 1][0] = b[2];
-                xb[i][2 * h + 1][1] = b[3];
+            for (int i = 0; i < kDecGroup; ++i)
+              if (i < n) {
+                const int s = (it + i) % S;
+                a.st.template fragments<BN>(
+                    smem + L::raw_off + s * L::raw_bytes, lut, nb, lane,
+                    f[i]);
+                const uint32_t xa = smem_u32(smem + s * L::x_bytes);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  uint32_t b[4];
+                  ldmatrix_x4(b, swz(xa, lane & 7, 4 * h + (lane >> 3)));
+                  xb[i][2 * h][0] = b[0];
+                  xb[i][2 * h][1] = b[1];
+                  xb[i][2 * h + 1][0] = b[2];
+                  xb[i][2 * h + 1][1] = b[3];
+                }
               }
-            }
 #pragma unroll
-          for (int i = 0; i < kDecGroup; ++i)
-            if (i < n)
+            for (int i = 0; i < kDecGroup; ++i)
+              if (i < n)
 #pragma unroll
-              for (int kk = 0; kk < kBK / 16; ++kk)
-                mma_bf16(acc, f[i][kk], xb[i][kk][0], xb[i][kk][1]);
+                for (int kk = 0; kk < kBK / 16; ++kk)
+                  mma_bf16(acc, f[i][kk], xb[i][kk][0], xb[i][kk][1]);
 #pragma unroll
-          for (int i = 0; i < kDecGroup; ++i)
-            if (i < n) mbar_arrive(&empty[(it + i) % S]);
-          it += n;
+            for (int i = 0; i < kDecGroup; ++i)
+              if (i < n) mbar_arrive(&empty[(it + i) % S]);
+            it += n;
+          }
+        };
+        const int r0 = 2 * (lane % 4);
+        // the sums of segment s (-1: a 2-D run): added to the tile's in
+        // segment order where the tile is this block's alone (a 2-D run
+        // is the whole K axis), else written to the segment's slot
+        float tot[4];
+        auto finish = [&](const float (&acc)[4], int s) {
+          if (g.b0 == g.b1) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              tot[i] = s < 0 ? acc[i] : (s > 0 ? tot[i] : 0.f) + acc[i];
+            return;
+          }
+          float* slot = a.part +
+                        (size_t)(s < 0 ? g.slot : g.first + s) * kDecM * BN +
+                        c;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (r0 + e < lim)
+              *reinterpret_cast<float2*>(slot + (r0 + e) * BN) =
+                  make_float2(acc[e], acc[2 + e]);
+        };
+        float acc[4];
+        if (g.s0 < 0) {
+          run(acc, g.k0, g.k1);
+          finish(acc, -1);
         }
+        for (int s = g.s0; s >= 0 && s < g.s1; ++s) {
+          run(acc, s * nk / a.seg, (s + 1) * nk / a.seg);
+          finish(acc, s);
+        }
+
+        if (g.b0 == g.b1) {
+          if (g.k1 == nk) store(tot, g.e, 0, g.n0, lim);
+          return;
+        }
+        // a split tile: after the block's run of it, the last of the
+        // tile's blocks to finish adds the slots in order, in the same
+        // launch, and resets the tile's counter for the next launch or
+        // graph replay
+        // the barrier orders every consumer's writes before thread 0's
+        // release, and thread 0's acquire (when last) before every
+        // consumer's reads: one fence a block, not one a thread
+        consumer_sync<NT>();
+        if (tid == 0) {
+          const int done = atomic_add_acq_rel(a.counter + g.key, 1);
+          last_split = done == g.b1 - g.b0;
+          if (last_split) a.counter[g.key] = 0;
+        }
+        consumer_sync<NT>();
+        if (!last_split) return;
+        // four slots' loads in flight at a time (8 or 16, for the 17
+        // slots of a wk/wv tile, read no faster), added in slot order
+        constexpr int kAhead = 4;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int b = 0; b < g.n; b += kAhead) {
+          float2 v[kAhead][2];
+#pragma unroll
+          for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (b + i < g.n && r0 + e < lim)
+                v[i][e] = __ldcg(reinterpret_cast<const float2*>(
+                    a.part + (size_t)(g.first + b + i) * kDecM * BN +
+                    (r0 + e) * BN + c));
+#pragma unroll
+          for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (b + i < g.n && r0 + e < lim) {
+                sum[e] += v[i][e].x;
+                sum[2 + e] += v[i][e].y;
+              }
+        }
+        store(sum, g.e, 0, g.n0, lim);
       } else {
+        float acc[BM / 2];
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
         uint32_t f0[kBK / 16][4], f1[kBK / 16][4];
         // one stage: its fragments into `cur`, four wgmma, and the release
         // of the stage before it (none for the segment's `first`), once
@@ -481,12 +762,12 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
           if (!first) mbar_arrive(&empty[(it - 1) % S]);
           ++it;
         };
-        int kt = k0;
-        for (; kt + 1 < k1; kt += 2) {
-          step(f0, f1, kt == k0);
+        int kt = g.k0;
+        for (; kt + 1 < g.k1; kt += 2) {
+          step(f0, f1, kt == g.k0);
           step(f1, f0, false);
         }
-        if (kt < k1) step(f0, f1, kt == k0);
+        if (kt < g.k1) step(f0, f1, kt == g.k0);
         wgmma_wait<0>();
         fence_acc(acc);
 #pragma unroll
@@ -495,64 +776,8 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
           fence_regs(f1[kk]);
         }
         mbar_arrive(&empty[(it - 1) % S]);
+        store(acc, g.e, g.m0, g.n0, lim);
       }
-
-      if constexpr (BM == kDecM) {
-        if (k0 > 0 || k1 < nk) {
-          // a split tile: this block's f32 partial sums to slot blockIdx.x
-          // + t; the last of the tile's blocks to finish adds all of them
-          // in block (that is K) order, in the same launch, and resets the
-          // tile's counter for the next launch or graph replay
-          const long long U = (long long)a.tiles * nk;
-          const int b0 = split_block((long long)t * nk, U, gridDim.x);
-          const int b1 = split_block((long long)(t + 1) * nk - 1, U,
-                                     gridDim.x);
-          const int r0 = 2 * (lane % 4);
-          float* slot = a.part + (size_t)(blockIdx.x + t) * kDecM * BN + c;
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (r0 + e < a.M)
-              *reinterpret_cast<float2*>(slot + (r0 + e) * BN) =
-                  make_float2(acc[e], acc[2 + e]);
-          // the barrier orders every consumer's writes before thread 0's
-          // release, and thread 0's acquire (when last) before every
-          // consumer's reads: one fence a block, not one a thread
-          consumer_sync<NT>();
-          if (tid == 0) {
-            const int done = atomic_add_acq_rel(a.counter + t, 1);
-            last_split = done == b1 - b0;
-            if (last_split) a.counter[t] = 0;
-          }
-          consumer_sync<NT>();
-          if (!last_split) return;
-          // four slots' loads in flight at a time (8 or 16, for the 17
-          // slots of a wk/wv tile, read no faster), added in block order
-          constexpr int kAhead = 4;
-          float sum[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int b = b0; b <= b1; b += kAhead) {
-            float2 v[kAhead][2];
-#pragma unroll
-            for (int i = 0; i < kAhead; ++i)
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                if (b + i <= b1 && r0 + e < a.M)
-                  v[i][e] = __ldcg(reinterpret_cast<const float2*>(
-                      a.part + (size_t)(b + i + t) * kDecM * BN +
-                      (r0 + e) * BN + c));
-#pragma unroll
-            for (int i = 0; i < kAhead; ++i)
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                if (b + i <= b1 && r0 + e < a.M) {
-                  sum[e] += v[i][e].x;
-                  sum[2 + e] += v[i][e].y;
-                }
-          }
-          store(sum, ex, m0, n0);
-          return;
-        }
-      }
-      store(acc, ex, m0, n0);
     });
   }
 }
@@ -620,9 +845,6 @@ cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
   if (!make_map_nd(&a.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims,
                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  a.m_tiles = (a.M + BM - 1) / BM;
-  a.tiles_e = a.m_tiles * ((a.N + BN - 1) / BN);
-  a.tiles = a.E * a.tiles_e;
   auto kernel = qmm_wgmma_kernel<Stage, BM, BN>;
   // raised once per instance, so that later launches, inside a CUDA graph
   // capture too, make no attribute call
@@ -638,14 +860,15 @@ cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
 }
 
 // The prefill loop at the host's plan: BM in {256, 128, 64} rows of x by
-// BN in {128, 64} columns, `grid` blocks, over a.E experts. The caller has
-// filled a.st with the format's tensor maps for BN. Refuses
-// (cudaErrorInvalidValue) what the plan never gives it: K not a multiple
-// of 64, N not a multiple of 16, no expert, another tile.
+// BN in {128, 64} columns, `grid` blocks, over a.E experts (the tiles of
+// their kept rows, a.rows). The caller has filled a.st with the format's
+// tensor maps for BN. Refuses (cudaErrorInvalidValue) what the plan never
+// gives it: K not a multiple of 64, N not a multiple of 16, no expert or
+// more than kMaxE, another tile.
 template <class Stage>
 cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
                    int grid, cudaStream_t stream) {
-  if (a.K % kBK || a.N % 16 || grid < 1 || a.E < 1)
+  if (a.K % kBK || a.N % 16 || grid < 1 || a.E < 1 || a.E > kMaxE)
     return cudaErrorInvalidValue;
   if (bn == 128) {
     if (bm == 256) return launch_tiles<Stage, 256, 128>(a, x, grid, stream);
@@ -661,18 +884,22 @@ cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
 }
 
 // The decode loop at the host's plan: M <= 8 rows of x by BN in {128, 64}
-// columns, `grid` blocks sharing out the K steps of all a.E experts'
-// column tiles (walk), with a.part and a.counter for the split tiles.
-// Refuses (cudaErrorInvalidValue) M > 8, K not a multiple of 64, N not a
-// multiple of 16, no expert, more blocks than K steps, missing scratch,
+// columns, `grid` blocks sharing out the K steps of the a.E experts'
+// column tiles (a.seg = 0: walk_steps) or the K segments of the experts
+// with kept rows (a.seg > 0: walk_segments), with a.part and a.counter
+// for the split tiles. Refuses (cudaErrorInvalidValue) M > 8, K not a
+// multiple of 64, N not a multiple of 16, no expert or more than kMaxE,
+// more segments than K steps, more blocks than pieces, missing scratch,
 // another tile.
 template <class Stage>
 cudaError_t launch_decode(Args<Stage>& a, const __nv_bfloat16* x, int bn,
                           int grid, cudaStream_t stream) {
+  const int nk = a.K / kBK;
   if (a.M < 1 || a.M > kDecM || a.K % kBK || a.N % 16 || grid < 1 ||
-      a.E < 1 || (bn != 128 && bn != 64) || !a.part || !a.counter ||
-      (long long)grid >
-          (long long)a.E * ((a.N + bn - 1) / bn) * (a.K / kBK))
+      a.E < 1 || a.E > kMaxE || a.seg < 0 || a.seg > nk ||
+      (bn != 128 && bn != 64) || !a.part || !a.counter ||
+      (long long)grid > (long long)a.E * ((a.N + bn - 1) / bn) *
+                            (a.seg > 0 ? a.seg : nk))
     return cudaErrorInvalidValue;
   if (bn == 128) return launch_tiles<Stage, kDecM, 128>(a, x, grid, stream);
   return launch_tiles<Stage, kDecM, 64>(a, x, grid, stream);

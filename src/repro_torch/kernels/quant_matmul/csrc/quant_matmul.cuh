@@ -8,7 +8,9 @@
 //
 // Grouped calls (E problems, x (E, M, K), out (E, M, N)) take one grid
 // layer per expert (blockIdx.z) and the format of that expert (its
-// expert()).
+// expert()). Given each expert's kept rows (`rows`), a block writes zeros
+// in its tile's rows at or past the count, and a tile with no kept row
+// reads nothing.
 //
 // Every block owns an output tile and walks the whole K axis itself (no
 // split-K across blocks, so every sum is taken in one fixed order and the
@@ -62,7 +64,8 @@ template <typename T, int BM, int BN, int BK, int TM, int TN, int KS,
           class Format>
 __global__ void __launch_bounds__(kThreads)
     qmm_tile_kernel(const T* __restrict__ x, Format fmt_all,
-                    T* __restrict__ out, int M, int N, int K) {
+                    T* __restrict__ out, const int* __restrict__ rows,
+                    int M, int N, int K) {
   constexpr int NX = BN / TN;          // threads along N in a k-group
   constexpr int NY = BM / TM;          // threads along M in a k-group
   static_assert(NX * NY * KS == kThreads, "thread layout");
@@ -81,6 +84,15 @@ __global__ void __launch_bounds__(kThreads)
   const int r = tid % (NX * NY);
   const int ty = r / NX, tx = r % NX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // this expert's kept rows: the rest of the tile is zeros
+  const int lim = rows ? min(max(rows[blockIdx.z], 0), M) : M;
+  if (m0 >= lim) {
+    for (int i = tid; i < BM * BN; i += kThreads) {
+      const int gm = m0 + i / BN, gn = n0 + i % BN;
+      if (gm < M && gn < N) out[(size_t)gm * N + gn] = from_f<T>(0.f);
+    }
+    return;
+  }
 
   float acc[TM][TN];
 #pragma unroll
@@ -139,7 +151,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN; ++j) {
       const int gm = m0 + ty + i * NY, gn = n0 + tx + j * NX;
       if (gm < M && gn < N)
-        out[(size_t)gm * N + gn] = from_f<T>(fmt.epilogue(acc[i][j], gn));
+        out[(size_t)gm * N + gn] =
+            from_f<T>(gm < lim ? fmt.epilogue(acc[i][j], gn) : 0.f);
     }
 }
 
@@ -147,20 +160,21 @@ __global__ void __launch_bounds__(kThreads)
 // kLoopDecode and kLoopWgmma are launched from qmm_wgmma.cuh.
 enum Loop { kLoopDecode = 0, kLoopWgmma = 1, kLoopTile = 2 };
 
-// The tile loop over E experts: a 8 x 32 tile with a 256-deep K step for
-// M <= 8, a 64 x 64 tile with a 4 x 4 micro-tile per thread above.
+// The tile loop over E experts (each expert's kept rows, or null for all
+// M): a 8 x 32 tile with a 256-deep K step for M <= 8, a 64 x 64 tile
+// with a 4 x 4 micro-tile per thread above.
 template <typename T, class Format>
-cudaError_t launch_tile(const T* x, Format fmt, T* out, int E, int M, int N,
-                        int K, cudaStream_t stream) {
+cudaError_t launch_tile(const T* x, Format fmt, T* out, const int* rows,
+                        int E, int M, int N, int K, cudaStream_t stream) {
   if (E < 1 || E > 65535) return cudaErrorInvalidValue;
   if (M <= 8) {
     dim3 grid((N + 31) / 32, 1, E);
     qmm_tile_kernel<T, 8, 32, 256, 8, 1, 8, Format>
-        <<<grid, kThreads, 0, stream>>>(x, fmt, out, M, N, K);
+        <<<grid, kThreads, 0, stream>>>(x, fmt, out, rows, M, N, K);
   } else {
     dim3 grid((N + 63) / 64, (M + 63) / 64, E);
     qmm_tile_kernel<T, 64, 64, 32, 4, 4, 1, Format>
-        <<<grid, kThreads, 0, stream>>>(x, fmt, out, M, N, K);
+        <<<grid, kThreads, 0, stream>>>(x, fmt, out, rows, M, N, K);
   }
   return cudaGetLastError();
 }

@@ -10,10 +10,13 @@ XLA (``ops.py:43-47`` there).
 The ``*_grouped_kernel`` entry points take weights with a leading expert
 axis (E, K, N) and x (E, C, K): one grouped launch over all experts,
 what the reference's ``_expert_dense`` computes by ``jax.vmap`` of
-``linear_apply`` over the experts. int8's outlier product stays outside,
-per expert, with the 2-D path's rounding points: one batched gather of
-each expert's outlier columns of x and one f32 ``torch.bmm``, rounded to
-the compute dtype and added.
+``linear_apply`` over the experts, and optionally each expert's kept-row
+count (``rows``, the dispatch's: the kernel then reads only the experts
+with a kept row and zeros the rest). int8's outlier product stays
+outside, per expert and for every row (the dispatch's rows past a count
+are zeros, so theirs is too), with the 2-D path's rounding points: one
+batched gather of each expert's outlier columns of x and one f32
+``torch.bmm``, rounded to the compute dtype and added.
 """
 from __future__ import annotations
 
@@ -55,10 +58,11 @@ def nf4_matmul_kernel(x: torch.Tensor, q: NF4Weight,
 
 
 def int8_matmul_grouped_kernel(x: torch.Tensor, q: Int8Weight,
-                               compute_dtype=torch.bfloat16) -> torch.Tensor:
+                               compute_dtype=torch.bfloat16,
+                               rows=None) -> torch.Tensor:
     """x (E, C, K) @ q (E, K, N) -> (E, C, N), expert by expert."""
     x3 = x.to(compute_dtype).contiguous()
-    out = int8_matmul_grouped(x3, q.codes, q.scale, compute_dtype)
+    out = int8_matmul_grouped(x3, q.codes, q.scale, compute_dtype, rows)
     n_out = q.outlier_idx.shape[-1]
     if n_out:
         cols = q.outlier_idx.long()[:, None, :].expand(
@@ -71,7 +75,8 @@ def int8_matmul_grouped_kernel(x: torch.Tensor, q: Int8Weight,
 
 
 def nf4_matmul_grouped_kernel(x: torch.Tensor, q: NF4Weight,
-                              compute_dtype=torch.bfloat16) -> torch.Tensor:
+                              compute_dtype=torch.bfloat16,
+                              rows=None) -> torch.Tensor:
     """x (E, C, K) @ q (E, K, N) -> (E, C, N), expert by expert."""
     return nf4_matmul_grouped(x.to(compute_dtype).contiguous(), q.packed,
-                              q.absmax, compute_dtype)
+                              q.absmax, compute_dtype, rows)

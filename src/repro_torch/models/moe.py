@@ -25,7 +25,11 @@ reference does:
 
 Under int8/nf4 each expert product is one grouped launch of the
 dequant-matmul kernel over all experts (``quant_matmul``'s
-``*_grouped``); under fp32/fp16/bf16 a batched ``torch.matmul``, as the
+``*_grouped``), given each expert's kept-row count from the dispatch (on
+the device, no sync): the kernel reads only the experts with a kept row
+and computes only the kept rows, zeros for the rest, which the combine
+never reads, so the layer computes the reference's function. Under
+fp32/fp16/bf16 a batched ``torch.matmul`` over every row, as the
 reference leaves it to XLA.
 
 Expert parallelism (the reference's ``shard_map`` path): inside an
@@ -151,7 +155,9 @@ def _dispatch(x: torch.Tensor, w_router: torch.Tensor, top_k: int, E: int,
               C: int):
     """Route x (T, D), sort the assignments by expert and scatter them
     into the (E, C, D) buffer. Returns (buf, the routing: logits, probs,
-    expert_ids, and the combine's order, keep, slot, sg)."""
+    expert_ids, the combine's order, keep, slot, sg, and each expert's
+    kept rows, int32 (E,): min(its assignments, C), which fill rows 0 ..
+    count - 1 of its buffer)."""
     T, D = x.shape
     dev = x.device
     logits, probs, gate_vals, expert_ids = route(x, w_router, top_k)
@@ -162,25 +168,26 @@ def _dispatch(x: torch.Tensor, w_router: torch.Tensor, top_k: int, E: int,
     se = flat_expert[order]
     st = order // top_k                                       # its token
     sg = gate_vals.reshape(-1)[order]
-    # position within the expert's run
-    run_start = torch.searchsorted(se, torch.arange(E, device=dev),
-                                   side="left")
-    pos_in_expert = torch.arange(T * top_k, device=dev) - run_start[se]
+    # each expert's run, [bounds[e], bounds[e + 1]); position within it
+    bounds = torch.searchsorted(se, torch.arange(E + 1, device=dev),
+                                side="left", out_int32=True)
+    pos_in_expert = torch.arange(T * top_k, device=dev) - bounds[se]
     keep = pos_in_expert < C
-    slot = torch.where(keep, se * C + pos_in_expert,
-                       torch.full_like(se, E * C))            # E*C: trash
+    kept_rows = torch.diff(bounds).clamp_(max=C)
+    slot = torch.where(keep, se * C + pos_in_expert, E * C)   # E*C: trash
 
     # ---- dispatch -------------------------------------------------------
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
     buf[slot] = x[st] * keep[:, None].to(x.dtype)
     buf = buf[:E * C].reshape(E, C, D)
-    return buf, (logits, probs, expert_ids, order, keep, slot, sg)
+    return buf, (logits, probs, expert_ids, order, keep, slot, sg,
+                 kept_rows)
 
 
 def _combine(out_e: torch.Tensor, routing, top_k: int) -> torch.Tensor:
     """Each token's k weighted expert outputs of out_e (E, C, D), summed
     in f32 in a fixed order: (T, D) f32."""
-    _, _, _, order, keep, slot, sg = routing
+    _, _, _, order, keep, slot, sg, _ = routing
     E, C, D = out_e.shape
     T = order.shape[0] // top_k
     dev = out_e.device
@@ -203,7 +210,7 @@ def _combine(out_e: torch.Tensor, routing, top_k: int) -> torch.Tensor:
 def _aux(routing, E: int) -> Dict[str, torch.Tensor]:
     """The Switch load-balance loss, the router z-loss and the dropped
     fraction of one routing."""
-    logits, probs, expert_ids, _, keep, _, _ = routing
+    logits, probs, expert_ids, _, keep, _, _, _ = routing
     me = probs.mean(dim=0)                                    # (E,)
     top1 = (expert_ids[:, :1] == torch.arange(E, device=probs.device)
             ).float()
@@ -226,20 +233,22 @@ def _moe_ffn_local(p: Dict[str, Any], x: torch.Tensor, *, top_k: int,
     buf, routing = _dispatch(x, p["w_router"], top_k, E, C)
 
     # ---- expert compute: one batched product per projection -------------
-    gate_w = _expert_dense(p["experts_gate"], buf, policy)
-    up_w = _expert_dense(p["experts_up"], buf, policy)
+    rows = routing[-1]
+    gate_w = _expert_dense(p["experts_gate"], buf, policy, rows)
+    up_w = _expert_dense(p["experts_up"], buf, policy, rows)
     out_e = _expert_dense(p["experts_down"], F.silu(gate_w) * up_w,
-                          policy)                             # (E, C, D)
+                          policy, rows)                       # (E, C, D)
     y = _combine(out_e, routing, top_k).to(policy.compute_dtype)
     return y, (_aux(routing, E) if with_aux else {})
 
 
-def _expert_dense(w: Any, x: torch.Tensor,
-                  policy: PrecisionPolicy) -> torch.Tensor:
+def _expert_dense(w: Any, x: torch.Tensor, policy: PrecisionPolicy,
+                  rows=None) -> torch.Tensor:
     """Batched per-expert product: w (E, in, out) [possibly quantized],
     x (E, C, in) -> (E, C, out). Quantized weights take the grouped
-    kernel, one launch over all experts (``linear_apply``)."""
-    return linear_apply(w, x, policy)
+    kernel, one launch over all experts (``linear_apply``), which with
+    ``rows`` (each expert's kept rows) computes only those."""
+    return linear_apply(w, x, policy, rows)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ representation:
 * NF4Weight    -> the nf4 dequant-matmul kernel;
 
 with an expert axis on the weight (E, in, out) and on x (E, C, in), the
-grouped form of each: one launch over all experts.
+grouped form of each: one launch over all experts, which takes the
+dispatch's kept-row counts where it is given them.
 
 There is no switch between a kernel and a reference path: for a CUDA
 tensor the quantized ops launch the kernels, and for a CPU tensor they
@@ -38,10 +39,13 @@ def dequantize_weight(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
     return w.to(dtype)
 
 
-def linear_apply(w: Any, x: torch.Tensor,
-                 policy: PrecisionPolicy) -> torch.Tensor:
+def linear_apply(w: Any, x: torch.Tensor, policy: PrecisionPolicy,
+                 rows=None) -> torch.Tensor:
     """y = x @ w under the precision policy; for an (E, in, out) weight
-    and x (E, C, in), y[e] = x[e] @ w[e].
+    and x (E, C, in), y[e] = x[e] @ w[e]. ``rows``: for a quantized
+    (E, in, out) weight, each expert's kept rows (int32 (E,)); the grouped
+    kernel then computes only those and zeros the rest. A plain weight's
+    product ignores it.
 
     The output dtype is the compute dtype. For 16-bit policies the
     matmul accumulates in f32 and rounds its output to the compute dtype
@@ -54,21 +58,23 @@ def linear_apply(w: Any, x: torch.Tensor,
     reference's sharding leaves them."""
     cd = policy.compute_dtype
     if not x.is_meta:
-        return _linear(w, x, cd)
+        return _linear(w, x, cd, rows)
     if isinstance(w, torch.Tensor) and is_sharded(x, w):
         return sharded_matmul(x, w, cd)
-    y = _linear(w, x, cd)
+    y = _linear(w, x, cd, rows)
     return reduce_partial(y) if is_sharded(y) else y
 
 
-def _linear(w: Any, x: torch.Tensor, cd) -> torch.Tensor:
+def _linear(w: Any, x: torch.Tensor, cd, rows=None) -> torch.Tensor:
     if isinstance(w, Int8Weight):
         if w.codes.ndim == 3:
-            return qops.int8_matmul_grouped_kernel(x, w, compute_dtype=cd)
+            return qops.int8_matmul_grouped_kernel(x, w, compute_dtype=cd,
+                                                   rows=rows)
         return qops.int8_matmul_kernel(x, w, compute_dtype=cd)
     if isinstance(w, NF4Weight):
         if w.packed.ndim == 3:
-            return qops.nf4_matmul_grouped_kernel(x, w, compute_dtype=cd)
+            return qops.nf4_matmul_grouped_kernel(x, w, compute_dtype=cd,
+                                                  rows=rows)
         return qops.nf4_matmul_kernel(x, w, compute_dtype=cd)
     return torch.matmul(x.to(cd), w.to(cd))
 

@@ -778,6 +778,147 @@ def test_cuda_grouped_bf16_refuses_what_no_loop_takes():
     assert K.LAUNCHES == before
 
 
+def _dispatch_rows(E, C, T, top_k, seed):
+    """Each expert's kept rows of a seeded top-k routing of T tokens
+    through the port's capacity dispatch (int32 (E,) on the card)."""
+    from repro_torch.models.moe import _dispatch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((T, 64), generator=gen, device="cuda")
+    w_router = torch.randn((64, E), generator=gen, device="cuda")
+    return _dispatch(x, w_router, top_k, E, C)[1][-1]
+
+
+def _rows_cases(E, C, seed):
+    """(label, rows) of a grouped call: the dispatch's counts of a top-8
+    routing (4 tokens at C <= 8, a prefill's 8 C E / 10 above), counts
+    drawn in 0..C with every third expert at 0, and no expert kept."""
+    T = 4 if C <= 8 else max(1, 8 * C * E // 80)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    drawn = torch.randint(0, C + 1, (E,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    drawn[::3] = 0
+    return [("dispatch", _dispatch_rows(E, C, T, min(8, E), seed)),
+            ("drawn", drawn),
+            ("none", torch.zeros(E, dtype=torch.int32, device="cuda"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,Kd,N", [
+    (128, 8, 2048, 768), (128, 8, 768, 2048),       # qwen3 decode
+    (128, 40, 2048, 768),                           # qwen3 prefill
+    (32, 8, 1024, 512), (32, 160, 512, 1024),       # granite
+    (3, 5, 320, 208), (3, 130, 320, 208)])          # ragged C and N
+def test_cuda_grouped_rows_match_plain(E, C, Kd, N):
+    """On the card: a grouped call given each expert's kept rows (the
+    dispatch's counts, drawn counts, none kept) against the plain version
+    with the same rows at 1e-2 relative, one launch a call, and the rows
+    at or past each count exactly zero, though x's rows there are not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(E, C, Kd, N, 7 * E + C)
+    for label, rows in _rows_cases(E, C, E + C):
+        past = (torch.arange(C, device="cuda") >= rows[:, None])
+        for name, wargs in cases:
+            entry = name + "_grouped"
+            launches = K.LAUNCHES[entry]
+            got = getattr(K, entry)(x, *wargs, rows=rows)
+            ref = getattr(K, name + "_plain")(x, *wargs, rows=rows)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES[entry] == launches + 1
+            assert not got[past].any(), (entry, label)
+            if label != "none":
+                assert _rel(got, ref) < 1e-2, (entry, label)
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_float32_rows_take_the_tile_loop():
+    """On the card: f32 compute with kept rows on the CUDA-core tile loop
+    at 1e-5, zeros past the counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(5, 9, 256, 208, 8, td=torch.float32)
+    rows = torch.tensor([0, 9, 3, 1, 8], dtype=torch.int32, device="cuda")
+    past = torch.arange(9, device="cuda") >= rows[:, None]
+    for name, wargs in cases:
+        got = getattr(K, name + "_grouped")(x, *wargs, torch.float32, rows)
+        ref = getattr(K, name + "_plain")(x, *wargs, torch.float32, rows)
+        torch.cuda.synchronize()
+        assert not got[past].any(), name
+        assert _rel(got, ref) < 1e-5, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,Kd,N", [(128, 8, 2048, 768),
+                                      (128, 8, 768, 2048),
+                                      (32, 8, 1024, 512),
+                                      (128, 40, 2048, 768)])
+def test_cuda_grouped_expert_rows_do_not_depend_on_the_others(E, C, Kd, N):
+    """On the card: one expert's kept rows are, bit for bit, the same
+    when it is the only expert kept, among the dispatch's experts, among
+    all (every count C) and with rows=None: each tile's K segments and
+    their order are fixed by the shapes alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(E, C, Kd, N, 11)
+    rows = _dispatch_rows(E, C, 4 if C <= 8 else 8 * C * E // 80, 8, 12)
+    rows[5] = min(3, C)
+    alone = torch.zeros_like(rows)
+    alone[5] = rows[5]
+    full = torch.full_like(rows, C)
+    r = int(rows[5])
+    for name, wargs in cases:
+        fn = getattr(K, name + "_grouped")
+        outs = [fn(x, *wargs, rows=rs)[5, :r] for rs in (alone, rows, full)]
+        outs.append(fn(x, *wargs)[5, :r])
+        torch.cuda.synchronize()
+        for o in outs[1:]:
+            assert torch.equal(outs[0], o), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 40])
+def test_cuda_grouped_rows_call_is_one_kernel_node(C):
+    """On the card: a grouped call with rows, captured in a CUDA graph, is
+    one kernel node and nothing else; replays read the rows tensor as it
+    stands (new counts, written in place, give the eager result), and
+    the merge's counters are back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(128, C, 2048, 768, 5)
+    rows = _dispatch_rows(128, C, 4, 8, 13)
+    for name, wargs in cases:
+        fn = getattr(K, name + "_grouped")
+        assert _graph_nodes(lambda: fn(x, *wargs, rows=rows)) == [0]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(x, *wargs, rows=rows)
+        rows.copy_(_dispatch_rows(128, C, 4, 8, 14))
+        g.replay()
+        want = fn(x, *wargs, rows=rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+        assert not K.cuda_build.counters(x.device, 1).any(), name
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_rows_on_another_device_raise():
+    """On the card: rows on the CPU, or of another dtype or shape, with x
+    on the card raise before any launch; nothing falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _grouped_case(4, 8, 256, 128, 15)
+    bad = [torch.ones(4, dtype=torch.int32),
+           torch.ones(4, dtype=torch.int64, device="cuda"),
+           torch.ones(3, dtype=torch.int32, device="cuda")]
+    for name, wargs in cases:
+        entry = name + "_grouped"
+        before = K.LAUNCHES[entry]
+        for rows in bad:
+            with pytest.raises((ValueError, TypeError), match="rows"):
+                getattr(K, entry)(x, *wargs, rows=rows)
+        assert K.LAUNCHES[entry] == before
+
+
 # ---------------------------------------------------------------------------
 # the vlm, audio and hybrid families' attention uses
 # ---------------------------------------------------------------------------

@@ -265,28 +265,35 @@ def test_stacked_quantization_is_per_slice_bytes(fmt):
     (8, 1024, 512, 32, None), (4, 256, 208, 3, 32), (1, 64, 16, 5, 64)])
 def test_grouped_decode_walk_covers_every_k_step_once(C, Kd, N, experts,
                                                       block):
-    """qwen3 and granite decode shapes: every (expert, column tile, K
-    step) is walked by exactly one block, the blocks' shares differ by
-    at most one step, and the scratch covers every slot and counter."""
-    plan = K.matmul_plan(C, N, Kd, 132, block=block, experts=experts)
+    """qwen3 and granite decode shapes, every expert kept (rows=None):
+    every (expert, column tile, K step) is walked by exactly one block,
+    each tile's steps in its fixed K segments, the blocks' shares differ
+    by at most one segment, and the scratch covers every split tile's
+    slots and counter."""
+    plan = K.matmul_plan(C, N, Kd, 132, block=block, experts=experts,
+                         grouped=True)
     assert plan.loop == "decode" and plan.experts == experts
     n_tiles, nk = -(-N // plan.bn), Kd // K.WG_BK
+    assert plan.seg == (1 if experts * n_tiles <= 132
+                        else max(1, nk // K.DEC_SEG_STEPS))
     seen = {}
     share = {}
+    blocks = {}
     for b, t, k0, k1 in K.decode_segments(plan, N, Kd):
         e, col = divmod(t, n_tiles)
         assert 0 <= e < experts
         for k in range(k0, k1):
             seen[(e, col, k)] = seen.get((e, col, k), 0) + 1
-        share[b] = share.get(b, 0) + k1 - k0
+        share[b] = share.get(b, 0) + 1
+        blocks.setdefault(t, set()).add(b)
     assert seen == {(e, c, k): 1 for e in range(experts)
                     for c in range(n_tiles) for k in range(nk)}
     assert max(share.values()) - min(share.values()) <= 1
-    assert plan.grid == min(132, experts * n_tiles * nk)
+    assert plan.grid == min(132, experts * n_tiles * plan.seg)
     n_part, n_count = K.decode_scratch(plan, N)
-    assert n_count == experts * n_tiles
-    top = max(b + t for b, t, _, _ in K.decode_segments(plan, N, Kd))
-    assert n_part == (top + 1) * K.DEC_M * plan.bn
+    assert n_count == plan.grid
+    assert n_part == plan.grid * plan.seg * K.DEC_M * plan.bn
+    assert all(min(bs) < n_count for bs in blocks.values())
 
 
 @pytest.mark.parametrize("C,Kd,N,experts,block", [
