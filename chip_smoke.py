@@ -39,8 +39,13 @@ non-zero exit code:
    paged attention at
    llama-3.1-8b's heads for B in {1, 4, 8} and ring lengths W in {261,
    512, 4096}, at the other seven heads for B = 4
-   over W = 512, with
-   ragged lengths and an unassigned page; and both at every shape the
+   over W = 512, in three cases at each cell: ragged lengths and an
+   unassigned page; the same over int8 pages and their f32 scales (the
+   port's ``quantize_kv`` of the cell's caches; the library call reads
+   them dequantized beforehand); and the position test (``slot_pos``,
+   ``pos``, ``window``: pad slots inside a prefix, a window narrower
+   than the ring, a row with no valid slot, which must be exactly 0,
+   ``slot_positions``); and all three at every shape the
    Model runs (phase 8) give them (``model_attention_cells``, derived
    from the runs' own padding and rings): flash causal over each
    prefill (phi-3-vision: 576 patches and the padded prompt, S = 784 to
@@ -79,10 +84,14 @@ non-zero exit code:
    paged cells.
 4. serve: llama-3.1-8b at full width (random weights from
    ``torch.Generator(device="cuda").manual_seed(0)``) under each of the
-   five formats: a continuous run of 8 requests through
+   five formats, and in bfloat16 with an int8 KV cache (``kv_quant``: 32
+   paged launches a step, each over int8 pages, and a teacher-forced
+   check of 8 decode steps through the kernel against the same steps
+   through its plain version, within TEACHER_TOL): a continuous run of 8 requests through
    ``repro_torch.launch.serve.serve``, the launch counts of the kernels
    in that run (one flash launch per layer and prefill phase, one paged
-   launch per layer and decode step; under int8 and nf4 one wgmma-loop
+   launch per layer and decode step, each with the position test; under
+   int8 and nf4 one wgmma-loop
    launch per projection, layer and prefill phase, one decode-loop
    launch per projection, layer and decode step, and no tile-loop
    launch, in the sequential run too), and each request's prefill logits
@@ -105,7 +114,9 @@ non-zero exit code:
 6. dense: stablelm-1.6b, minitron-8b and h2o-danube-3-4b in bfloat16
    and command-r-35b in int8, at full width and depth, 4 requests of 8
    new tokens, the same checks (h2o-danube's windowed decode takes the
-   masked path: no paged launch).
+   paged kernel too, 24 launches a step, with the teacher-forced check,
+   and a second one from a prefill of two prompts of 200 and 137 tokens
+   into a ring of 128 slots, past the ring: pad slots inside it).
 7. families: with the dense cells' traffic and checks, at full width and
    depth, phi-3-vision-4.2b in bfloat16 (text only, as the reference
    serves it: 32 flash launches a prefill, 32 paged a step), mamba2-2.7b
@@ -374,10 +385,19 @@ ATTN_SOURCES = {
     "paged_attention": "src/repro_torch/kernels/paged_attention/csrc/"
                        "paged_attention.cu",
 }
+# calls of the attention plain versions timed a round (3 rounds after a
+# warm-up): their slowest calls (flash at S = 4608, paged over 4096 slots)
+# take 0.05-0.2 s each, 70 s of a run at 3 a round; they repeat the
+# kernels' arithmetic and are no yardstick of speed
+PLAIN_REPS = 1
+# the paged kernel's optional parts, reported as their own rows of the
+# kernels line (PERF.md section 6)
+PAGED_ROWS = {"int8_pages": "3q", "slot_positions": "3m"}
 HEADLINE_ATTN = {
     "flash_attention": {"dtype": "bfloat16", "B": 2, "S": 256, "H": 32,
                         "d": 128, "window": None},
-    "paged_attention": {"dtype": "bfloat16", "B": 4, "W": 512, "d": 128},
+    "paged_attention": {"dtype": "bfloat16", "B": 4, "W": 512, "d": 128,
+                        "case": "base"},
 }
 
 
@@ -831,7 +851,7 @@ def _model_geometry(cfg, lens) -> tuple:
     prefill of prompts of ``lens`` tokens: right-padded to a multiple of
     8, the patches (vlm) in front, and a ring of the padded length (stubs
     included) plus 9 slots rounded up to 64, so that the prefill stays
-    within the ring and the decode takes the paged kernel."""
+    within the ring."""
     pad = -(-max(lens) // 8) * 8
     prefix = cfg.num_patches if cfg.family == "vlm" else 0
     return pad, prefix, -(-(prefix + pad + 9) // 64) * 64
@@ -898,9 +918,9 @@ def attention_cells(configs) -> tuple:
 
 def check_attention_cells(configs, cells) -> None:
     """Fail unless the heads (H, Kv, head_dim) of every SERVE_CELLS
-    config with attention are among the causal flash ``cells``' and,
-    unless it is windowed (its decode takes the masked path), among the
-    paged ones'. An attention-free config needs none. (The Model runs'
+    config with attention are among the causal flash ``cells``' and the
+    paged ones' (where each paged cell also runs over int8 pages and the
+    position test). An attention-free config needs none. (The Model runs'
     calls are among the cells at their own shapes:
     :func:`model_attention_cells`.)"""
     flash = {h for _, _, h, _ in cells[0]}
@@ -910,8 +930,7 @@ def check_attention_cells(configs, cells) -> None:
         if not cfg.has_attention:
             continue
         heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-        if heads not in flash or (not cfg.sliding_window
-                                  and heads not in paged):
+        if heads not in flash or heads not in paged:
             raise SystemExit(f"{arch}: its heads {heads} are missing from "
                              f"the attention cells")
 
@@ -1075,7 +1094,7 @@ def flash_phase(torch, FK, causal_cells, full_cells):
                 timed_ms(torch, lambda *a: FK.flash_attention(*a, **kw),
                          sets),
                 timed_ms(torch, lambda *a: FK.flash_attention_plain(*a, **kw),
-                         sets[:1], reps=3, graph=False),
+                         sets[:1], reps=PLAIN_REPS, graph=False),
                 timed_ms(torch, lib_fn, lsets))
             rows.append(_attn_row(
                 torch, "flash_attention", dtype, got, ref, control, lib,
@@ -1089,18 +1108,52 @@ def flash_phase(torch, FK, causal_cells, full_cells):
     return rows
 
 
+def slot_positions(torch, B: int, W: int) -> tuple:
+    """The position test of a paged cell's case (m): (slot_pos (B, W)
+    int32, pos (B,) int32, window W // 2, the row with no valid slot or
+    None). With B >= 3: row 0 a prefill of P = W // 4 + 1 positions with
+    every 7th slot a -1 pad (pad slots inside its prefix, which the
+    window does not reach); rows 1 .. B - 2 a wrapped ring (position W +
+    (t - 5) % W in slot t, pos 2W - 6), which the window narrows to its
+    last W // 2 positions; row B - 1 positions past its pos (no valid
+    slot). With B <= 2 row 0 is the wrapped ring with the pads; with
+    B = 1 there is no row without a valid slot."""
+    t = torch.arange(W, device="cuda")
+    pad = (t % 7 == 3) & (t < W - 1)    # the control's key stays valid
+    wrapped = W + (t - 5) % W
+    short = W // 4 + 1
+    rows, pos = [], []
+    for b in range(B):
+        if b == B - 1 and B > 1:
+            rows.append(t + W)
+            pos.append(W - 1)
+        elif b == 0 and B >= 3:
+            rows.append(torch.where(pad | (t >= short), -1, t))
+            pos.append(short - 1)
+        else:
+            rows.append(torch.where(pad & (b == 0), -1, wrapped))
+            pos.append(2 * W - 6)
+    return (torch.stack(rows).to(torch.int32),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"),
+            max(1, W // 2), B - 1 if B > 1 else None)
+
+
 def paged_phase(torch, PK, cells):
     """Paged attention against its plain version at ``cells`` (laid out
     as PAGED_CELLS) over a ring cache viewed
-    as pages, as the decode step does, with ragged lengths and (where a
-    row has more than one page) an unassigned page in the last row. The
-    library time is scaled_dot_product_attention over the same cache laid
-    out (B, Kv, W, d) beforehand, with the valid slots as a boolean
-    mask."""
+    as pages, as the decode step does, in three cases: (base) ragged
+    lengths and (where a row has more than one page) an unassigned page
+    in the last row; (q) the same caches as int8 codes and f32 scales
+    (the port's ``quantize_kv``), the same lengths and page table; (m)
+    the base caches under the position test of :func:`slot_positions`
+    (pad slots, a window, a row with no valid slot, which must give
+    exactly 0). The library time is scaled_dot_product_attention over the
+    same cache laid out (B, Kv, W, d) beforehand (for (q) dequantized to
+    q's dtype beforehand), with the valid slots as a boolean mask."""
     from repro_torch.kernels import cost
     import numpy as np
-    from repro_torch.models.layers import ring_cache_pages
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    from repro_torch.models.layers import ring_cache_pages, ring_pages
+    from repro_torch.models.transformer import quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
     rows = []
@@ -1128,41 +1181,118 @@ def paged_phase(torch, PK, cells):
             slot = torch.arange(W, device="cuda")
             valid = (slot[None, :] < sl[:, None].long()) \
                 & (table.repeat_interleave(page, dim=1) >= 0)
-            n_valid = int(valid.sum())
-            got = PK.paged_attention(*sets[0])
-            ref = PK.paged_attention_plain(*sets[0])
-            launched = check_one_launch(
-                torch, "paged_attention",
-                lambda: PK.paged_attention(*sets[0]))
-            # control: the plain version without each row's last key
-            control = row_rel_err(PK.paged_attention_plain(
-                q, *sets[0][1:4], (sl - 1).clamp(min=0)), ref)
-            lsets = [(q[:, :, None], kc.transpose(1, 2).contiguous(),
-                      vc.transpose(1, 2).contiguous())
-                     for kc, vc in caches]
-            mask = valid[:, None, None, :]
-
-            def lib_fn(q_, k_, v_):
-                return sdpa(q_, k_, v_, attn_mask=mask, enable_gqa=True)
-
-            lib = lib_fn(*lsets[0])[:, :, 0]
-            torch.cuda.synchronize()
-            times = (timed_ms(torch, PK.paged_attention, sets),
-                     timed_ms(torch, PK.paged_attention_plain, sets[:1],
-                              reps=3, graph=False),
-                     timed_ms(torch, lib_fn, lsets))
-            nbytes, flops = cost.paged_attention(B, H, Kv, d, n_valid,
-                                                 table.numel(), es)
-            rows.append(_attn_row(
-                torch, "paged_attention", dtype, got, ref, control, lib,
-                times, nbytes, flops, launched, B=B, W=W,
-                H=H, Kv=Kv, d=d, page=page,
-                seq_lens=[int(x) for x in lens],
-                unassigned_page=n > 1))
-            del caches, views, sets, lsets, got, ref, lib
+            shape = dict(B=B, W=W, H=H, Kv=Kv, d=d, page=page,
+                         seq_lens=[int(x) for x in lens],
+                         unassigned_page=n > 1)
+            lib_sets = [(q[:, :, None], kc.transpose(1, 2).contiguous(),
+                         vc.transpose(1, 2).contiguous())
+                        for kc, vc in caches]
+            rows.append(_paged_case(
+                torch, PK, dtype, "base", sets, lib_sets, valid,
+                cost.paged_attention(B, H, Kv, d, int(valid.sum()),
+                                     table.numel(), es), shape))
+            # (q): the cell's caches (and more seeded ones, as many as the
+            # L2 asks) as int8 codes and scales, the base lengths and table
+            qsets, lib_sets = [], []
+            for i in range(_copies(B * W * Kv * (2 * d + 8))):
+                kv = caches[i] if i < len(caches) else tuple(
+                    torch.randn((B, W, Kv, d), generator=gen,
+                                device="cuda").to(td) for _ in range(2))
+                (kc, ks), (vc, vs) = (quantize_kv(c) for c in kv)
+                kp, vp, _, _ = ring_cache_pages(kc, vc, pos)
+                qsets.append((q, kp, vp, table, sl, ring_pages(ks, 0),
+                              ring_pages(vs, 0)))
+                lib_sets.append((q[:, :, None], *(
+                    (c.float() * sc[..., None]).to(td).transpose(1, 2)
+                    .contiguous() for c, sc in ((kc, ks), (vc, vs)))))
+            rows.append(_paged_case(
+                torch, PK, dtype, "int8_pages", qsets, lib_sets, valid,
+                cost.paged_attention(B, H, Kv, d, int(valid.sum()),
+                                     table.numel(), es, kv_es=1,
+                                     scales=True), shape))
+            del qsets
+            # (m): the base caches under the position test
+            slot_pos, mpos, window, empty = slot_positions(torch, B, W)
+            msets = []
+            for kc, vc in caches:
+                kp, vp, mtable, msl = ring_cache_pages(kc, vc, mpos)
+                msets.append((q, kp, vp, mtable, msl,
+                              ring_pages(slot_pos, 0), mpos))
+            mvalid = (slot[None, :] < msl[:, None].long()) \
+                & PK.slot_mask(slot_pos, mpos, window)
+            lib_sets = [(q[:, :, None], kc.transpose(1, 2).contiguous(),
+                         vc.transpose(1, 2).contiguous())
+                        for kc, vc in caches]
+            row = _paged_case(
+                torch, PK, dtype, "slot_positions", msets, lib_sets, mvalid,
+                cost.paged_attention(B, H, Kv, d, int(mvalid.sum()),
+                                     mtable.numel(), es, positions=True),
+                dict(shape, seq_lens=msl.tolist(), unassigned_page=False,
+                     window=window, row_without_valid_slot=empty),
+                window=window, empty=empty)
+            rows.append(row)
+            del caches, views, sets, lib_sets, msets
         torch.cuda.empty_cache()
     _raise_faults(rows)
     return rows
+
+
+#: the library call each paged case is timed beside
+PAGED_LIBRARY = {
+    "base": "scaled_dot_product_attention over the cache laid out (B, Kv, "
+            "W, d) beforehand, the valid slots as a mask",
+    "int8_pages": "scaled_dot_product_attention over the cache dequantized "
+                  "to q's dtype and laid out (B, Kv, W, d) beforehand (reads "
+                  "16-bit K/V, not int8), the valid slots as a mask",
+    "slot_positions": "scaled_dot_product_attention over the cache laid out "
+                      "(B, Kv, W, d) beforehand, the slots the position "
+                      "test keeps as a mask",
+}
+
+
+def _paged_case(torch, PK, dtype, case, sets, lib_sets, valid, work, shape,
+                window=None, empty=None) -> dict:
+    """One case of a paged cell: the kernel on ``sets[0]`` against its
+    plain version (``sets``: (q, k_pages, v_pages, table, seq_lens) and,
+    for int8 pages, the scales, or, for the position test, slot_pos and
+    pos) beside the control without each row's last key, one CUDA launch
+    a call, the row ``empty`` exactly 0, and the kernel, plain and
+    library (SDPA on ``lib_sets`` under ``valid``) times; ``work`` is
+    the (bytes, FLOPs) of the cost formula. Returns the kernel row."""
+    names = {"int8_pages": ("k_scale", "v_scale"),
+             "slot_positions": ("slot_pos", "pos")}.get(case, ())
+    extra = {} if window is None else {"window": window}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call(fn):
+        return lambda *a: fn(*a[:5], **dict(zip(names, a[5:])), **extra)
+
+    kernel, plain = call(PK.paged_attention), call(PK.paged_attention_plain)
+    args = sets[0]
+    got = kernel(*args)
+    ref = plain(*args)
+    launched = check_one_launch(torch, "paged_attention",
+                                lambda: kernel(*args))
+    control = row_rel_err(plain(*args[:4], (args[4] - 1).clamp(min=0),
+                                *args[5:]), ref)
+    mask = valid[:, None, None, :]
+
+    def lib_fn(q_, k_, v_):
+        return sdpa(q_, k_, v_, attn_mask=mask, enable_gqa=True)
+
+    lib = lib_fn(*lib_sets[0])[:, :, 0]
+    torch.cuda.synchronize()
+    times = (timed_ms(torch, kernel, sets),
+             timed_ms(torch, plain, sets[:1], reps=PLAIN_REPS, graph=False),
+             timed_ms(torch, lib_fn, lib_sets))
+    row = _attn_row(torch, "paged_attention", dtype, got, ref, control, lib,
+                    times, *work, launched, case=case, **shape,
+                    library_is=PAGED_LIBRARY[case])
+    if empty is not None and got[empty].float().any():
+        row["fault"] = row["fault"] or (
+            f"paged_attention {case} at {dtype} {shape}: the row without a "
+            f"valid slot is not 0")
+    return row
 
 
 def reset_launches(mods) -> None:
@@ -1243,10 +1373,10 @@ def check_quant_loops(cfg, fmt, loops, tokens, run, enc_rows=()) -> dict:
 
 def attention_launches(cfg) -> tuple:
     """(flash launches per prefill, paged launches per decode step): one
-    of each a layer (a windowed model's decode takes the masked path:
-    none); audio adds its encoder's flash per encoder layer and a
-    cross-attention of each per decoder layer; hybrid one of each per
-    site of its shared block; none for SSM."""
+    of each a layer (windowed, int8-KV and 16-bit caches alike); audio
+    adds its encoder's flash per encoder layer and a cross-attention of
+    each per decoder layer; hybrid one of each per site of its shared
+    block; none for SSM."""
     L = cfg.num_layers
     if cfg.family == "ssm":
         return 0, 0
@@ -1255,7 +1385,7 @@ def attention_launches(cfg) -> tuple:
         return n_attn_sites(cfg), n_attn_sites(cfg)
     if cfg.family == "audio":
         return cfg.enc_layers + 2 * L, 2 * L
-    return L, 0 if cfg.sliding_window else L
+    return L, L
 
 
 def sampled_power(fn):
@@ -1286,9 +1416,11 @@ TRAFFIC = dict(n=8, max_batch=4, max_prefill_batch=2, buf_len=512,
                record_logits=True)
 # the dense ARCH_IDS cells: 4 requests of 8 new tokens
 DENSE_TRAFFIC = dict(TRAFFIC, n=4, new_tokens=(8, 8))
-# (arch, formats, traffic), at full width and depth
+# (arch, formats, traffic), at full width and depth; ``kv_quant`` in the
+# traffic builds the model with an int8 KV cache
 SERVE_CELLS = [
     ("llama-3.1-8b", FORMATS, TRAFFIC),
+    ("llama-3.1-8b", ("bfloat16",), dict(TRAFFIC, kv_quant=True)),
     ("qwen3-moe-30b-a3b", ("bfloat16", "int8", "nf4"), TRAFFIC),
     ("granite-moe-1b-a400m", ("int8",), TRAFFIC),
     ("stablelm-1.6b", ("bfloat16",), DENSE_TRAFFIC),
@@ -1351,13 +1483,15 @@ def _run_tokens(res, mode, max_batch) -> list:
             + [1] * sum(r.max_new_tokens - 1 for r in res.requests))
 
 
-def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
+def _check_run(torch, mods, cfg, fmt, res, mode, max_batch,
+               kv_quant=False):
     """The launch checks of one served run (the counts set to 0 before
     it): every token in the vocabulary and every request complete; the
     quant kernels in their formats only (the grouped ones only for MoE),
     each launch on the loop its rows choose; the attention launches of
-    :func:`attention_launches` per prefill and decode step. Returns
-    (launch counts, quant loops)."""
+    :func:`attention_launches` per prefill and decode step, and the
+    paged launches' cases (:func:`check_paged_cases`). Returns (launch
+    counts, quant loops)."""
     counts = read_launches(mods)
     for r in res.requests:
         if len(r.generated) != r.max_new_tokens:
@@ -1386,6 +1520,8 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch):
                              f"prefill shapes")
         check_attention_launches(cfg, fmt, counts, executed,
                                  phases.count("decode"))
+        check_paged_cases(cfg, fmt, mods[2], phases.count("decode"),
+                          kv_quant)
     return counts, loops
 
 
@@ -1415,6 +1551,76 @@ def check_attention_launches(cfg, fmt, counts, prefills, steps) -> None:
                              f"{phase} ({per * n})")
 
 
+def check_paged_cases(cfg, fmt, PK, steps, kv_quant) -> dict:
+    """Fail unless, over ``steps`` decode steps, every self-attention
+    layer's paged launch took the position test (none for the hybrid's
+    sites, which describe their rings by lengths alone, nor for SSM) and,
+    with an int8 KV cache, int8 pages; return the case counts."""
+    per = 0 if cfg.family in ("ssm", "hybrid") else cfg.num_layers
+    want = {"int8_pages": per * steps if kv_quant else 0,
+            "slot_positions": per * steps}
+    if PK.CASES != want:
+        raise SystemExit(f"{cfg.name} {fmt}: paged launches by case "
+                         f"{PK.CASES}, expected {want}")
+    return dict(PK.CASES)
+
+
+#: teacher-forced decode through the paged kernel against the same steps
+#: through its plain version (each step from the same cache), as the
+#: 16-bit model tests bound it: the max |logit difference| over the max
+#: |logit|
+TEACHER_TOL = 5e-2
+TEACHER_STEPS = 8
+
+
+def teacher_forced(torch, PK, model, params, toks, lengths, buf_len,
+                   steps: int = TEACHER_STEPS) -> dict:
+    """A prefill of ``toks`` (right-padded, ``lengths``) into a ring of
+    ``buf_len``, then ``steps`` decode steps, each run twice from the
+    same cache: through the paged kernel, and with
+    ``paged_attention_plain`` in the kernel's place; the plain step's
+    greedy token feeds the next. Fails past TEACHER_TOL or unless each
+    step launched the kernel once a layer. Returns the line's fields."""
+    logits, cache = model.prefill(params, {"tokens": toks}, buf_len=buf_len,
+                                  lengths=lengths)
+    tok = logits.argmax(-1)[:, None]
+    worst, launched = 0.0, set()
+    pads = int((cache["slot_pos"] < 0).sum())
+    for _ in range(steps):
+        plain_cache = {k: v.clone() for k, v in cache.items()}
+        before = PK.LAUNCHES["paged_attention"]
+        got, cache = model.decode_step(params, tok, cache)
+        launched.add(PK.LAUNCHES["paged_attention"] - before)
+        kernel = PK.paged_attention
+        PK.paged_attention = PK.paged_attention_plain
+        try:
+            ref, _ = model.decode_step(params, tok, plain_cache)
+        finally:
+            PK.paged_attention = kernel
+        if not torch.isfinite(got).all():
+            raise SystemExit(f"{model.cfg.name}: non-finite decode logits")
+        worst = max(worst, ((got - ref).abs().max()
+                            / ref.abs().max()).item())
+        tok = ref.argmax(-1)[:, None]
+        del plain_cache
+    want = {model.cfg.num_layers}
+    if not worst <= TEACHER_TOL or launched != want:
+        raise SystemExit(f"{model.cfg.name}: teacher-forced decode through "
+                         f"the paged kernel off by {worst} (tolerance "
+                         f"{TEACHER_TOL}), {launched} launches a step, "
+                         f"expected {want}")
+    return {"steps": steps, "buf_len": cache["k"].shape[2],
+            "prompt_lens": [int(x) for x in lengths],
+            "pad_slots_after_prefill": pads, "max_rel_err": worst,
+            "tol": TEACHER_TOL, "paged_launches_per_step": sorted(launched)}
+
+
+#: the cache past its ring: two prompts of these lengths right-padded
+#: into a ring of PAST_RING_BUF slots (h2o-danube-3-4b, bfloat16)
+PAST_RING_LENS = (200, 137)
+PAST_RING_BUF = 128
+
+
 def _logit_check(torch, cfg, fmt, con, seq) -> float:
     """Each request's batched prefill logits against its own sequential
     prefill: the worst max |diff| over max |logit|, within
@@ -1442,13 +1648,19 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     every token routed with it), on the same weights: capacity drops
     depend on how many tokens are routed together, so a batched prefill
     and a request's own prefill may rightly drop different assignments
-    under the config's capacity. Prints the serve line; returns the
-    timed run's launch counts."""
+    under the config's capacity. With ``kv_quant`` in ``kw`` the model
+    keeps an int8 KV cache; for it and a windowed model the serve line
+    adds a teacher-forced decode through the paged kernel against its
+    plain version (:func:`teacher_forced`), and a windowed model a second
+    one from a prefill padded past its ring (PAST_RING_LENS into
+    PAST_RING_BUF slots). Prints the serve line; returns the timed run's
+    launch counts."""
     import dataclasses
     from repro_torch.launch.serve import build_params, serve
     from repro_torch.models.api import build_model
     t0 = time.perf_counter()
-    model = build_model(cfg, fmt=fmt, device="cuda")
+    kv_quant = kw.get("kv_quant", False)
+    model = build_model(cfg, fmt=fmt, kv_quant=kv_quant, device="cuda")
     params = build_params(model, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1457,11 +1669,12 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     con, watts = sampled_power(lambda: serve(
         model=model, params=params, mode="continuous", **kw))
     counts, loops = _check_run(torch, mods, cfg, fmt, con, "continuous",
-                               kw["max_batch"])
+                               kw["max_batch"], kv_quant)
+    cases = dict(mods[2].CASES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     line = {"phase": "serve", "fmt": fmt, "model": cfg.name,
             "family": cfg.family, "layers": cfg.num_layers,
-            "d_model": cfg.d_model}
+            "d_model": cfg.d_model, "kv_quant": kv_quant}
     pair_model, pair_con = model, con
     if cfg.is_moe:
         line["capacity_factor"] = cfg.moe_capacity_factor
@@ -1469,12 +1682,13 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
             a["dropped_fraction"] for a in con.engine.backend.prefill_aux]
         nodrop = dataclasses.replace(
             cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
-        pair_model = build_model(nodrop, fmt=fmt, device="cuda")
+        pair_model = build_model(nodrop, fmt=fmt, kv_quant=kv_quant,
+                                 device="cuda")
         reset_launches(mods)
         pair_con = serve(model=pair_model, params=params, mode="continuous",
                          **kw)
         _, pair_loops = _check_run(torch, mods, nodrop, fmt, pair_con,
-                                   "continuous", kw["max_batch"])
+                                   "continuous", kw["max_batch"], kv_quant)
         dropped = [a["dropped_fraction"]
                    for a in pair_con.engine.backend.prefill_aux]
         if any(d != 0.0 for d in dropped):
@@ -1489,6 +1703,28 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     _, loops["sequential"] = _check_run(torch, mods, pair_model.cfg, fmt,
                                         seq, "sequential", kw["max_batch"])
     worst = _logit_check(torch, cfg, fmt, pair_con, seq)
+    if kv_quant or cfg.sliding_window:
+        PK = mods[2]
+        two = con.requests[:2]
+        lengths = torch.tensor([r.prompt_len for r in two],
+                               dtype=torch.int32, device="cuda")
+        toks = torch.zeros((2, int(lengths.max())), dtype=torch.long,
+                           device="cuda")
+        for i, r in enumerate(two):
+            toks[i, :r.prompt_len] = torch.from_numpy(r.prompt)
+        line["teacher_forced"] = teacher_forced(
+            torch, PK, model, params, toks, lengths, kw["buf_len"])
+        if cfg.sliding_window:
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            lens = torch.tensor(PAST_RING_LENS, dtype=torch.int32,
+                                device="cuda")
+            toks = torch.randint(0, cfg.vocab_size, (2, max(PAST_RING_LENS)),
+                                 generator=gen, device="cuda")
+            line["past_ring"] = teacher_forced(torch, PK, model, params, toks,
+                                               lens, PAST_RING_BUF)
+            if not line["past_ring"]["pad_slots_after_prefill"]:
+                raise SystemExit(f"{cfg.name}: the prefill past its ring "
+                                 f"left no pad slot inside it")
     same = sum(rc.generated == rs.generated
                for rc, rs in zip(pair_con.requests, seq.requests))
     tok_same = sum(x == y for rc, rs in zip(pair_con.requests, seq.requests)
@@ -1522,7 +1758,8 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
         "measured": {"power_w_mean": mean_w, "samples": len(watts),
                      "power_w": watts, "interval_s": 0.1,
                      "j_per_token": mean_w * con.wall_s / n_tok},
-        "peak_mem_gb": peak_gb, "launches": counts, "quant_loops": loops,
+        "peak_mem_gb": peak_gb, "launches": counts,
+        "paged_launches_by_case": cases, "quant_loops": loops,
         "prefill_logit_rel_err": worst,
         "prefill_logit_tol": PREFILL_LOGIT_TOL[fmt],
         "requests_same_tokens_as_sequential": same / len(con.requests),
@@ -1531,7 +1768,8 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     del model, params, con, seq, pair_model, pair_con
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return dict(counts, **{f"paged_attention.{case}": n
+                           for case, n in cases.items()})
 
 
 def _stub_inputs(torch, cfg, req_id: int):
@@ -1690,9 +1928,10 @@ def model_phase(torch, mods) -> dict:
 
 def serve_phase(torch, mods) -> dict:
     """Every SERVE_CELLS config in each of its formats; the timed runs'
-    launch counts by (arch, format)."""
+    launch counts by (arch, format) and (arch, format, "kv_quant")."""
     from repro_torch.launch.serve import arch_config
-    return {(arch, fmt): serve_cell(torch, mods, arch_config(arch), fmt, kw)
+    return {(arch, fmt) + (("kv_quant",) if kw.get("kv_quant") else ()):
+            serve_cell(torch, mods, arch_config(arch), fmt, kw)
             for arch, formats, kw in SERVE_CELLS for fmt in formats}
 
 
@@ -3368,6 +3607,26 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "library_is": "torch.nn.functional.scaled_dot_product_attention"
                           " (enable_gqa) on the same inputs",
+        })
+    for case, row in PAGED_ROWS.items():
+        head = next(r for r in rows["paged_attention"]
+                    if all(r[k] == v for k, v in dict(
+                        HEADLINE_ATTN["paged_attention"], case=case).items()))
+        cases = [r for r in rows["paged_attention"] if r["case"] == case]
+        kernels.append({
+            "name": "paged_attention", "case": case, "row": row,
+            "route": "cuda", "source": ATTN_SOURCES["paged_attention"],
+            "replaces": REPLACES["paged_attention"],
+            "launches": max(c.get(f"paged_attention.{case}", 0)
+                            for c in launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "max_rel_err": max(r["max_rel_err"] for r in cases),
+            "shape": HEADLINE_ATTN["paged_attention"],
+            "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "bytes": head["bytes"],
+            "library_ms": head["library_ms"],
+            "library_is": head["library_is"],
         })
     head = next(r for r in rows[FK.BWD]
                 if all(r[k] == v for k, v in HEADLINE_BWD.items()))

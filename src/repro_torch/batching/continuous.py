@@ -32,7 +32,6 @@ from typing import TYPE_CHECKING, List, Optional
 import torch
 
 from repro_torch.batching.kvcache import PagedKVAllocator
-from repro_torch.models.layers import PREFILL_PAST_RING
 
 if TYPE_CHECKING:   # avoid a batching <-> serving import cycle
     from repro_torch.batching.policy import BatchPolicy
@@ -337,16 +336,11 @@ CACHE_BATCH_AXIS = {"k": 1, "v": 1, "ssm_state": 1, "conv": 1,
 def insert_cache_slot(cache: dict, pcache: dict, row: int,
                       slot: int) -> dict:
     """Copy batch row ``row`` of a prefill cache into decode-cache slot
-    ``slot``, in place; a prefill padded past the ring marks the decode
-    cache with :data:`PREFILL_PAST_RING`. Returns ``cache``."""
+    ``slot``, in place. Returns ``cache``."""
     for key, val in cache.items():
-        if not torch.is_tensor(val):
-            continue
         ax = CACHE_BATCH_AXIS.get(key, 0)
         src = torch.select(pcache[key], ax, row)
         torch.select(val, ax, slot).copy_(src)
-    if pcache.get(PREFILL_PAST_RING):
-        cache[PREFILL_PAST_RING] = True
     return cache
 
 
@@ -356,6 +350,5 @@ def evict_cache_slot(cache: dict, slot: int) -> dict:
     the serving path skips it, as the reference does. Returns
     ``cache``."""
     for key, val in cache.items():
-        if torch.is_tensor(val):
-            torch.select(val, CACHE_BATCH_AXIS.get(key, 0), slot).zero_()
+        torch.select(val, CACHE_BATCH_AXIS.get(key, 0), slot).zero_()
     return cache

@@ -50,8 +50,17 @@ def flash_attention_bwd(B: int, S: int, T: int, H: int, Kv: int, d: int,
 
 
 def paged_attention(B: int, H: int, Kv: int, d: int, n_valid: int,
-                    table_entries: int, es: int) -> Tuple[int, int]:
+                    table_entries: int, es: int, kv_es: Optional[int] = None,
+                    scales: bool = False,
+                    positions: bool = False) -> Tuple[int, int]:
     """q and out (B, H, d), the ``n_valid`` K/V slots the rows read
-    (summed over the rows), the page table and the lengths (int32)."""
-    return (es * (2 * B * H * d + 2 * n_valid * Kv * d)
+    (summed over the rows) at ``kv_es`` bytes an element (``es`` by
+    default; 1 for int8 pages), with ``scales`` their f32 scales (one of
+    K and one of V a slot and head), with ``positions`` each read slot's
+    int32 position and the rows' ``pos``; the page table and the lengths
+    (int32)."""
+    kv_es = es if kv_es is None else kv_es
+    return (es * 2 * B * H * d + kv_es * 2 * n_valid * Kv * d
+            + (2 * 4 * n_valid * Kv if scales else 0)
+            + (4 * (n_valid + B) if positions else 0)
             + 4 * (table_entries + B), 4 * H * d * n_valid)

@@ -27,7 +27,7 @@ those DTensors is :mod:`repro_torch.core.sharded`'s.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -144,14 +144,11 @@ def input_specs_sharding(cfg: ModelConfig, shape: ShapeConfig, mesh,
 def cache_specs(cfg: ModelConfig, cache, mesh,
                 batch: int) -> Dict[str, Spec]:
     """Decode-cache specs: batch on data axes, cache length (or SSM
-    heads / conv channels) on "model". Entries that are not tensors (the
-    port's flags) get none."""
+    heads / conv channels) on "model"."""
     b_ax = _batch_axes(mesh, batch)
     msz = axis_size(mesh, "model")
 
-    def spec_for(key: str, leaf) -> Optional[Spec]:
-        if not isinstance(leaf, torch.Tensor):
-            return None
+    def spec_for(key: str, leaf) -> Spec:
         shp = leaf.shape
         if key in ("k", "v", "shared_k", "shared_v", "enc_k", "enc_v"):
             w = "model" if shp[2] % msz == 0 else None   # (L, B, W, kv, hd)

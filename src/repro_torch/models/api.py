@@ -48,8 +48,7 @@ from repro_torch.core.sharded import split_heads
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (PREFILL_PAST_RING, embed,
-                                       init_kv_cache, rms_norm,
+from repro_torch.models.layers import (embed, init_kv_cache, rms_norm,
                                        slot_positions_after_prefill)
 from repro_torch.quant.apply import linear_apply, quantize_params
 
@@ -302,8 +301,6 @@ class Model:
             "slot_pos": slot_positions_after_prefill(W, lengths, S),
             "pos": lengths.to(torch.int32),
         }
-        if S > W:
-            cache[PREFILL_PAST_RING] = True
         if self.kv_quant:
             cache["k"], cache["k_scale"] = tfm.quantize_kv(k)
             cache["v"], cache["v_scale"] = tfm.quantize_kv(v)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.sharded import (gather_dim, is_sharded, on_shards,
                                      split_lookup)
+from repro_torch.kernels.paged_attention.kernel import slot_mask
 from repro_torch.quant.apply import linear_apply
 
 NEG_INF = -1e30
@@ -259,11 +260,10 @@ def cache_write_decode(cache_layer_k: torch.Tensor,
 
 def decode_attention_mask(slot_pos: torch.Tensor, pos: torch.Tensor,
                           window: Optional[int]) -> torch.Tensor:
-    """(B, W) bool: which cache slots each row's current token may see."""
-    ok = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-    if window is not None:
-        ok &= slot_pos > (pos[:, None] - window)
-    return ok
+    """(B, W) bool: which cache slots each row's current token may see;
+    the paged kernel's position test (its plain version's
+    :func:`~repro_torch.kernels.paged_attention.kernel.slot_mask`)."""
+    return slot_mask(slot_pos, pos, window)
 
 
 def slot_positions_after_prefill(buf_len: int, lengths: torch.Tensor,
@@ -281,14 +281,6 @@ def slot_positions_after_prefill(buf_len: int, lengths: torch.Tensor,
 #: largest first
 RING_PAGE_SIZES = (64, 32, 16, 8)
 
-#: cache key, present (True) once a row of the cache came from a prefill
-#: padded past the ring (S > W): that prefill keeps the last W padded
-#: positions, so a shorter row keeps -1 pad slots inside the first
-#: min(pos + 1, W) slots, and the page view no longer equals the decode
-#: mask. Set on the host from shapes alone; such a cache decodes through
-#: the masked attention for the rest of its life.
-PREFILL_PAST_RING = "prefill_past_ring"
-
 
 def ring_page_size(buf_len: int) -> int:
     """The largest of :data:`RING_PAGE_SIZES` that divides the ring's
@@ -304,14 +296,14 @@ def ring_cache_pages(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
     :func:`repro_torch.kernels.paged_attention.ops.paged_attention`.
 
     After this step's K/V is written, the first seq_lens[b] slots of row
-    b are exactly the slots :func:`decode_attention_mask` allows when the
-    model has no sliding window and every row came from a prefill of
-    padded length <= W (the serving backend caps it at the buffer; a
-    cache built otherwise carries :data:`PREFILL_PAST_RING`): before the
-    ring wraps, slots 0..pos hold positions 0..pos, and pad slots of a
-    prefill (slot_pos -1) lie at or past pos + 1 until decode overwrites
-    them; after it wraps, every slot holds a position <= pos. A released
-    lane keeps decoding in place and follows the same rule."""
+    b hold every slot :func:`decode_attention_mask` allows: before the
+    ring wraps, a slot at or past pos + 1 holds no position <= pos (a
+    prefill keeps positions start + i in slot i, start >= 0, and decode
+    writes position p at slot p); after it wraps, the prefix is the whole
+    ring. The prefix may also hold slots the mask refuses (-1 pad slots
+    of a prefill padded past the ring, positions outside a window): the
+    kernel's position test over :func:`ring_pages` of ``slot_pos`` drops
+    them."""
     if is_sharded(k, v, pos):
         return _ring_cache_pages_sharded(k, v, pos)
     *lead, B, W, Kv, hd = k.shape
@@ -325,26 +317,54 @@ def ring_cache_pages(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
     return k_pages, v_pages, page_table, seq_lens
 
 
+def _pool_placements(placements, b_dim: int) -> list:
+    """The placements of a ring tensor's page view: its pages axis
+    (``b_dim``) is sharded wherever the rows or the ring are."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in placements:
+        d = p.dim if isinstance(p, Shard) else None
+        if d in (b_dim, b_dim + 1):
+            out.append(Shard(b_dim))
+        else:
+            out.append(Replicate() if d is None else
+                       Shard(d - 1 if d > b_dim else d))
+    return out
+
+
 def _ring_cache_pages_sharded(k, v, pos):
     """:func:`ring_cache_pages` on each rank's shards (the dry run): the
     pool's page axis is sharded wherever the rows or the ring are, the
     page table on its rows and pages, the lengths on the rows."""
     from torch.distributed.tensor import Replicate, Shard
     b_dim = k.ndim - 4
-    pool, table, lens = [], [], []
+    table, lens = [], []
     for p in k.placements:
         d = p.dim if isinstance(p, Shard) else None
         if d in (b_dim, b_dim + 1):
-            pool.append(Shard(b_dim))
             table.append(Shard(d - b_dim))
             lens.append(Shard(0) if d == b_dim else Replicate())
         else:
-            pool.append(Replicate() if d is None else
-                        Shard(d - 1 if d > b_dim else d))
             table.append(Replicate())
             lens.append(Replicate())
+    pool = _pool_placements(k.placements, b_dim)
     return on_shards(ring_cache_pages, (pool, pool, table, lens), k, v, pos,
                      in_placements=[k.placements, k.placements, lens])
+
+
+def ring_pages(x: torch.Tensor, b_dim: int) -> torch.Tensor:
+    """A tensor laid out along the ring, (..., B, W, ...) with the rows
+    at dim ``b_dim``, viewed as pages (..., B*W/page, page, ...) without a
+    copy, aligned with :func:`ring_cache_pages`' pool: the int8 cache's
+    scales (L, B, W, Kv) at ``b_dim`` 1, ``slot_pos`` (B, W) at 0. On
+    DTensors (the dry run) placed as the pool."""
+    if is_sharded(x):
+        return on_shards(lambda t: ring_pages(t, b_dim),
+                         _pool_placements(x.placements, b_dim), x)
+    B, W = x.shape[b_dim], x.shape[b_dim + 1]
+    page = ring_page_size(W)
+    return x.view(*x.shape[:b_dim], B * (W // page), page,
+                  *x.shape[b_dim + 2:])
 
 
 def encoder_kv_pages(k: torch.Tensor, v: torch.Tensor):

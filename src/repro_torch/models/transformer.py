@@ -10,9 +10,10 @@ the cache in place. Prefill attention, at every length, is the flash
 attention kernel, which computes what the reference's
 ``attention``/``chunked_attention`` compute, causal in a decoder and not
 in the audio encoder or a cross-attention; decode attention is the paged
-attention kernel over the ring cache viewed as pages, except for
-windowed and int8-KV models (see :func:`decoder_decode_step`), and a
-decode step's cross-attention is the paged kernel over the encoder K/V
+attention kernel over the ring cache viewed as pages, for every cache
+(16-bit, f32 or int8 K/V; windowed models; caches from a prefill padded
+past the ring: see :func:`decoder_decode_step`), and a decode step's
+cross-attention is the paged kernel over the encoder K/V
 viewed as pages (:func:`repro_torch.models.layers.encoder_kv_pages`).
 """
 from __future__ import annotations
@@ -28,11 +29,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.core.sharded import split_heads
-from repro_torch.models.layers import (apply_rope, attention,
-                                       cache_write_decode,
-                                       decode_attention_mask,
+from repro_torch.models.layers import (apply_rope, cache_write_decode,
                                        encoder_kv_pages, gated_mlp,
-                                       PREFILL_PAST_RING, ring_cache_pages,
+                                       ring_cache_pages, ring_pages,
                                        rms_norm, write_rows)
 from repro_torch.quant.apply import linear_apply
 
@@ -278,30 +277,27 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
     updated in place: this token's K/V and slot position are written and
     ``pos`` advances by one. ``enc_kv``: the encoder K/V of every layer
     (L, B, T_enc, Kv, hd), which each layer's cross-attention reads
-    through the paged kernel. Returns the hidden state (B, 1, D)."""
+    through the paged kernel. Returns the hidden state (B, 1, D).
+
+    Every layer's attention is one paged call over the ring viewed as
+    pages (int8 pages with their scales for an int8 cache), with the
+    slot positions, ``pos`` and ``window`` as its position test: the
+    reference's ``decode_attention_mask`` over the prefix of each row
+    that :func:`~repro_torch.models.layers.ring_cache_pages` describes,
+    which holds every slot the mask allows."""
     pos = cache["pos"]                                         # (B,)
     W = cache["k"].shape[2]
     B = x.shape[0]
     slot = pos.long() % W
     write_rows(slot, (cache["slot_pos"], pos))
     quant = "k_scale" in cache
-    # The paged kernel sees the first min(pos + 1, W) slots of each row,
-    # which are exactly the slots the decode mask allows while every row
-    # came from a prefill no longer than the ring (ring_cache_pages); a
-    # cache marked PREFILL_PAST_RING keeps -1 pad slots among them. The
-    # kernel reads no int8 codes, so int8-KV models keep the masked
-    # attention. So do windowed models: their ring is at most the window
-    # long and their prompts routinely run past it, which marks most of
-    # their caches anyway, and one decode path per model is simpler to
-    # hold against the reference.
-    paged = (window is None and not quant
-             and not cache.get(PREFILL_PAST_RING, False))
-    if paged:
-        k_pages, v_pages, page_table, seq_lens = ring_cache_pages(
-            cache["k"], cache["v"], pos)
-    else:
-        allow = decode_attention_mask(cache["slot_pos"], pos, window)
-        mask = allow[:, None, :]                               # (B, 1, W)
+    k_pages, v_pages, page_table, seq_lens = ring_cache_pages(
+        cache["k"], cache["v"], pos)
+    slots = dict(slot_pos=ring_pages(cache["slot_pos"], 0), pos=pos,
+                 window=window)
+    if quant:
+        k_scales = ring_pages(cache["k_scale"], 1)
+        v_scales = ring_pages(cache["v_scale"], 1)
     if enc_kv is not None:
         ek_pages, ev_pages, enc_table, enc_lens = encoder_kv_pages(*enc_kv)
     pos1 = pos[:, None]
@@ -314,19 +310,16 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
         if quant:
             kq, ksc = quantize_kv(k)
             vq, vsc = quantize_kv(v)
-            ks, vs = cache["k_scale"][i], cache["v_scale"][i]
             write_rows(slot, (ck, kq[:, 0]), (cv, vq[:, 0]),
-                       (ks, ksc[:, 0]), (vs, vsc[:, 0]))
-            kf = dequantize_kv(ck, ks, policy.activation_dtype)
-            vf = dequantize_kv(cv, vs, policy.activation_dtype)
-            o = attention(q, kf, vf, mask=mask)
+                       (cache["k_scale"][i], ksc[:, 0]),
+                       (cache["v_scale"][i], vsc[:, 0]))
+            scales = dict(k_scale=k_scales[i], v_scale=v_scales[i])
         else:
             cache_write_decode(ck, cv, k, v, pos)
-            if paged:
-                o = paged_attention(q[:, 0], k_pages[i], v_pages[i],
-                                    page_table, seq_lens)[:, None]
-            else:
-                o = attention(q, ck, cv, mask=mask)
+            scales = {}
+        o = paged_attention(q[:, 0].to(policy.activation_dtype), k_pages[i],
+                            v_pages[i], page_table, seq_lens, **scales,
+                            **slots)[:, None]
         x = x + linear_apply(lp["attn"]["wo"], o.reshape(B, 1, -1), policy)
         if enc_kv is not None:
             x = cross_attn_block(lp, x, None, None, cfg, policy,

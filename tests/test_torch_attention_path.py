@@ -2,9 +2,10 @@
 flash attention and decode through paged attention over the ring cache
 viewed as pages (repro_torch.models.layers.ring_cache_pages). The view
 selects exactly the slots the reference's decode mask allows, in every
-state the serving path produces; windowed and int8-KV models keep the
-masked attention, and so does a cache built by a prefill padded past its
-ring."""
+state the serving path produces; windowed models, int8-KV models and a
+cache built by a prefill padded past its ring decode through the same
+paged call, its position test (slot_pos, pos, window) dropping the slots
+of the view the mask refuses."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -76,9 +77,12 @@ def test_page_view_selects_the_decode_mask_on_the_serve_path(monkeypatch,
 
 
 def _count_calls(monkeypatch):
+    """Calls of the flash, paged and masked attention from the model:
+    the masked one wherever the decoder could reach it (the layers
+    module's, and a name bound in the transformer module)."""
     calls = {"flash": 0, "paged": 0, "masked": 0}
-    flash, paged, masked = tfm.flash_attention, tfm.paged_attention, \
-        tfm.attention
+    flash, paged = tfm.flash_attention, tfm.paged_attention
+    masked = pl.attention
 
     def count(name, fn):
         def wrapped(*a, **kw):
@@ -88,7 +92,9 @@ def _count_calls(monkeypatch):
 
     monkeypatch.setattr(tfm, "flash_attention", count("flash", flash))
     monkeypatch.setattr(tfm, "paged_attention", count("paged", paged))
-    monkeypatch.setattr(tfm, "attention", count("masked", masked))
+    monkeypatch.setattr(pl, "attention", count("masked", masked))
+    monkeypatch.setattr(tfm, "attention", count("masked", masked),
+                        raising=False)
     return calls
 
 
@@ -122,16 +128,17 @@ def test_prefill_and_decode_go_through_the_kernels(monkeypatch, fmt):
 
 @pytest.mark.parametrize("kw", [dict(window_override=6),
                                 dict(kv_quant=True)])
-def test_windowed_and_int8_kv_models_keep_the_masked_decode(monkeypatch,
-                                                            kw):
+def test_windowed_and_int8_kv_models_decode_through_the_paged_kernel(
+        monkeypatch, kw):
     """Windowed models and int8 caches (which hold codes) decode through
-    the masked attention, chosen from the configuration; prefill still
-    runs flash attention (with the window)."""
+    one paged call a layer (int8 pages with their scales, the window in
+    its position test) and no masked attention; prefill runs flash
+    attention (with the window)."""
     calls = _count_calls(monkeypatch)
     model = build_model(CFG, fmt="float32", device="cpu", **kw)
     for phase in _prefill_and_decode(model):
         want = {"prefill": {"flash": 2, "paged": 0, "masked": 0},
-                "decode": {"flash": 0, "paged": 0, "masked": 2}}[phase]
+                "decode": {"flash": 0, "paged": 2, "masked": 0}}[phase]
         assert calls == want, phase
         calls.update(flash=0, paged=0, masked=0)
 
@@ -141,9 +148,9 @@ def test_prefill_past_the_ring_decodes_as_the_reference(monkeypatch, lengths,
                                                         tmp_path):
     """A prefill padded past its ring (S = 12 > buf_len = 8) keeps the
     last 8 padded positions, so a shorter row keeps -1 pad slots inside
-    the ring that min(pos + 1, W) would select. Such a cache decodes
-    through the masked attention, and f32 greedy tokens and logits match
-    the JAX model over 6 steps (logits within 1e-4)."""
+    the ring that min(pos + 1, W) selects. The paged call's position test
+    drops them: f32 greedy tokens and logits match the JAX model over 6
+    steps (logits within 1e-4), with no masked attention."""
     import jax
     import jax.numpy as jnp
     from repro.models import build_model as jax_build_model
@@ -161,7 +168,8 @@ def test_prefill_past_the_ring_decodes_as_the_reference(monkeypatch, lengths,
                           lengths=jnp.asarray(lens))
     tlog, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, buf_len=8,
                           lengths=torch.from_numpy(lens))
-    assert tc["prefill_past_ring"] is True
+    # a shorter row keeps pad slots inside the ring
+    assert bool((tc["slot_pos"] < 0).any()) == (min(lengths) < 12)
     step = jax.jit(jm.decode_step)
     for i in range(7):
         jlog, tlog = np.asarray(jlog), to_numpy(tlog)
@@ -173,14 +181,16 @@ def test_prefill_past_the_ring_decodes_as_the_reference(monkeypatch, lengths,
         tok = jlog.argmax(-1)[:, None].astype(np.int32)
         jlog, jc = step(jp, jnp.asarray(tok), jc)
         tlog, tc = tm.decode_step(tp, torch.from_numpy(tok), tc)
-    assert calls["paged"] == 0 and calls["masked"] == 6 * CFG.num_layers
+    assert calls["paged"] == 6 * CFG.num_layers and calls["masked"] == 0
 
 
-def test_inserting_a_prefill_past_the_ring_marks_the_decode_cache(
+def test_inserting_a_prefill_past_the_ring_decodes_as_its_own_cache(
         monkeypatch):
-    """The serving backend's decode cache takes the mark from the first
-    prefill padded past the ring that is inserted into it, keeps it after
-    the lane is evicted, and then decodes through the masked attention."""
+    """The serving backend's decode cache, given a row of a prefill padded
+    past the ring (pad slots -1 inside the ring) and, after eviction of
+    another lane, decoding through the paged kernel: that lane's logits
+    equal the same step over the prefill's own cache, bit for bit (f32),
+    one paged call a layer and no masked attention."""
     from repro_torch.batching.continuous import (evict_cache_slot,
                                                  insert_cache_slot)
     calls = _count_calls(monkeypatch)
@@ -191,15 +201,14 @@ def test_inserting_a_prefill_past_the_ring_marks_the_decode_cache(
     _, short = model.prefill(params, {"tokens": toks[:, :6]}, buf_len=8)
     _, past = model.prefill(params, {"tokens": toks}, buf_len=8,
                             lengths=torch.tensor([12, 9]))
+    assert (past["slot_pos"][1] < 0).any()
     cache = model.init_cache(3, 8)
     insert_cache_slot(cache, short, 0, 0)
-    assert pl.PREFILL_PAST_RING not in short
-    assert pl.PREFILL_PAST_RING not in cache
-    model.decode_step(params, torch.zeros((3, 1), dtype=torch.long), cache)
-    assert calls["paged"] == CFG.num_layers and calls["masked"] == 0
-    insert_cache_slot(cache, past, 1, 2)
+    insert_cache_slot(cache, past, 1, 1)
+    insert_cache_slot(cache, short, 1, 2)
     evict_cache_slot(cache, 2)
-    assert cache[pl.PREFILL_PAST_RING] is True
-    model.decode_step(params, torch.zeros((3, 1), dtype=torch.long), cache)
-    assert calls["paged"] == CFG.num_layers
-    assert calls["masked"] == CFG.num_layers
+    tok = torch.tensor([[3], [5], [0]])
+    got, _ = model.decode_step(params, tok, cache)
+    assert calls["paged"] == CFG.num_layers and calls["masked"] == 0
+    want, _ = model.decode_step(params, tok[:2], past)
+    assert torch.equal(got[1], want[1])

@@ -3,7 +3,8 @@ version: the quant_matmul kernels through every loop the launcher picks
 (the decode loop also row by row against M = 1 calls and under graph
 replay), their grouped launch over the experts of an MoE layer at
 qwen3-moe-30b-a3b's and granite-moe-1b-a400m's shapes, the attention
-kernels at ragged shapes, and the attention uses of the vlm, audio and
+kernels at ragged shapes (paged attention also over int8 pages and with
+its per-slot position test), and the attention uses of the vlm, audio and
 hybrid families (unmasked flash over S != T keys, paged attention over
 the encoder K/V, a hybrid decode step against the masked attention).
 Imports no JAX,
@@ -629,6 +630,161 @@ def test_cuda_paged_head_dims_merge_their_splits(d, dtype):
     tol = 1e-5 if dtype == "float32" else 1e-2
     assert _row_rel(got, PK.paged_attention_plain(q, kp, vp, pt, sl)) < tol
     assert not PK.cuda_build.counters(q.device, B * Kv).any()
+
+
+def _int8_case(page, H, Kv, d, td, seed):
+    """``_paged_case``'s pools quantized by the port's quantize_kv into
+    int8 codes and f32 scales, NaN in the scale of every slot the kernel
+    must not read."""
+    from repro_torch.models.transformer import quantize_kv
+    q, kp, vp, pt, sl = _paged_case(page, H, Kv, d, torch.float32, seed,
+                                    True)
+    unread = kp[..., 0].isnan()
+    (kc, ks), (vc, vs) = quantize_kv(kp.nan_to_num()), \
+        quantize_kv(vp.nan_to_num())
+    ks[unread] = float("nan")
+    vs[unread] = float("nan")
+    return q.to(td), kc, vc, ks, vs, pt, sl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,H,Kv,d", [(29, 14, 2, 64), (64, 8, 2, 96),
+                                         (8, 32, 8, 120), (261, 32, 8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_int8_pages_match_plain(page, H, Kv, d, dtype):
+    """On the card: int8 pages with their f32 scales at head_dim 64, 96,
+    120 and 128 (120: rows of 120 bytes, read through the 2-D map), with
+    ragged lengths, an unassigned page, a page id at n_pool and NaN in
+    the scale of every slot the kernel must not read: finite, row by row
+    against the plain version (bf16 1e-2, f32 1e-5), the row of length 0
+    is 0, one launch a call and one kernel node under graph capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    q, kc, vc, ks, vs, pt, sl = _int8_case(page, H, Kv, d, td, page + d)
+    before = PK.LAUNCHES["paged_attention"]
+    got = PK.paged_attention(q, kc, vc, pt, sl, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["paged_attention"] == before + 1
+    assert got.dtype == td and torch.isfinite(got.float()).all()
+    assert not got[2].float().any()
+    ref = PK.paged_attention_plain(
+        q, kc, vc, torch.where(pt >= kc.shape[0], -1, pt), sl,
+        k_scale=ks.nan_to_num(), v_scale=vs.nan_to_num())
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert _row_rel(got, ref) < tol
+    assert _graph_nodes(lambda: PK.paged_attention(
+        q, kc, vc, pt, sl, k_scale=ks, v_scale=vs)) == [0]
+
+
+def _slots_case(B, W, H, Kv, d, td, quant, seed):
+    """A ring cache of B rows of W slots viewed as pages, with slot
+    positions: row 0 unwrapped with -1 pad slots inside its prefix, row 1
+    wrapped with a window of W // 3, row 2 with every slot past pos (none
+    valid), further rows wrapped without a window. Returns (q, pages, kw
+    of the position test and scales, window)."""
+    from repro_torch.models.layers import ring_cache_pages, ring_pages
+    from repro_torch.models.transformer import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k, v = (torch.randn((B, W, Kv, d), generator=gen, device="cuda")
+            for _ in range(2))
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(td)
+    idx = torch.arange(W, device="cuda")
+    rows = [torch.where(idx % 7 == 3, -1, idx), W + (idx - 5) % W,
+            idx + 3 * W] + [2 * W + idx] * (B - 3)
+    slot_pos = torch.stack(rows).to(torch.int32)
+    pos = torch.tensor([W - 1, 2 * W - 6, W] + [3 * W - 1] * (B - 3),
+                       dtype=torch.int32, device="cuda")
+    kw = {"pos": pos, "slot_pos": ring_pages(slot_pos, 0)}
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        kw.update(k_scale=ring_pages(ks, 0), v_scale=ring_pages(vs, 0))
+    else:
+        k, v = k.to(td), v.to(td)
+    kp, vp, pt, sl = ring_cache_pages(k, v, pos)
+    return q, (kp, vp, pt, sl), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,H,Kv,d", [(4, 96, 32, 8, 128),
+                                        (3, 4096, 32, 8, 120),
+                                        (5, 512, 14, 2, 64)])
+@pytest.mark.parametrize("quant", [False, True], ids=["16bit", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_slot_positions_match_plain(B, W, H, Kv, d, quant,
+                                               dtype):
+    """On the card: the position test (pad slots inside a prefix, a
+    window narrower than the ring, a row with no valid slot) over 16-bit
+    or f32 pages and over int8 pages, one split and several (W = 4096):
+    row by row against the plain version, the row with no valid slot
+    exactly 0, one launch, the merge counters back at 0; and with
+    positions that leave the prefix whole, the same bits as the call
+    without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    q, pages, kw = _slots_case(B, W, H, Kv, d, td, quant, W + d)
+    before = PK.LAUNCHES["paged_attention"]
+    got = PK.paged_attention(q, *pages, window=W // 3, **kw)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["paged_attention"] == before + 1
+    ref = PK.paged_attention_plain(q, *pages, window=W // 3, **kw)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    live = [0, 1] + list(range(3, B))
+    assert _row_rel(got[live], ref[live]) < tol
+    assert not got[2].float().any()
+    assert not PK.cuda_build.counters(q.device, B * Kv).any()
+    prefix = dict(kw, slot_pos=torch.arange(
+        kw["slot_pos"].numel(), dtype=torch.int32, device="cuda").view_as(
+        kw["slot_pos"]) % W, pos=torch.full_like(kw["pos"], W - 1))
+    plain = {k: t for k, t in kw.items() if k.endswith("scale")}
+    assert torch.equal(PK.paged_attention(q, *pages, **prefix),
+                       PK.paged_attention(q, *pages, **plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_slots_replay_in_a_graph(dtype):
+    """On the card: one call with int8 pages and the position test is
+    one kernel node; captured in a CUDA graph and replayed with new
+    positions written into the captured pos (several splits a row), each
+    replay matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    td = getattr(torch, dtype)
+    q, pages, kw = _slots_case(4, 4096, 32, 8, 128, td, True, 5)
+    call = lambda: PK.paged_attention(q, *pages, window=1000, **kw)  # noqa
+    assert _graph_nodes(call) == [0]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for p in ([4095, 8000, 12000, 9000], [100, 5000, 4096, 11000]):
+        kw["pos"].copy_(torch.tensor(p, dtype=torch.int32))
+        g.replay()
+        torch.cuda.synchronize()
+        ref = PK.paged_attention_plain(q, *pages, window=1000, **kw)
+        assert _row_rel(out, ref) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_paged_refuses_scales_off_the_card():
+    """On the card: scales on the CPU (or int8 pages without scales)
+    raise before any launch, with no fallback to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as PK
+    q, kc, vc, ks, vs, pt, sl = _int8_case(8, 32, 8, 128, torch.bfloat16, 1)
+    before = PK.LAUNCHES["paged_attention"]
+    with pytest.raises(ValueError, match="k_scale on cpu"):
+        PK.paged_attention(q, kc, vc, pt, sl, k_scale=ks.cpu(),
+                           v_scale=vs.cpu())
+    with pytest.raises(ValueError, match="int8 pages"):
+        PK.paged_attention(q, kc, vc, pt, sl)
+    assert PK.LAUNCHES["paged_attention"] == before
 
 
 @pytest.mark.gpu

@@ -15,7 +15,9 @@ version's and ``scaled_dot_product_attention``'s times (the last a
 yardstick the port never calls), the bound (the larger of the bytes
 over 3.35 TB/s and the operations over the bf16 or f32 peak, H100 SXM
 data sheet), and the kernel's worst row against the plain version
-beside the one-key control. ``--only bwd`` times the flash backward
+beside the one-key control (paged: each cell also over int8 pages and
+with the position test, so a tree whose kernel takes neither fails
+there: time it with its own ``chip_smoke.py``). ``--only bwd`` times the flash backward
 kernel instead, at ``BWD_CELLS`` through ``chip_smoke.bwd_phase``
 (kernel, forward + backward, plain, SDPA forward + backward and SDPA's
 backward alone, and the kernel against its plain version); with

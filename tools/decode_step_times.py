@@ -2,13 +2,16 @@
 """Host wall time of one decode step of the PyTorch/CUDA port, for one
 tree, on one NVIDIA GPU.
 
-    python3 tools/decode_step_times.py [--src DIR] [--fmt bfloat16 int8] [--steps 300]
+    python3 tools/decode_step_times.py [--src DIR] [--fmt bfloat16 int8]
+        [--steps 300] [--arch ID] [--kv-quant]
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (default: this checkout's), so that one call can time two commits
 in turns, each from its own ``git archive``. For each format it builds
-llama-3.1-8b at full width with random weights from seed 0 and an empty
-cache of 4 lanes over a ring of 512 (chip_smoke's serve cells), then
+``--arch`` (llama-3.1-8b by default; any id ``repro_torch.launch.serve.
+arch_config`` takes) at full width with random weights from seed 0 (with
+``--kv-quant``, with an int8 KV cache) and an empty cache of 4 lanes over
+a ring of 512 (chip_smoke's serve cells), then
 runs ``Model.decode_step`` ``--warmup`` times and ``--steps`` times
 more, each step timed on the host from its call to its logits' argmax on
 the host (the serving loop's reading). It prints one JSON line a format:
@@ -35,18 +38,19 @@ def main() -> int:
     ap.add_argument("--fmt", nargs="+", default=["bfloat16", "int8"])
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--arch", default="llama-3.1-8b")
+    ap.add_argument("--kv-quant", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
         print("decode_step_times: no CUDA device visible", file=sys.stderr)
         return 2
-    from repro_torch.configs.paper_zoo import PAPER_MODELS
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.quant_matmul import kernel as K
-    from repro_torch.launch.serve import build_params
+    from repro_torch.launch.serve import arch_config, build_params
     from repro_torch.models.api import build_model
     if not Path(FK.__file__).resolve().is_relative_to(
             Path(args.src).resolve()):
@@ -62,8 +66,9 @@ def main() -> int:
     cuda_build.build(src for m in (K, FK, PK) for src in m.SOURCES.values())
     batch, ring = 4, 512
     for fmt in args.fmt:
-        cfg = PAPER_MODELS["llama-3.1-8b"]
-        model = build_model(cfg, fmt=fmt, device="cuda")
+        cfg = arch_config(args.arch)
+        model = build_model(cfg, fmt=fmt, kv_quant=args.kv_quant,
+                            device="cuda")
         params = build_params(model, seed=0)
         cache = model.init_cache(batch, ring)
         gen = torch.Generator(device="cuda").manual_seed(1)
@@ -79,7 +84,8 @@ def main() -> int:
                     times.append(1e3 * (time.perf_counter() - t0))
                 toks = nxt.to(device="cuda", dtype=torch.int32)[:, None]
         q1, med, q3 = statistics.quantiles(times, n=4)
-        print(json.dumps({"fmt": fmt, "steps": len(times),
+        print(json.dumps({"arch": args.arch, "fmt": fmt,
+                          "kv_quant": args.kv_quant, "steps": len(times),
                           "median_ms": med, "q1_ms": q1, "q3_ms": q3,
                           "min_ms": min(times),
                           "mean_ms": statistics.mean(times)}), flush=True)

@@ -3,7 +3,7 @@
 tree, on one NVIDIA GPU.
 
     python3 tools/serve_times.py [--src DIR] [--arch ID]
-        [--fmt float32 bfloat16] [--reps 3]
+        [--fmt float32 bfloat16] [--reps 3] [--kv-quant]
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (default: this checkout's), so that one call can time two commits
@@ -13,11 +13,12 @@ arch_config`` takes, such as qwen3-moe-30b-a3b) at full width with
 random weights from seed 0, serves chip_smoke's continuous workload (8
 requests, prompts of 64-256 tokens, 32 new tokens each, ``max_batch=4``,
 ``max_prefill_batch=2``, ``buf_len=512``) ``--reps`` times on the same
-weights, and prints one JSON line a run: the run's host wall time and
-tokens/s, the host wall time of its decode steps (mean, median, min) and
-prefill phases (mean), and the card's mean power draw over the run
-(``nvidia-smi`` every 100 ms, chip_smoke's ``sampled_power``) with the
-J/token it integrates to (measured, as chip_smoke's serve lines).
+weights (with ``--kv-quant``, with an int8 KV cache), and prints one
+JSON line a run: the run's host wall time and tokens/s, the host wall
+time of its decode steps (mean, median, min) and prefill phases (mean),
+and the card's mean power draw over the run (``nvidia-smi`` every 100
+ms, chip_smoke's ``sampled_power``) with the J/token it integrates to
+(measured, as chip_smoke's serve lines).
 A phase's host wall time is ``PhaseResult.wall_s`` where the tree has it
 and ``latency_s`` before (the same reading: the phase's execution up to
 its argmax on the host). The first line holds the card's name and power
@@ -41,6 +42,7 @@ def main() -> int:
     ap.add_argument("--arch", default="llama-3.1-8b")
     ap.add_argument("--fmt", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--kv-quant", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from chip_smoke import sampled_power
@@ -71,7 +73,8 @@ def main() -> int:
     kw = dict(n=8, max_batch=4, max_prefill_batch=2, buf_len=512,
               prompt_len=(64, 256), new_tokens=(32, 32), seed=0)
     for fmt in args.fmt:
-        model = build_model(arch_config(args.arch), fmt=fmt, device="cuda")
+        model = build_model(arch_config(args.arch), fmt=fmt,
+                            kv_quant=args.kv_quant, device="cuda")
         params = build_params(model, seed=0)
         for rep in range(args.reps):
             res, watts = sampled_power(lambda: serve(
@@ -86,7 +89,8 @@ def main() -> int:
             n_tok = sum(len(r.generated) for r in res.requests)
             dec = wall["decode"]
             print(json.dumps({
-                "arch": args.arch, "fmt": fmt, "rep": rep,
+                "arch": args.arch, "fmt": fmt, "kv_quant": args.kv_quant,
+                "rep": rep,
                 "wall_s": res.wall_s,
                 "tokens_per_s": n_tok / res.wall_s,
                 "decode_steps": len(dec),
