@@ -145,7 +145,9 @@ MAX_EXPERTS = 256
 #: ``tools/qmm_prefill_times.py --tile`` on an H100 SXM at 700 W (PERF.md,
 #: section 6). A step costs 0.3 us however small the tile (waits and
 #: latency), and nf4's dequantization (a codebook lookup and a multiply
-#: per weight) costs more than int8's.
+#: per weight) costs more than int8's. A refit from the same sweep at M =
+#: 64-2064 moved near-ties to tiles that read slower in turns with this
+#: table (PERF.md, section 6), so the table stays.
 WG_STEP_US = {
     "int8": {(128, 128): 0.46, (256, 128): 0.69, (256, 64): 0.48,
              (128, 64): 0.34, (64, 128): 0.36, (64, 64): 0.31},
@@ -266,7 +268,9 @@ def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
     - "wgmma" for M > 8: of :data:`WG_TILES`, the tile whose waves over
       ``n_sm`` SMs (tiles of all experts / n_sm, rounded up) take the
       least time at the format's :data:`WG_STEP_US`, the earlier on a
-      tie, and a grid of min(tiles, n_sm) blocks.
+      tie, and a grid of min(tiles, n_sm) blocks. A block walks each of
+      its tiles' whole K axis in order, so here too a row of x gets the
+      same sums whatever the batch.
 
     "tile" otherwise (f32, and unaligned shapes or small nf4 blocks)."""
     if not (bf16 and N % 16 == 0 and K % WG_BK == 0 and aligned

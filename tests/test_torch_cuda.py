@@ -123,6 +123,39 @@ def test_cuda_wgmma_loop_walks_several_tiles():
         assert _rel(out, ref) < 1e-2, name
 
 
+def _prefill_case(M, Kd, N, seed):
+    """x (M, Kd) bf16 and the weight quantized as int8 and as nf4 with
+    blocks 32, 64 and 128: (name, weight tensors, nf4 block) for each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, Kd), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((Kd, N), generator=gen, device="cuda") * Kd ** -0.5
+    q8 = pt_int8.quantize_int8(w)
+    cases = [("int8_matmul", (q8.codes, q8.scale), None)]
+    for block in (32, 64, 128):
+        q4 = pt_nf4.quantize_nf4(w, block)
+        cases.append(("nf4_matmul", (q4.packed, q4.absmax), block))
+    return x, cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Kd,N", [(8192, 1024), (14336, 4096), (4096, 1024)])
+def test_cuda_prefill_rows_do_not_depend_on_the_batch(Kd, N):
+    """On the card: rows of a prefill call are, bit for bit, the same rows
+    in calls of other M (chip_smoke's batched prefill of two prompts
+    against each prompt's own), where the plans differ in tile and grid:
+    every tile walks its whole K axis in one block, in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, cases = _prefill_case(464, Kd, N, Kd + N)
+    for name, wargs, block in cases:
+        fn = getattr(K, name)
+        full = fn(x, *wargs)
+        for lo, hi in ((0, 232), (232, 464), (0, 64), (100, 317)):
+            part = fn(x[lo:hi].contiguous(), *wargs)
+            torch.cuda.synchronize()
+            assert torch.equal(full[lo:hi], part), (name, block, lo, hi)
+
+
 def _decode_case(M, Kd, N, seed):
     """x (M, Kd) bf16 and the weight quantized as int8 and as nf4 with
     blocks 64 and 32: (name, weight tensors) for each."""

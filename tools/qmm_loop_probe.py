@@ -3,13 +3,16 @@
 at M <= 8) spend their time, on one NVIDIA GPU.
 
     python3 tools/qmm_loop_probe.py [--m 512] [--tile 128x128]
+        [--cells big]
+    python3 tools/qmm_loop_probe.py --cells big --walk split --seg 2 \
+        --variants split_walk split_walk+no_split_merge
     python3 tools/qmm_loop_probe.py --m 1 4 8        # the decode loop
     python3 tools/qmm_loop_probe.py --grouped --variants dec_table
 
 Copies this checkout's ``src`` into ``build/probe/<variant>/src`` once per
 variant, with edits of ``qmm_wgmma.cuh`` (the one kernel both loops run)
-or of a format's source,
-and times every copy with ``tools/qmm_prefill_times.py`` (int8 and nf4 at
+or of a format's source (a variant may be several joined by ``+``,
+applied in order), and times every copy with ``tools/qmm_prefill_times.py`` (int8 and nf4 at
 llama-3.1-8b's four projections), or with ``--grouped`` with
 ``tools/grouped_times.py`` (the MoE cells' grouped calls, every row and
 the dispatch's kept rows), one process a copy:
@@ -30,6 +33,14 @@ the dispatch's kept rows), one process a copy:
   time, not two;
 - ``no_merge``: the decode loop's split tiles each stored, not merged
   (wrong output): the merge's cost;
+- ``split_walk``: the prefill loop of ``qmm_split_walk.patch`` (beside
+  this file): every tile of a shape summed in K segments and the tiles
+  past the full waves shared out segment by segment over every SM, each
+  shared tile merged by its last block; its plan walks whole tiles unless
+  ``--walk split --seg S`` forces the cut (``qmm_prefill_times.py``);
+- ``no_split_merge``: on ``split_walk``, its shared tiles' units stored
+  to their slots and not merged (wrong output): the merge's cost, the
+  counters included;
 - ``steps_walk``: a grouped decode call takes the 2-D walk (every
   expert's K steps shared out evenly, no segments);
 - ``seg4``, ``seg_whole``: grouped decode segments of 4 K steps, or whole
@@ -38,6 +49,14 @@ the dispatch's kept rows), one process a copy:
   table of the 16 values its code can give in its column, built once a
   stage (``NF4_TABLE`` below, patched into ``nf4_matmul.cu``), not a
   product a weight;
+- ``nf4_table``: nf4's prefill loop looks each weight up in a per-warp
+  table of the 16 values its code can give in its column,
+  bf16(codebook[i] * absmax), built once a stage and laid out with one
+  copy per lane of a column pair so that every lookup of a warp falls in
+  its own bank (``NF4_PREFILL_TABLE`` below); the same bits as the
+  per-weight product, one lookup and half a byte permute a weight in
+  place of a lookup, a multiply and half a conversion; its 32 KB of
+  tables come out of the ring;
 - ``ring16``: rings 16 stages deep where they fit, not 8.
 
 The ``no_*`` copies compute wrong outputs by design, so their lines read
@@ -129,6 +148,70 @@ DEC_TABLE_CALL = """                if constexpr (Stage::kDecTable) {
                 } else {
 """ + DEC_DEQUANT + """
                 }"""
+# nf4's prefill tables (nf4_table): word (i * 8 + g) * 4 + t of absmax
+# row h holds bf16(codebook[i] * absmax) of columns nb + 2g (low half)
+# and nb + 2g + 1, one copy for each lane t of the pair (so that lane
+# (g, t) reads bank 4 g + t whatever the code); built once a stage by the
+# warp, each lane writing values t, t + 4, t + 8, t + 12 to the four
+# copies in turn (conflict-free), then two lookups and a byte permute a
+# pair of weights
+NF4_PREFILL_TABLE = """  static constexpr bool kTable = true;
+  template <int BN>
+  __host__ __device__ static constexpr int table_bytes() {
+    return BN / 16 * 1024 * 4;
+  }
+  template <int BN>
+  __device__ __forceinline__ void table_fragments(const uint8_t* raw,
+                                                  const float* lut,
+                                                  uint32_t* tab, int nb,
+                                                  int lane,
+                                                  uint32_t (&f)[4][4]) const {
+    const int g = lane / 4, t = lane % 4, i8 = lane % 8;
+    const float* am =
+        reinterpret_cast<const float*>(raw + qmm::wg::kBK / 2 * BN) + nb +
+        2 * g;
+    __syncwarp();
+    for (int h = 0; h < rows; ++h) {
+      const float2 sc = *reinterpret_cast<const float2*>(am + h * BN);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = t + 4 * j;
+        const uint32_t w = qmm::wg::pack_bf16(lut[i] * sc.x, lut[i] * sc.y);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          tab[h * 512 + (i * 8 + g) * 4 + ((t + r) & 3)] = w;
+      }
+    }
+    __syncwarp();
+    uint32_t r4[4];
+    qmm::wg::ldmatrix_x4_trans(
+        r4, raw + qmm::wg::raw_at<BN>(8 * (lane / 8) + i8 / 2 + 4 * (i8 % 2),
+                                      nb));
+    const uint32_t* tl = tab + g * 4 + t;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t* th = tl + (kk >= 2 ? (rows - 1) * 512 : 0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t v = r4[kk] >> (16 * hh);
+        f[kk][2 * hh] = __byte_perm(th[(v & 15) * 32],
+                                    th[((v >> 4) & 15) * 32], 0x5410);
+        f[kk][2 * hh + 1] = __byte_perm(th[((v >> 8) & 15) * 32],
+                                        th[((v >> 12) & 15) * 32], 0x7632);
+      }
+    }
+  }
+"""
+PREFILL_TABLE_CALL = """          if constexpr (Stage::kTable) {
+            __shared__ uint32_t nf4_tab[BN / 16][1024];
+            a.st.template table_fragments<BN>(
+                smem + L::raw_off + s * L::raw_bytes, lut, nf4_tab[warp], nb,
+                lane, cur);
+          } else {
+""" + """          a.st.template fragments<BN>(smem + L::raw_off + s * L::raw_bytes,
+                                      lut, nb, lane, cur);""" + """
+          }"""
+LAYOUT_FIT = """  static constexpr int fit = (kSmemMax - kSmemStatic) / (x_bytes + raw_bytes);"""
 ONES = "for (auto& r : {f}) for (auto& v : r) v = 0x3F803F80u;"
 WGMMA = """            wgmma_rs<BM>(acc, cur[kk], desc(xa + kk * 32, 16, 1024));"""
 MMA = """                  mma_bf16(acc, f[i][kk], xb[i][kk][0], xb[i][kk][1]);"""
@@ -141,6 +224,41 @@ LOADS = """          mbar_expect_tx(&full[s], L::x_bytes + a.st.template tx_byte
 KEEP = """acc[{i}] += __uint_as_float(({r}[0] ^ {r}[1] ^ {r}[2] ^ {r}[3] ^
                                       {x}) & 0x3F800000u);"""
 # (anchor, replacement) pairs, each anchor found once
+SPLIT_KEY = """            const int key = g.slot % a.split;   // the tile's counter"""
+SPLIT_PATCH = Path(__file__).resolve().with_name("qmm_split_walk.patch")
+
+
+def patch_edits(path: Path) -> list:
+    """The hunks of a unified diff of files under ``src`` as edits
+    (old text, new text, path under ``src``): each hunk's context and
+    removed lines, and its context and added lines."""
+    edits, rel, old, new = [], None, [], []
+
+    def flush():
+        if old or new:
+            edits.append(("".join(old), "".join(new), rel))
+        old.clear()
+        new.clear()
+    for line in path.read_text().splitlines(keepends=True):
+        if line.startswith("+++ "):
+            flush()
+            rel = line[4:].strip().split("/src/", 1)[1]
+        elif line.startswith("@@"):
+            flush()
+        elif rel is None or line.startswith("--- "):
+            continue
+        elif line.startswith("\\"):
+            continue
+        else:
+            tag, body = line[:1], line[1:]
+            if tag in " -":
+                old.append(body)
+            if tag in " +":
+                new.append(body)
+    flush()
+    return edits
+
+
 VARIANTS = {
     "as_is": [],
     # every fragment a pair of bf16 ones, with no read of the raw tile
@@ -180,6 +298,23 @@ VARIANTS = {
                  ("""        if (g.b0 == g.b1) {
           if (g.k1 == nk) store(tot""", """        if (true) {
           if (true) store(tot""")],
+    # the split walk's shared tiles stored, not merged (on split_walk)
+    "no_split_merge": [(SPLIT_KEY, "            return;\n" + SPLIT_KEY)],
+    # the prefill loop's split walk (SPLIT_PATCH)
+    "split_walk": patch_edits(SPLIT_PATCH),
+    # nf4's prefill loop looks each weight up in a per-warp table
+    # (NF4_PREFILL_TABLE), its 32 KB taken from the ring
+    "nf4_table": [(NF4_EPILOGUE, NF4_PREFILL_TABLE + NF4_EPILOGUE,
+                   NF4_SOURCE),
+                  (INT8_PREPARE, INT8_PREPARE
+                   + "\n  static constexpr bool kTable = false;"
+                   + "\n  template <int BN>\n  __host__ __device__ static "
+                   "constexpr int table_bytes() { return 0; }",
+                   INT8_SOURCE),
+                  (DEQUANT, PREFILL_TABLE_CALL),
+                  (LAYOUT_FIT, "  static constexpr int fit = (kSmemMax - "
+                   "kSmemStatic - Stage::template table_bytes<BN>()) / "
+                   "(x_bytes + raw_bytes);")],
     # rings 16 stages deep where they fit, not 8
     "ring16": [("constexpr int kMaxStages = 8;",
                 "constexpr int kMaxStages = 16;")],
@@ -190,14 +325,20 @@ VARIANTS = {
 # the epilogue (with the decode loop's merge) alone
 VARIANTS["skeleton"] = (VARIANTS["no_tma"] + VARIANTS["no_dequant"]
                         + VARIANTS["no_mma"])
+# the variants timed by default: those that apply to this checkout
+DEFAULT = [v for v in VARIANTS if v not in ("split_walk", "no_split_merge")]
 
 
-def make_copy(name: str) -> Path:
-    dst = ROOT / "build" / "probe" / name
+def make_copy(name: str, into: Path = ROOT / "build" / "probe") -> Path:
+    """A copy of this checkout's ``src`` at ``into/<name>/src`` with the
+    edits of variant ``name`` (its parts joined by ``+``, in order);
+    exits if an anchor is not found exactly once."""
+    dst = into / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "src", dst / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for a, b, *where in VARIANTS[name]:
+    edits = [e for part in name.split("+") for e in VARIANTS[part]]
+    for a, b, *where in edits:
         rel = where[0] if where else HEADER
         path = dst / "src" / rel
         text = path.read_text()
@@ -211,10 +352,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--m", type=int, nargs="+", default=[512])
     ap.add_argument("--tile", default=None)
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+    ap.add_argument("--variants", nargs="+", default=DEFAULT,
                     help="the variants to time, in order")
     ap.add_argument("--grouped", action="store_true",
                     help="time the grouped calls (tools/grouped_times.py)")
+    ap.add_argument("--cells", default=None,
+                    help="passed to tools/qmm_prefill_times.py")
+    ap.add_argument("--walk", default=None,
+                    help="passed to tools/qmm_prefill_times.py")
+    ap.add_argument("--seg", default=None,
+                    help="passed to tools/qmm_prefill_times.py")
     args = ap.parse_args()
     names = ["as_is"] + [v for v in args.variants if v != "as_is"]
     srcs = {name: make_copy(name) for name in names}
@@ -228,8 +375,9 @@ def main() -> int:
             cmd = [sys.executable,
                    str(ROOT / "tools" / "qmm_prefill_times.py"),
                    "--src", str(srcs[name]), "--m", *map(str, args.m)]
-            if args.tile:
-                cmd += ["--tile", args.tile]
+            for flag in ("tile", "cells", "walk", "seg"):
+                if getattr(args, flag):
+                    cmd += [f"--{flag}", getattr(args, flag)]
         out = subprocess.run(cmd, timeout=600)
         if name == "as_is" and out.returncode:
             rc = out.returncode

@@ -4,6 +4,7 @@ at llama-3.1-8b's projection shapes, prefill or decode, on one NVIDIA GPU.
 
     python3 tools/qmm_prefill_times.py [--src DIR] [--m 464 512]
         [--tile 128x128] [--dec-bn 64] [--dtype bfloat16]
+        [--cells llama|smoke|big] [--names int8_matmul nf4_matmul]
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (default: this checkout's), so that one call can time two commits
@@ -18,12 +19,25 @@ the plain version, and the loop that ran where the tree counts loops.
 ``--tile BMxBN`` makes the wgmma loop's plan take that output tile at
 every shape (in a tree that plans its tiles); ``--dec-bn`` sets the
 decode loop's column tile (in a tree whose decode loop has one);
-``--dtype float32`` times the f32 compute dtype. Each line also holds
-the host's time to enqueue one call of the kernel's wrapper
-(``host_us_per_call``, 200 eager calls back to back). The first line holds
-the card's name and power limit. Exits non-zero when no CUDA device is
-visible or a kernel disagrees with its plain version by more than 1e-2
-relative (1e-5 in f32).
+``--dtype float32`` times the f32 compute dtype. ``--cells smoke`` times
+every prefill call (M > 8) of ``chip_smoke.py``'s kernel phase instead
+(``quant_cells``: 156 (name, K, N, M), row 1o's w_down at M = 2064 and
+seamless-m4t's (8192, 1024) at M = 64-496 among them), ``--cells big``
+the llama projections at ``--m`` plus those two shapes; ``--names``
+keeps some entry points. In a tree with the split walk (the
+``split_walk`` copy of ``tools/qmm_loop_probe.py``), ``--walk whole``
+keeps the prefill plan to whole tiles, ``--seg S`` cuts every shape into
+S K segments (with ``--walk whole``, whole tiles summed segment by
+segment: the folds' sweep; with ``--walk split``, tiles shared out
+wherever the tile leaves some past its full waves: the split's sweep);
+other trees ignore both. Each line names the plan (``plan``: tile,
+grid, the K segments of every tile, ``seg``, and the tiles shared out,
+``split``) and the K steps of its busiest block (``steps``), where the
+tree plans them. Each line also holds the host's time to enqueue one
+call of the kernel's wrapper (``host_us_per_call``, 200 eager calls back
+to back). The first line holds the card's name and power limit. Exits
+non-zero when no CUDA device is visible or a kernel disagrees with its
+plain version by more than 1e-2 relative (1e-5 in f32).
 """
 from __future__ import annotations
 
@@ -80,6 +94,90 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def cells(args, K) -> list:
+    """[(K, N, {entry point: [M, ...]})] of the shapes to time, in order:
+    llama-3.1-8b's four projections at ``--m`` (``--cells llama``), with
+    row 1o's and seamless-m4t's w_down (``big``), or every prefill call of
+    chip_smoke's kernel phase (``smoke``). Imports chip_smoke after the
+    tree's ``repro_torch``, so that its configs come from that tree."""
+    names = args.names
+    if args.cells != "smoke":
+        shapes = [(Kd, N, args.m) for Kd, N in SHAPES_KN]
+        if args.cells == "big":
+            shapes += [(14336, 4096, [1264, 2064]),
+                       (8192, 1024, [64, 216, 496])]
+        return [(Kd, N, {n: ms for n in names}) for Kd, N, ms in shapes]
+    sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.launch.serve import arch_config
+    configs = {a: arch_config(a) for a, *_ in
+               chip_smoke.SERVE_CELLS + chip_smoke.MODEL_CELLS}
+    by_kn = {}
+    for (name, Kd, N), ms in sorted(chip_smoke.quant_cells(configs)[0]
+                                    .items()):
+        pre = sorted(m for m in ms if m > 8)
+        if name in names and pre:
+            by_kn.setdefault((Kd, N), {})[name] = pre
+    return [(Kd, N, by) for (Kd, N), by in sorted(by_kn.items())]
+
+
+def force_walk(K, walk: str, seg) -> None:
+    """Hold the tree's prefill plan to a walk (in a tree with the split
+    walk, ``K.prefill_segments``; others are left as they are): ``seg``
+    segments for every shape (None: the shape's own; ``walk`` "whole"
+    alone: one), and with ``walk`` "whole" or "split" only the segmented
+    plans that keep every tile whole or share tiles out (the fastest by
+    the tree's model)."""
+    if not hasattr(K, "prefill_segments"):
+        return
+    if seg is None and walk == "whole":
+        K.prefill_segments = lambda *a: 1
+        return
+    if seg is not None:
+        K.prefill_segments = lambda *a: seg
+    if walk == "plan":
+        return
+
+    def plan(M, N, Kd, n_sm, block, s):
+        cands = []
+        for bm, bn in K.WG_TILES:
+            tiles = K.wgmma_tiles(M, N, bm, bn)[1]
+            if walk == "whole":
+                cands.append(K.Plan("wgmma", bm, bn, min(tiles, n_sm),
+                                    seg=s))
+                continue
+            for waves in (tiles // n_sm, tiles // n_sm - 1):
+                shared = tiles - waves * n_sm
+                if waves >= 0 and shared > 0:
+                    grid = n_sm if waves else min(n_sm, shared * s)
+                    cands.append(K.Plan("wgmma", bm, bn, grid, seg=s,
+                                        split=shared))
+        return min(cands, key=lambda p: K.plan_us(p, M, N, Kd, block))
+    K.segmented_plan = plan
+
+
+def plan_fields(K, M: int, N: int, Kd: int, name: str, dtype: str) -> dict:
+    """The plan of the call (tile, grid, ``split``: the tiles whose K
+    steps the grid shares out, 0 for whole tiles) and the K steps of its
+    busiest block, where the tree's plan has them; {} otherwise."""
+    plan = K._device_plan(M, N, Kd, dtype == "bfloat16",
+                          None if name.startswith("int8") else 64, True, 0)
+    if plan.loop != "wgmma":
+        return {}
+    split = getattr(plan, "split", 0)
+    if hasattr(K, "prefill_pieces"):
+        steps = [0] * plan.grid
+        for b, _, k0, k1 in K.prefill_pieces(plan, M, N, Kd):
+            steps[b] += k1 - k0
+        busiest = max(steps)
+    else:
+        tiles = K.wgmma_tiles(M, N, plan.bm, plan.bn)[1]
+        busiest = -(-tiles // plan.grid) * (Kd // K.WG_BK)
+    return {"plan": {"bm": plan.bm, "bn": plan.bn, "grid": plan.grid,
+                     "split": split, "seg": plan.seg},
+            "steps": busiest}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
@@ -91,6 +189,16 @@ def main() -> int:
                     help="the decode loop's column tile (64 or 128)")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
+    ap.add_argument("--cells", default="llama",
+                    choices=("llama", "smoke", "big"))
+    ap.add_argument("--names", nargs="+",
+                    default=["int8_matmul", "nf4_matmul"])
+    ap.add_argument("--walk", default="plan",
+                    choices=("plan", "whole", "split"),
+                    help="whole: whole tiles only; split: share tiles out "
+                         "wherever the shape has tiles to share")
+    ap.add_argument("--seg", type=int, default=None,
+                    help="cut every shape into this many K segments")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -102,6 +210,7 @@ def main() -> int:
         K.WG_TILES = (tuple(int(v) for v in args.tile.split("x")),)
     if args.dec_bn:
         K.DEC_BN = args.dec_bn
+    force_walk(K, args.walk, args.seg)
     from repro_torch.quant.int8 import dequantize_int8, quantize_int8
     from repro_torch.quant.nf4 import dequantize_nf4, quantize_nf4
     card = subprocess.run(
@@ -118,7 +227,7 @@ def main() -> int:
     peak = BF16_FLOP_PER_S if args.dtype == "bfloat16" else F32_FLOP_PER_S
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
-    for Kd, N in SHAPES_KN:
+    for Kd, N, by_name in cells(args, K):
         w = torch.randn((Kd, N), generator=gen, device="cuda") * Kd ** -0.5
         q8, q4 = quantize_int8(w, 0.01), quantize_nf4(w, 64)
         del w
@@ -130,6 +239,8 @@ def main() -> int:
                            dequantize_nf4(q4, cd)),
         }
         for name, (wargs, wbytes, wdeq) in weights.items():
+            if name not in by_name:
+                continue
             kern = getattr(K, name)
             copies = max(1, min(32, math.ceil(2 * L2_BYTES / wbytes)))
             wsets = [wargs] + [tuple(t.clone() for t in wargs)
@@ -137,7 +248,7 @@ def main() -> int:
             lcopies = max(1, min(32, math.ceil(2 * L2_BYTES
                                                / (es * Kd * N))))
             lsets = [(wdeq,)] + [(wdeq.clone(),) for _ in range(lcopies - 1)]
-            for M in args.m:
+            for M in by_name[name]:
                 x = torch.randn((M, Kd), generator=gen,
                                 device="cuda").to(cd)
                 counts = getattr(K, "LOOP_LAUNCHES", {}).get(name)
@@ -158,6 +269,7 @@ def main() -> int:
                 print(json.dumps({
                     "name": name, "dtype": args.dtype, "M": M, "K": Kd,
                     "N": N, "loop": loop,
+                    **plan_fields(K, M, N, Kd, name, args.dtype),
                     "max_rel_err": rel,
                     "kernel_ms": timed_ms(
                         torch, lambda *a: kern(x, *a, cd), wsets),
