@@ -100,7 +100,16 @@ non-zero exit code:
    report of the H100 SXM energy model (J/token, total J, the analytic
    clock, mean batch) and, labelled measured, the card's power draw
    sampled by ``nvidia-smi`` every 100 ms over the continuous run, with
-   the J/token it integrates to.
+   the J/token it integrates to. Every decode step of the run after its
+   first replays the backend's CUDA graph (``ExecutedBackend.
+   decode_graph``), and the line's ``decode_graph`` holds its check
+   (``graph_check``): GRAPH_STEPS further steps, each through
+   ``Model.decode_step`` eagerly on a copy of the cache and through a
+   replay, logits, tokens and cache bit for bit, each step's launch
+   counts equal, the graph's kernel nodes by function name equal to the
+   eager step's launches (32 paged and 224 quant for llama in int8), and
+   the host time to enqueue a step and its device time from CUDA events,
+   eager and replayed.
 5. moe: qwen3-moe-30b-a3b at full width and depth (48 layers, 128
    experts, top 8) in bfloat16, int8 and nf4, and granite-moe-1b-a400m
    (24 layers, 32 experts) in int8, with llama's traffic and checks: the
@@ -268,6 +277,7 @@ import functools
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -949,16 +959,11 @@ def _copies(nbytes: int) -> int:
     return max(1, min(32, math.ceil(2 * L2_BYTES / nbytes)))
 
 
-def graph_nodes(torch, fn) -> list:
-    """The node types (0: a kernel) of a CUDA graph that captures one call
-    of ``fn`` after a warm-up call: every launch the call makes, read
-    through the driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+def _node_types(g) -> tuple:
+    """(the driver, the nodes, their types: 0 a kernel) of a captured
+    ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``, read through
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType``."""
     import ctypes
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
-        fn()
     cu = ctypes.CDLL("libcuda.so.1")
     graph = ctypes.c_void_p(g.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -973,8 +978,53 @@ def graph_nodes(torch, fn) -> list:
         if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
             raise SystemExit("cuGraphNodeGetType failed")
         types.append(t.value)
+    return cu, list(nodes), types
+
+
+def graph_nodes(torch, fn) -> list:
+    """The node types (0: a kernel) of a CUDA graph that captures one call
+    of ``fn`` after a warm-up call: every launch the call makes."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    types = _node_types(g)[2]
     g.reset()
     return types
+
+
+def graph_kernel_names(g) -> list:
+    """The function name of every kernel node of a captured CUDA graph
+    (``cuGraphKernelNodeGetParams``, ``cuFuncGetName``), mangled as the
+    compiler left it."""
+    import ctypes
+
+    class Params(ctypes.Structure):          # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p),
+                    ("dims", ctypes.c_uint * 7),    # grid, block, smem
+                    ("kernel_params", ctypes.c_void_p),
+                    ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu, nodes, types = _node_types(g)
+    names = []
+    for node, t in zip(nodes, types):
+        if t != 0:
+            continue
+        p = Params()
+        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                            ctypes.byref(p)):
+            raise SystemExit("cuGraphKernelNodeGetParams failed")
+        func = ctypes.c_void_p(p.func)
+        if not p.func and p.kern and cu.cuKernelGetFunction(
+                ctypes.byref(func), ctypes.c_void_p(p.kern)):
+            raise SystemExit("cuKernelGetFunction failed")
+        name = ctypes.c_char_p()
+        if cu.cuFuncGetName(ctypes.byref(name), func):
+            raise SystemExit("cuFuncGetName failed")
+        names.append(name.value.decode())
+    return names
 
 
 def check_one_launch(torch, name, fn) -> int:
@@ -1621,6 +1671,109 @@ PAST_RING_LENS = (200, 137)
 PAST_RING_BUF = 128
 
 
+#: the graph check's decode steps, each from the cache the last left
+GRAPH_STEPS = 4
+#: the CUDA kernel functions each kernel module launches, by a part of
+#: their names
+KERNEL_FUNCTIONS = {"quant_matmul": ("qmm_wgmma_kernel", "qmm_tile_kernel"),
+                    "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
+                    "paged_attention": ("paged_kernel",)}
+
+
+def graph_check(torch, mods, model, params, backend) -> dict:
+    """The served decode step as a CUDA graph (``ExecutedBackend.
+    decode_graph``), after a timed run: every decode step of the run
+    after its first was a replay of one graph; then GRAPH_STEPS more
+    steps from the cache the run left, each through ``Model.decode_step``
+    eagerly on a copy of the cache and feed tokens, then through a
+    replay. Fails unless the logits, the greedy tokens and the whole
+    cache agree bit for bit, each step's launch counts (launches, paged
+    cases, quant loops) agree, and the graph's kernel nodes by function
+    name are the eager step's launches of each kernel module. Returns
+    the line's fields, with the host wall of the run's first step (eager)
+    and second (captured and replayed), and each checked step's host
+    time to enqueue and its span between two CUDA events on the device,
+    eager and replayed (the eager span holds the device's waits for the
+    host)."""
+    K, FK, PK = mods
+    g = backend.decode_graph
+    name = f"{model.cfg.name} {model.policy.fmt}"
+    steps = [p.phase for p in backend.phases].count("decode")
+    if g is None or g.graph is None or g.replays != steps - 1:
+        raise SystemExit(f"{name}: {steps} decode steps but "
+                         f"{getattr(g, 'replays', None)} graph replays")
+    run_replays = g.replays
+    walls = [p.wall_s for p in backend.phases if p.phase == "decode"]
+    names = graph_kernel_names(g.graph)
+    nodes = {mod: sum(any(f in n for f in fns) for n in names)
+             for mod, fns in KERNEL_FUNCTIONS.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    host = {"eager": [], "graph": []}
+    span = {"eager": [], "graph": []}
+
+    def counts():
+        return read_launches(mods), dict(PK.CASES), read_loops(K)
+
+    for step in range(GRAPH_STEPS):
+        twin = {k: v.clone() for k, v in backend.cache.items()}
+        toks = backend.slot_tokens.clone()
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        ev[0].record()
+        t0 = time.perf_counter()
+        ref, _ = model.decode_step(params, toks, twin)
+        host["eager"].append(time.perf_counter() - t0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        eager = counts()
+        reset_launches(mods)
+        ev[2].record()
+        t0 = time.perf_counter()
+        got = g()
+        host["graph"].append(time.perf_counter() - t0)
+        ev[3].record()
+        torch.cuda.synchronize()
+        span["eager"].append(ev[0].elapsed_time(ev[1]))
+        span["graph"].append(ev[2].elapsed_time(ev[3]))
+        faults = [what for what, same in (
+            ("logits", torch.equal(got, ref)),
+            ("tokens", torch.equal(backend.slot_tokens[:, 0],
+                                   ref.argmax(-1))),
+            ("cache", all(torch.equal(backend.cache[k], v)
+                          for k, v in twin.items())),
+            ("launch counts", counts() == eager)) if not same]
+        if faults:
+            raise SystemExit(
+                f"{name}: graph step {step} differs from the eager step in "
+                f"{faults}: max |logit diff| "
+                f"{(got - ref).abs().max().item()}, counts {counts()} "
+                f"against {eager}")
+        del twin
+    launched, cases, loops = eager
+    want = {"quant_matmul": sum(launched[e] for e in K.ENTRY_POINTS),
+            "flash_attention": launched[FK.NAME],
+            "paged_attention": launched[PK.NAME]}
+    if nodes != want:
+        raise SystemExit(f"{name}: the graph's kernel nodes {nodes}, the "
+                         f"eager step's launches {want}")
+    mean = statistics.mean
+    return {"run_decode_steps": steps, "run_replays": run_replays,
+            "check_steps": GRAPH_STEPS, "logits_bit_identical": True,
+            "tokens_identical": True, "cache_identical": True,
+            "launches_per_step": {k: n for k, n in launched.items() if n},
+            "paged_cases_per_step": cases,
+            "quant_loops_per_step": {k: c for k, c in loops.items()
+                                     if any(c.values())},
+            "graph_kernel_nodes": nodes,
+            "graph_kernel_nodes_all": len(names),
+            "run_first_step_ms": 1e3 * walls[0],
+            "run_capture_step_ms": 1e3 * walls[1],
+            "eager_host_us_per_step": 1e6 * mean(host["eager"]),
+            "graph_host_us_per_step": 1e6 * mean(host["graph"]),
+            "eager_device_span_ms_per_step": mean(span["eager"]),
+            "graph_device_ms_per_step": mean(span["graph"])}
+
+
 def _logit_check(torch, cfg, fmt, con, seq) -> float:
     """Each request's batched prefill logits against its own sequential
     prefill: the worst max |diff| over max |logit|, within
@@ -1675,6 +1828,8 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
     line = {"phase": "serve", "fmt": fmt, "model": cfg.name,
             "family": cfg.family, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "kv_quant": kv_quant}
+    line["decode_graph"] = graph_check(torch, mods, model, params,
+                                       con.engine.backend)
     pair_model, pair_con = model, con
     if cfg.is_moe:
         line["capacity_factor"] = cfg.moe_capacity_factor
@@ -1754,6 +1909,7 @@ def serve_cell(torch, mods, cfg, fmt, kw) -> dict:
         "prefill_ms_mean": 1e3 * sum(pre) / len(pre),
         "decode_steps": len(dec),
         "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+        "decode_ms_median": 1e3 * statistics.median(dec),
         "analytic": analytic,
         "measured": {"power_w_mean": mean_w, "samples": len(watts),
                      "power_w": watts, "interval_s": 0.1,
@@ -2137,6 +2293,7 @@ def arrival_cell(torch, mods, cfg, fmt) -> dict:
               "decode_steps": len(dec), "host_wall_s": res.wall_s,
               "prefill_ms_mean": 1e3 * sum(pre) / len(pre),
               "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+              "decode_ms_median": 1e3 * statistics.median(dec),
               "peak_mem_gb": peak_gb,
               # the idle gaps are simulated, not slept on the card: every
               # energy and clock here is the analytic model's
@@ -2539,6 +2696,7 @@ def orch_cell(torch, mods, cfg, fmt) -> dict:
             "host_wall_s": res["wall_s"],
             "prefill_ms_mean": 1e3 * sum(pre) / len(pre),
             "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+            "decode_ms_median": 1e3 * statistics.median(dec),
             "peak_mem_gb": peak_gb,
             # idle gaps and downtime are simulated, not slept on the
             # card: every energy and clock here is the analytic model's

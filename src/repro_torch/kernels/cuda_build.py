@@ -120,6 +120,43 @@ def _function(src: Source):
     return fn
 
 
+#: every launch count of the kernel modules (their ``LAUNCHES`` and the
+#: counts kept beside it), registered when the module is imported
+_COUNTS: List[MutableMapping[str, int]] = []
+
+#: what a stretch of host code added to each registered count, as
+#: (count, {key: added}) pairs
+Counted = List[Tuple[MutableMapping[str, int], Dict[str, int]]]
+
+
+def register_counts(*counts: MutableMapping[str, int]) -> None:
+    """Make ``counts`` part of what :func:`counted` reads."""
+    _COUNTS.extend(counts)
+
+
+def counted(fn) -> Tuple[object, Counted]:
+    """Run ``fn()`` and take back what it added to every registered count.
+    Returns (fn's result, what it added): a CUDA graph captured over
+    ``fn`` launches nothing while it is captured, and every replay of it
+    then adds the same through :func:`add_counted`."""
+    before = [(c, dict(c)) for c in _COUNTS]
+    try:
+        out = fn()
+        added = [(c, {k: n - old[k] for k, n in c.items()})
+                 for c, old in before]
+    finally:
+        for c, old in before:
+            c.update(old)
+    return out, added
+
+
+def add_counted(added: Counted) -> None:
+    """Add to each count what :func:`counted` took back."""
+    for c, d in added:
+        for k, n in d.items():
+            c[k] += n
+
+
 def launch(src: Source, counts: MutableMapping[str, int], *args,
            key: Optional[str] = None) -> None:
     """Call ``<name>_launch(*args, stream)`` on the current stream, raise

@@ -77,6 +77,7 @@ SOURCES = {
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {NAME: 0, BWD: 0}
+cuda_build.register_counts(LAUNCHES)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 120, 128)

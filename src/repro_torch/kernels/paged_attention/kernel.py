@@ -73,6 +73,7 @@ SOURCES = {NAME: cuda_build.Source(
 LAUNCHES: Dict[str, int] = {NAME: 0}
 #: of those, the launches over int8 pages and with the position test
 CASES: Dict[str, int] = {"int8_pages": 0, "slot_positions": 0}
+cuda_build.register_counts(LAUNCHES, CASES)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 120, 128)

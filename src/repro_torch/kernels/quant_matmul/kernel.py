@@ -107,6 +107,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 #: the same launches by the loop that ran
 LOOP_LAUNCHES: Dict[str, Dict[str, int]] = {
     name: {loop: 0 for loop in LOOPS} for name in ENTRY_POINTS}
+cuda_build.register_counts(LAUNCHES, *LOOP_LAUNCHES.values())
 
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 

@@ -299,7 +299,7 @@ class Model:
             v = torch.nn.functional.pad(v, pad)
         cache = {
             "slot_pos": slot_positions_after_prefill(W, lengths, S),
-            "pos": lengths.to(torch.int32),
+            "pos": lengths.to(torch.int32, copy=True),
         }
         if self.kv_quant:
             cache["k"], cache["k_scale"] = tfm.quantize_kv(k)
@@ -311,7 +311,9 @@ class Model:
     # ------------------------------------------------------------------
     def decode_step(self, params, tokens: torch.Tensor, cache):
         """tokens: (B, 1). Returns (logits (B, V) f32, cache); the cache
-        is updated in place and returned for symmetry with prefill."""
+        is updated in place, every tensor of it (``pos`` too) keeping its
+        storage so that a captured CUDA graph can replay the step, and
+        returned for symmetry with prefill."""
         cfg = self.cfg
         x = embed(tokens, params["embed"], self.adt)
         if cfg.family in ATTENTION_FAMILIES:

@@ -310,7 +310,7 @@ def forward_seq(layers, x: torch.Tensor, cfg: ModelConfig,
     """The Mamba2 stack over a right-padded sequence x (B, S, D) whose
     rows hold ``lengths`` real tokens. Returns (hidden, the decode cache:
     ``ssm_state`` (L, B, nh, hd, ds) f32, ``conv`` (L, B, K-1, C) and
-    ``pos`` = lengths)."""
+    ``pos``, a copy of lengths: decode advances it in place)."""
     dims = ssm_dims(cfg)
     B, S = x.shape[0], x.shape[1]
     h0 = torch.zeros((B, dims["nheads"], dims["headdim"], dims["dstate"]),
@@ -325,7 +325,7 @@ def forward_seq(layers, x: torch.Tensor, cfg: ModelConfig,
         if after_layer is not None:
             x = after_layer(i, x)
     return x, {"ssm_state": torch.stack(hs), "conv": torch.stack(tails),
-               "pos": lengths.to(torch.int32)}
+               "pos": lengths.to(torch.int32, copy=True)}
 
 
 def decode_step(layers, x2d: torch.Tensor, cache: Dict[str, Any],
@@ -342,7 +342,7 @@ def decode_step(layers, x2d: torch.Tensor, cache: Dict[str, Any],
         write_layer(cache["conv"], i, conv)
         if after_layer is not None:
             x2d = after_layer(i, x2d)
-    cache["pos"] = cache["pos"] + 1
+    cache["pos"].add_(1)
     return x2d
 
 

@@ -326,5 +326,5 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
                                  pages=(ek_pages[i], ev_pages[i], enc_table,
                                         enc_lens))
         x, _ = ffn_block(lp, x, cfg, policy, with_aux=False)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return x

@@ -27,7 +27,11 @@ the device work is in it). The reference's executed choices are kept:
   on the final chunk, over the full prompt;
 * ``release_slot`` zeroes the slot's feed token and does not evict the
   cache lane (lanes are independent);
-* ``finish_request`` (sequential mode) is a fresh greedy run per request.
+* ``finish_request`` (sequential mode) is a fresh greedy run per request;
+* the batched decode step is compiled once per cache: on a CUDA device
+  it is a captured CUDA graph, replayed every step after the first
+  (:class:`DecodeGraph`, the reference's ``jax.jit(model.decode_step)``);
+  on the CPU it runs eagerly.
 
 Lookup in a replayed trace is the nearest recorded sample in log space
 over (batch, length); prefill latency scales linearly with the padded
@@ -39,10 +43,12 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
+import gc
 import json
 import math
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +60,7 @@ from repro_torch.core import workload as W
 from repro_torch.core.energy import EnergyModel, EnergyReport
 from repro_torch.core.hardware import H100_SXM, DeviceSpec
 from repro_torch.core.precision import PrecisionPolicy, make_policy
+from repro_torch.kernels import cuda_build
 
 REPLAY_SCHEMA = "repro-replay/v1"
 BACKENDS = ("analytic", "executed", "replay")
@@ -382,6 +389,69 @@ def executed_prefill_shape(batch: PrefillBatch, buf_len: int
     return batch.n, min(((pad + 7) // 8) * 8, buf_len)
 
 
+def _greedy_step(model, params, tokens: torch.Tensor,
+                 cache: Dict[str, Any]) -> torch.Tensor:
+    """One decode step of every lane, in place: the cache advances and
+    each lane's greedy token becomes its next feed token in ``tokens``
+    (B, 1). Returns the logits."""
+    logits, _ = model.decode_step(params, tokens, cache)
+    tokens.copy_(torch.argmax(logits, -1)[:, None])
+    return logits
+
+
+class DecodeGraph:
+    """One decode step over fixed tensors, ``step() -> logits``, as a CUDA
+    graph: the port's counterpart of the reference's
+    ``jax.jit(model.decode_step)``, captured once per cache.
+
+    The first call runs the step eagerly. It is a real step, and it builds
+    the kernels and fills their plans, counters and workspaces. The second
+    call captures the step and replays the capture, since a capture runs
+    no kernel; every later call replays it. The step's tensors keep their
+    storage, so each replay reads and writes the same tensors. A failed
+    capture or replay raises: nothing carries on eagerly. A replay runs no
+    kernel wrapper, so what the capture added to the kernel modules'
+    launch counts is taken back and added again on every replay
+    (:func:`~repro_torch.kernels.cuda_build.counted`). Returns the step's
+    logits; after a capture, the graph's own output tensor."""
+
+    def __init__(self, step: Callable[[], torch.Tensor]):
+        self.step = step
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: what one step adds to the launch counts (set by the capture)
+        self.added: Optional[cuda_build.Counted] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.replays = 0
+
+    def __call__(self) -> torch.Tensor:
+        if self.logits is None:
+            self.logits = self.step()
+            return self.logits
+        if self.graph is None:
+            # keep_graph: the captured graph stays readable (its nodes)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+            def capture() -> torch.Tensor:
+                with torch.cuda.graph(graph):
+                    return self.step()
+
+            # no collection while capturing: a graph the collector frees
+            # then (an older one left in a reference cycle) ends the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                self.logits, self.added = cuda_build.counted(capture)
+            finally:
+                if collecting:
+                    gc.enable()
+            graph.instantiate()
+            self.graph = graph
+        self.graph.replay()
+        cuda_build.add_counted(self.added)
+        self.replays += 1
+        return self.logits
+
+
 class ExecutedBackend(AnalyticBackend):
     """Analytic costing plus greedy execution of prefill and decode
     phases on a model. The clock stays analytic (what the paper measures
@@ -400,7 +470,13 @@ class ExecutedBackend(AnalyticBackend):
     :class:`PhaseResult` in order (``wall_s`` set where the model ran),
     ``prefill_shapes`` the (rows, padded length) of each executed
     batched prefill, and for an MoE model ``prefill_aux`` its layer-mean
-    router metrics (``dropped_fraction`` among them)."""
+    router metrics (``dropped_fraction`` among them). The decode cache
+    and ``slot_tokens`` (each lane's next feed token) are made by
+    :meth:`start` and only ever written in place; on a CUDA device
+    ``decode_graph`` (:class:`DecodeGraph`, made anew by :meth:`start`)
+    runs every batched decode step, on the CPU it is None and the step
+    runs eagerly. Sequential runs (:meth:`finish_request`) are eager, as
+    the reference's are."""
 
     name = "executed"
 
@@ -434,6 +510,10 @@ class ExecutedBackend(AnalyticBackend):
         self.slot_tokens = torch.zeros((self.max_batch, 1),
                                        dtype=torch.long,
                                        device=self.model.device)
+        self._step = functools.partial(_greedy_step, self.model, self.params,
+                                       self.slot_tokens, self.cache)
+        self.decode_graph = (DecodeGraph(self._step)
+                             if self.model.device.type == "cuda" else None)
         self.phases: List[PhaseResult] = []
         self.first_logits: Dict[int, torch.Tensor] = {}
         self.prefill_shapes: List[Tuple[int, int]] = []
@@ -527,11 +607,8 @@ class ExecutedBackend(AnalyticBackend):
             self.slot_tokens[slot, 0] = int(first[j])
 
     def _execute_decode(self, batch: DecodeBatch) -> None:
-        logits, self.cache = self.model.decode_step(
-            self.params, self.slot_tokens, self.cache)
-        nxt = torch.argmax(logits, -1)
-        self.slot_tokens = nxt[:, None]
-        arr = nxt.cpu().numpy()
+        (self.decode_graph or self._step)()
+        arr = self.slot_tokens[:, 0].cpu().numpy()
         for slot, req in zip(batch.slots, batch.requests):
             req.generated.append(int(arr[slot]))
 

@@ -15,9 +15,16 @@ a ring of 512 (chip_smoke's serve cells), then
 runs ``Model.decode_step`` ``--warmup`` times and ``--steps`` times
 more, each step timed on the host from its call to its logits' argmax on
 the host (the serving loop's reading). It prints one JSON line a format:
-the steps' median, quartiles, min and mean in ms. The first line holds
-the card's name and power limit. Exits non-zero when no CUDA device is
-visible.
+the steps' median, quartiles, min and mean in ms, and the device time
+of an eager step: the sum of its kernels' times in a ``torch.profiler``
+trace of PROFILED_STEPS steps, a step's floor once the host no longer
+holds the device back. Where the tree serves the decode step as a CUDA graph
+(``repro_torch.serving.backend.DecodeGraph``), the line adds the same
+step through it on a new cache (its first call eager, the second
+captured and replayed, then replays): ``graph_*`` host ms over as many
+steps, and ``graph_device_ms``, the median span of a replay between two
+CUDA events. The first line holds the card's name and power limit.
+Exits non-zero when no CUDA device is visible.
 """
 from __future__ import annotations
 
@@ -30,6 +37,63 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PROFILED_STEPS = 5
+
+
+def quartiles(prefix: str, times) -> dict:
+    """The median, quartiles, min and mean of ``times`` (ms)."""
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    return {f"{prefix}steps": len(times), f"{prefix}median_ms": med,
+            f"{prefix}q1_ms": q1, f"{prefix}q3_ms": q3,
+            f"{prefix}min_ms": min(times),
+            f"{prefix}mean_ms": statistics.mean(times)}
+
+
+def eager_device_ms(torch, step, n: int):
+    """The device time of one eager step: the kernels' own time over ``n``
+    steps in a ``torch.profiler`` trace, over n; None if the trace holds
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / n if us else None
+
+
+def graph_times(torch, graph_cls, model, params, toks, cache, n: int,
+                warmup: int) -> dict:
+    """``n`` steps through ``graph_cls`` (a ``DecodeGraph``) on ``cache``,
+    fed their own greedy tokens: host ms a step to the argmax on the host,
+    and the median span of a replay on the device between two CUDA
+    events, over the steps after ``warmup``."""
+    feed = toks.clone()
+
+    def step():
+        logits, _ = model.decode_step(params, feed, cache)
+        feed.copy_(logits.argmax(-1)[:, None])
+        return logits
+
+    g = graph_cls(step)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    host, device = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        ev[0].record()
+        g()
+        ev[1].record()
+        feed.cpu()
+        if i >= warmup:
+            host.append(1e3 * (time.perf_counter() - t0))
+            device.append(ev[0].elapsed_time(ev[1]))
+    return {**quartiles("graph_", host),
+            "graph_device_ms": statistics.median(device),
+            "graph_replays": g.replays}
 
 
 def main() -> int:
@@ -52,6 +116,7 @@ def main() -> int:
     from repro_torch.kernels.quant_matmul import kernel as K
     from repro_torch.launch.serve import arch_config, build_params
     from repro_torch.models.api import build_model
+    from repro_torch.serving import backend as backend_mod
     if not Path(FK.__file__).resolve().is_relative_to(
             Path(args.src).resolve()):
         raise SystemExit(f"decode_step_times: imported {FK.__file__}, not "
@@ -83,12 +148,18 @@ def main() -> int:
                 if i >= args.warmup:
                     times.append(1e3 * (time.perf_counter() - t0))
                 toks = nxt.to(device="cuda", dtype=torch.int32)[:, None]
-        q1, med, q3 = statistics.quantiles(times, n=4)
-        print(json.dumps({"arch": args.arch, "fmt": fmt,
-                          "kv_quant": args.kv_quant, "steps": len(times),
-                          "median_ms": med, "q1_ms": q1, "q3_ms": q3,
-                          "min_ms": min(times),
-                          "mean_ms": statistics.mean(times)}), flush=True)
+            line = {"arch": args.arch, "fmt": fmt, "kv_quant": args.kv_quant,
+                    **quartiles("", times),
+                    "eager_device_ms": eager_device_ms(
+                        torch, lambda: model.decode_step(params, toks, cache),
+                        PROFILED_STEPS)}
+            graph = getattr(backend_mod, "DecodeGraph", None)
+            if graph is not None:
+                line.update(graph_times(
+                    torch, graph, model, params, toks,
+                    model.init_cache(batch, ring), args.warmup + args.steps,
+                    args.warmup))
+        print(json.dumps(line), flush=True)
         del model, params, cache
         torch.cuda.empty_cache()
     return 0

@@ -3,7 +3,7 @@
 tree, on one NVIDIA GPU.
 
     python3 tools/serve_times.py [--src DIR] [--arch ID]
-        [--fmt float32 bfloat16] [--reps 3] [--kv-quant]
+        [--fmt float32 bfloat16] [--reps 3] [--kv-quant] [--dense]
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (default: this checkout's), so that one call can time two commits
@@ -12,7 +12,8 @@ in turns, each from its own ``git archive``. For each format it builds
 arch_config`` takes, such as qwen3-moe-30b-a3b) at full width with
 random weights from seed 0, serves chip_smoke's continuous workload (8
 requests, prompts of 64-256 tokens, 32 new tokens each, ``max_batch=4``,
-``max_prefill_batch=2``, ``buf_len=512``) ``--reps`` times on the same
+``max_prefill_batch=2``, ``buf_len=512``; with ``--dense``, its dense
+cells' 4 requests of 8 new tokens) ``--reps`` times on the same
 weights (with ``--kv-quant``, with an int8 KV cache), and prints one
 JSON line a run: the run's host wall time and tokens/s, the host wall
 time of its decode steps (mean, median, min) and prefill phases (mean),
@@ -27,6 +28,7 @@ limit. Exits non-zero when no CUDA device is visible.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -43,9 +45,10 @@ def main() -> int:
     ap.add_argument("--fmt", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--dense", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import sampled_power
+    from chip_smoke import DENSE_TRAFFIC, TRAFFIC, sampled_power
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -70,8 +73,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda_build.build(src for m in (K, FK, PK) for src in m.SOURCES.values())
-    kw = dict(n=8, max_batch=4, max_prefill_batch=2, buf_len=512,
-              prompt_len=(64, 256), new_tokens=(32, 32), seed=0)
+    kw = dict(DENSE_TRAFFIC if args.dense else TRAFFIC,
+              record_logits=False)
     for fmt in args.fmt:
         model = build_model(arch_config(args.arch), fmt=fmt,
                             kv_quant=args.kv_quant, device="cuda")
@@ -90,7 +93,7 @@ def main() -> int:
             dec = wall["decode"]
             print(json.dumps({
                 "arch": args.arch, "fmt": fmt, "kv_quant": args.kv_quant,
-                "rep": rep,
+                "dense": args.dense, "rep": rep,
                 "wall_s": res.wall_s,
                 "tokens_per_s": n_tok / res.wall_s,
                 "decode_steps": len(dec),
@@ -102,7 +105,8 @@ def main() -> int:
                 "measured_j_per_token":
                     statistics.mean(watts) * res.wall_s / n_tok}),
                 flush=True)
-        del model, params
+        del model, params, res
+        gc.collect()
         torch.cuda.empty_cache()
     return 0
 
