@@ -12,8 +12,14 @@ non-zero exit code:
    together, timed.
 3. kernels: each kernel against its plain PyTorch version, with the
    kernel, plain and library times and the card's bound: the two
-   dequant-matmul kernels at the llama-3.1-8b projection shapes (M in
-   {1, 4, 8, 464, 512}, four (K, N)) and at every other 2-D projection
+   dequant-matmul kernels (int8 with the policy's outlier rows, 1% of K,
+   its outlier product in the same launch, beside the parent's path of
+   the kernel and a separate product, ``separate_ms``) and the fp16
+   kernel (float16's weights converted to bf16 in registers, beside
+   ``torch.matmul`` on a bf16 copy and on ``w.to(bfloat16)``) at the
+   llama-3.1-8b projection shapes (M in {1, 4, 8, 464, 512}, four (K, N);
+   fp16 also the LM head (4096, 128256) at M in {1, 2, 4}) and at every
+   other 2-D projection
    that a serve cell runs in int8 or nf4 (qwen3-moe-30b-a3b's and
    granite-moe-1b-a400m's attention, command-r-35b's seven, mamba2-2.7b's
    w_in (2560, 10576) and w_out (5120, 2560) in nf4, zamba2-1.2b's w_in
@@ -91,7 +97,8 @@ non-zero exit code:
    ``repro_torch.launch.serve.serve``, the launch counts of the kernels
    in that run (one flash launch per layer and prefill phase, one paged
    launch per layer and decode step, each with the position test; under
-   int8 and nf4 one wgmma-loop
+   int8, nf4 and float16 (the fp16 kernel; its LM head one more
+   decode-loop launch a phase) one wgmma-loop
    launch per projection, layer and prefill phase, one decode-loop
    launch per projection, layer and decode step, and no tile-loop
    launch, in the sequential run too), and each request's prefill logits
@@ -267,12 +274,15 @@ no CUDA device is visible.
 
 Cuts: qwen3-moe-30b-a3b runs no float32 (120 GB of weights, more than
 the card's 80 GB) and no float16 (it stores the same 16-bit bytes as
-bfloat16 and casts them per product); the dense ARCH_IDS configs run one
-format each, 4 requests of 8 new tokens; the families' cells run one or
-two formats each, with the same traffic. Weights are random.
+bfloat16; its 2-D projections would take the fp16 kernel, which converts
+the weights to bf16 in registers, but its 16-bit experts keep a batched
+torch.matmul that casts them per product); the dense ARCH_IDS configs run
+one format each, 4 requests of 8 new tokens; the families' cells run one
+or two formats each, with the same traffic. Weights are random.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import gc
 import json
@@ -308,6 +318,13 @@ FORMATS = ("float32", "float16", "bfloat16", "int8", "nf4")
 # quantized projections of a llama layer: wq, wk, wv, wo, w_gate, w_up,
 # w_down (the LM head stays in bf16)
 QUANT_PROJECTIONS = 7
+# the 2-D kernel of each format's projections: int8 and nf4's dequant
+# kernels, and float16's fp16 kernel (the LM head too: the whole model is
+# stored in fp16)
+QUANT_ENTRY = {"int8": "int8_matmul", "nf4": "nf4_matmul",
+               "float16": "fp16_matmul"}
+# int8's outlier rows, the policy's (core/precision.py): 1% of K
+OUTLIER_FRACTION = 0.01
 # batched prefill vs the request's own prefill: the same arithmetic at
 # other M and padding, so only the order of f32 sums differs; through 32
 # layers that moves f32 logits by ~1e-6 of their range and 16-bit
@@ -316,6 +333,10 @@ PREFILL_LOGIT_TOL = {"float32": 1e-3, "float16": 5e-2, "bfloat16": 5e-2,
                      "int8": 5e-2, "nf4": 5e-2}
 REPLACES = {
     "int8_matmul": "src/repro/kernels/quant_matmul/kernel.py:55",
+    "fp16_matmul": "none: the reference's float16 product, "
+                   "jnp.einsum(x.astype(cd), w.astype(cd)) over an fp16 "
+                   "weight (src/repro/quant/apply.py:68-69), has no Pallas "
+                   "kernel",
     "nf4_matmul": "src/repro/kernels/quant_matmul/kernel.py:112",
     "int8_matmul_grouped": "src/repro/kernels/quant_matmul/kernel.py:55",
     "nf4_matmul_grouped": "src/repro/kernels/quant_matmul/kernel.py:112",
@@ -487,7 +508,9 @@ def quant_cells(configs) -> tuple:
     stubs included, an audio encoder's rows times T_ENC, and a decoded
     pair's rows); llama-3.1-8b's at the rows of each quantized arrival
     run (:func:`arrival_cells`) and orchestration run
-    (:func:`orch_cells`); and for MoE its grouped expert products
+    (:func:`orch_cells`); under float16 the fp16 kernel's calls at the
+    same rows, and the LM head at a step's lanes and a prefill's rows;
+    and for MoE its grouped expert products
     (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
@@ -504,7 +527,7 @@ def quant_cells(configs) -> tuple:
                 table[key][r].append(arch)
 
     for Kd, N in SHAPES_KN:
-        for name in ("int8_matmul", "nf4_matmul"):
+        for name in QUANT_ENTRY.values():
             add(two_d, (name, Kd, N), SHAPES_M, "llama-3.1-8b")
     def add_grouped(key, C, arch, tokens):
         grouped.setdefault(key, {}).setdefault(C, {}).setdefault(arch,
@@ -533,11 +556,16 @@ def quant_cells(configs) -> tuple:
     for arch, formats, kw, rows in cells:
         cfg = configs[arch]
         for fmt in formats:
-            name = {"int8": "int8_matmul", "nf4": "nf4_matmul"}.get(fmt)
+            name = QUANT_ENTRY.get(fmt)
             if name is None:
                 continue
             for Kd, N in serve_projections(cfg):
                 add(two_d, (name, Kd, N), rows, arch)
+            if fmt == "float16":
+                # the LM head at a decode step's lanes and a prefill's
+                # rows (its last tokens only)
+                add(two_d, (name, cfg.d_model, cfg.vocab_size),
+                    [1, kw["max_prefill_batch"], kw["max_batch"]], arch)
             if not cfg.is_moe:
                 continue
             batched = kw["max_prefill_batch"] * kw["prompt_len"][1]
@@ -554,36 +582,79 @@ def quant_cells(configs) -> tuple:
 
 
 def _quantized(torch, name, w, bf16):
-    """(kernel weight args, bytes, the weight dequantized to bf16) of a
-    float weight (K, N) or (E, K, N) in the format of the entry point
-    ``name``."""
+    """(kernel weight args, bytes, the weight dequantized to bf16, outlier
+    rows) of a float weight (K, N) or (E, K, N) in the format of the entry
+    point ``name``: int8's with the policy's outliers (codes, scale,
+    outlier rows, their bf16 weights), nf4's, and fp16's (the weight in
+    float16)."""
     from repro_torch.quant.int8 import dequantize_int8, quantize_int8
     from repro_torch.quant.nf4 import dequantize_nf4, quantize_nf4
     *E, Kd, N = w.shape
     n = math.prod(E)
     if name.startswith("int8"):
-        q = quantize_int8(w, 0.01)
-        return ((q.codes, q.scale), n * (Kd * N + 4 * N),
-                dequantize_int8(q, bf16))
+        q = quantize_int8(w, OUTLIER_FRACTION)
+        n_out = q.outlier_idx.shape[-1]
+        return (tuple(q), n * (Kd * N + 4 * N + 4 * n_out + 2 * n_out * N),
+                dequantize_int8(q, bf16), n_out)
+    if name.startswith("fp16"):
+        w16 = w.half()
+        return (w16,), n * 2 * Kd * N, w16.to(bf16), 0
     q = quantize_nf4(w, 64)
     return ((q.packed, q.absmax), n * (Kd * N // 2 + 4 * (Kd // 64) * N),
-            dequantize_nf4(q, bf16))
+            dequantize_nf4(q, bf16), 0)
+
+
+def quant_calls(K, name, grouped=False):
+    """(kernel, plain version) of the quant entry point ``name``, each as
+    ``f(x, wargs, cd, rows=None)`` over :func:`_quantized`'s weight args
+    (int8's outliers go in as the keywords the two take)."""
+    kern = getattr(K, name + ("_grouped" if grouped else ""))
+    plain = getattr(K, name + "_plain")
+    if name == "int8_matmul":
+        def k_call(x, w, cd, rows=None):
+            if grouped:
+                return kern(x, w[0], w[1], cd, rows, w[2], w[3])
+            return kern(x, w[0], w[1], cd, w[2], w[3])
+
+        def p_call(x, w, cd, rows=None):
+            return plain(x, w[0], w[1], cd, rows, w[2], w[3])
+        return k_call, p_call
+    if grouped:
+        return (lambda x, w, cd, rows=None: kern(x, *w, cd, rows),
+                lambda x, w, cd, rows=None: plain(x, *w, cd, rows))
+    return (lambda x, w, cd, rows=None: kern(x, *w, cd),
+            lambda x, w, cd, rows=None: plain(x, *w, cd))
+
+
+def separate_product(torch, K, x, w, cd):
+    """The parent's int8 path at one call, for its time: the kernel
+    without outliers, then x's outlier columns, an f32 product, a
+    rounding and an add (7 kernels)."""
+    out = K.int8_matmul(x, w[0], w[1], cd)
+    x_out = torch.index_select(x, -1, w[2].long())
+    return out + torch.matmul(x_out.float(), w[3].to(cd).float()).to(cd)
 
 
 def kernel_phase(torch, K, cells):
-    """Both quant kernels' 2-D calls at ``cells`` (:func:`quant_cells`)
+    """The quant kernels' 2-D calls at ``cells`` (:func:`quant_cells`)
     against their plain versions, bf16, each row naming the loop that ran
-    and the serve cells that make the call."""
+    and the serve cells that make the call: int8 with the policy's
+    outliers (``n_out`` rows; ``separate_ms``, the parent's path at the
+    call: the kernel without them and the separate product,
+    :func:`separate_product`), nf4, and fp16 with two library times
+    (``library_ms``: ``torch.matmul`` on a bf16 copy of the weight, the
+    product alone; ``library_cast_ms``: ``torch.matmul(x,
+    w.to(bfloat16))``, the conversion included, the expression the kernel
+    replaced)."""
     from repro_torch.kernels import cost
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = {"int8_matmul": [], "nf4_matmul": []}
+    rows = {name: [] for name in QUANT_ENTRY.values()}
     for (name, Kd, N), ms in cells.items():
         w = torch.randn((Kd, N), generator=gen, device="cuda") * Kd ** -0.5
-        wargs, wbytes, wdeq = _quantized(torch, name, w, bf16)
+        wargs, wbytes, wdeq, n_out = _quantized(torch, name, w, bf16)
         del w
-        kern = getattr(K, name)
-        plain = getattr(K, name + "_plain")
+        kern, plain = quant_calls(K, name)
         wsets = [wargs] + [tuple(t.clone() for t in wargs)
                            for _ in range(_copies(wbytes) - 1)]
         lsets = [wdeq] + [wdeq.clone()
@@ -591,22 +662,22 @@ def kernel_phase(torch, K, cells):
         for M in sorted(ms):
             x = torch.randn((M, Kd), generator=gen, device="cuda").to(bf16)
             before = dict(K.LOOP_LAUNCHES[name])
-            got = kern(x, *wargs, bf16)
+            got = kern(x, wargs, bf16)
             loop = next(lp for lp, n in K.LOOP_LAUNCHES[name].items()
                         if n != before[lp])
             launched = (check_one_launch(
-                torch, name, lambda: kern(x, *wargs, bf16))
+                torch, name, lambda: kern(x, wargs, bf16))
                 if (M, Kd, N) == HEADLINE else None)
-            ref = plain(x, *wargs, bf16)
+            ref = plain(x, wargs, bf16)
             torch.cuda.synchronize()
             diff = (got.float() - ref.float()).abs().max().item()
             rel = diff / max(ref.float().abs().max().item(), 1e-30)
-            k_ms = timed_ms(torch, lambda *a: kern(x, *a, bf16), wsets)
-            p_ms = timed_ms(torch, lambda *a: plain(x, *a, bf16), [wargs],
+            k_ms = timed_ms(torch, lambda *a: kern(x, a, bf16), wsets)
+            p_ms = timed_ms(torch, lambda *a: plain(x, a, bf16), [wargs],
                             reps=3, graph=False)
             l_ms = timed_ms(torch, lambda w_: torch.matmul(x, w_),
                             [(t,) for t in lsets])
-            nbytes, flops = cost.quant_matmul(M, Kd, N, wbytes)
+            nbytes, flops = cost.quant_matmul(M, Kd, N, wbytes, n_out=n_out)
             bound, by = _bound(nbytes, flops, "bfloat16")
             row = {"phase": "kernel", "name": name, "M": M, "K": Kd,
                    "N": N, "serves": ms[M], "loop": loop,
@@ -615,6 +686,14 @@ def kernel_phase(torch, K, cells):
                    "plain_ms": p_ms, "library_ms": l_ms,
                    "bytes": nbytes, "flops": flops, "bound_ms": bound,
                    "bound_by": by, "cuda_launches_per_call": launched}
+            if name == "int8_matmul":
+                row["n_out"] = n_out
+                row["separate_ms"] = timed_ms(
+                    torch, lambda *a: separate_product(torch, K, x, a, bf16),
+                    wsets)
+            if name == "fp16_matmul":
+                row["library_cast_ms"] = timed_ms(
+                    torch, lambda w_: torch.matmul(x, w_.to(bf16)), wsets)
             emit(row)
             if not rel <= KERNEL_REL_TOL:
                 raise SystemExit(f"{name} disagrees with its plain "
@@ -640,13 +719,14 @@ def dispatch_rows(torch, E: int, C: int, tokens: int, seed: int):
 
 
 def kept_rows_cost(cost, E: int, C: int, K: int, N: int, active_bytes: int,
-                   kept: int) -> tuple:
+                   kept: int, n_out: int = 0) -> tuple:
     """(bytes, FLOPs) of a grouped call that computes only ``kept`` rows of
-    the active experts (their weights ``active_bytes``): each kept row of x
-    read and its products (``kernels/cost.py::quant_matmul`` with a row a
-    problem), and the whole (E, C, N) output written, its zero rows
-    included."""
-    nbytes, flops = cost.quant_matmul(1, K, N, active_bytes, 2, kept)
+    the active experts (their weights ``active_bytes``, int8's outliers
+    included): each kept row of x read and its products, int8's outlier
+    product too (``kernels/cost.py::quant_matmul`` with a row a problem),
+    and the whole (E, C, N) output written, its zero rows included."""
+    nbytes, flops = cost.quant_matmul(1, K, N, active_bytes, 2, kept,
+                                      *((n_out,) if n_out else ()))
     return nbytes + 2 * (E * C - kept) * N, flops
 
 
@@ -656,11 +736,10 @@ def _grouped_occupancy(torch, K, entry, x, wargs, rows, bf16, wbytes):
     zeros (x's rows there are zero, as the dispatch leaves them). Returns
     (output, max abs error, max rel error, active experts, the active
     experts' weight bytes)."""
-    name = entry.replace("_grouped", "")
     E, C, _ = x.shape
-    kern, plain = getattr(K, entry), getattr(K, name + "_plain")
-    got = kern(x, *wargs, bf16, rows)
-    ref = plain(x, *wargs, bf16, rows)
+    kern, plain = quant_calls(K, entry.replace("_grouped", ""), True)
+    got = kern(x, wargs, bf16, rows)
+    ref = plain(x, wargs, bf16, rows)
     torch.cuda.synchronize()
     past = torch.arange(C, device="cuda") >= rows[:, None]
     if got[past].view(torch.int16).any():
@@ -678,8 +757,8 @@ def _check_alone(torch, K, entry, x, wargs, rows, bf16, got) -> int:
     r = int(rows[e])
     alone = torch.zeros_like(rows)
     alone[e] = r
-    kern = getattr(K, entry)
-    for other in (kern(x, *wargs, bf16, alone), kern(x, *wargs, bf16)):
+    kern, _ = quant_calls(K, entry.replace("_grouped", ""), True)
+    for other in (kern(x, wargs, bf16, alone), kern(x, wargs, bf16)):
         if not torch.equal(other[e, :r], got[e, :r]):
             raise SystemExit(f"{entry}: expert {e}'s kept rows depend on "
                              f"the other experts' counts")
@@ -702,7 +781,10 @@ def grouped_phase(torch, K, cells):
     node. Two yardsticks at (a): ``torch.bmm`` on the weights already
     dequantized to bf16 (less work: no dequantization), and a Python loop
     of the 2-D kernel over the experts, timed from eager launches (what E
-    launches cost the host). Ends with :func:`moe_layer_rows_check`."""
+    launches cost the host). int8 runs with each expert's outliers (the
+    policy's 1%), and its row adds ``separate_ms``: the kernel without
+    them and the parent's batched gather and f32 product over every row.
+    Ends with :func:`moe_layer_rows_check`."""
     from repro_torch.kernels import cost
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -710,10 +792,10 @@ def grouped_phase(torch, K, cells):
     for (entry, E, Kd, N), cs in cells.items():
         name = entry.replace("_grouped", "")
         w = torch.randn((E, Kd, N), generator=gen, device="cuda") * Kd ** -0.5
-        wargs, wbytes, wdeq = _quantized(torch, name, w, bf16)
+        wargs, wbytes, wdeq, n_out = _quantized(torch, name, w, bf16)
         del w
-        kern, two_d = getattr(K, entry), getattr(K, name)
-        plain = getattr(K, name + "_plain")
+        kern, plain = quant_calls(K, name, True)
+        two_d, _ = quant_calls(K, name)
         wsets = [wargs] + [tuple(t.clone() for t in wargs)
                            for _ in range(_copies(wbytes) - 1)]
         lsets = [(wdeq,)] + [(wdeq.clone(),)
@@ -723,12 +805,12 @@ def grouped_phase(torch, K, cells):
             x = torch.randn((E, C, Kd), generator=gen,
                             device="cuda").to(bf16)
             before = dict(K.LOOP_LAUNCHES[entry])
-            got = kern(x, *wargs, bf16)
+            got = kern(x, wargs, bf16)
             loop = next(lp for lp, n in K.LOOP_LAUNCHES[entry].items()
                         if n != before[lp])
             launched = check_one_launch(torch, entry,
-                                        lambda: kern(x, *wargs, bf16))
-            ref = plain(x, *wargs, bf16)
+                                        lambda: kern(x, wargs, bf16))
+            ref = plain(x, wargs, bf16)
             torch.cuda.synchronize()
             diff = (got.float() - ref.float()).abs().max().item()
             rel = diff / max(ref.float().abs().max().item(), 1e-30)
@@ -736,14 +818,22 @@ def grouped_phase(torch, K, cells):
 
             def loop_2d(*a):
                 for e in range(E):
-                    two_d(x[e], *(t[e] for t in a), bf16)
+                    two_d(x[e], tuple(t[e] for t in a), bf16)
 
-            k_ms = timed_ms(torch, lambda *a: kern(x, *a, bf16), wsets)
-            p_ms = timed_ms(torch, lambda *a: plain(x, *a, bf16), [wargs],
+            def separate(*a):
+                out = K.int8_matmul_grouped(x, a[0], a[1], bf16)
+                cols = a[2].long()[:, None, :].expand(E, C, n_out)
+                return out + torch.bmm(torch.gather(x, 2, cols).float(),
+                                       a[3].to(bf16).float()).to(bf16)
+
+            k_ms = timed_ms(torch, lambda *a: kern(x, a, bf16), wsets)
+            p_ms = timed_ms(torch, lambda *a: plain(x, a, bf16), [wargs],
                             reps=3, graph=False)
             l_ms = timed_ms(torch, lambda w_: torch.bmm(x, w_), lsets)
             loop_ms = timed_ms(torch, loop_2d, wsets, reps=3, graph=False)
-            nbytes, flops = cost.quant_matmul(C, Kd, N, wbytes, 2, E)
+            sep_ms = (timed_ms(torch, separate, wsets)
+                      if name == "int8_matmul" else None)
+            nbytes, flops = cost.quant_matmul(C, Kd, N, wbytes, 2, E, n_out)
             bound, by = _bound(nbytes, flops, "bfloat16")
 
             # (b) the dispatch's counts, x zero past them
@@ -754,12 +844,12 @@ def grouped_phase(torch, K, cells):
                 torch, K, entry, xb, wargs, rows, bf16, wbytes)
             _check_alone(torch, K, entry, xb, wargs, rows, bf16, got_b)
             check_one_launch(torch, entry,
-                             lambda: kern(xb, *wargs, bf16, rows))
+                             lambda: kern(xb, wargs, bf16, rows))
             del got_b
-            kb_ms = timed_ms(torch, lambda *a: kern(xb, *a, bf16, rows),
+            kb_ms = timed_ms(torch, lambda *a: kern(xb, a, bf16, rows),
                              wsets)
             nbytes_b, flops_b = kept_rows_cost(cost, E, C, Kd, N, abytes,
-                                               int(rows.sum()))
+                                               int(rows.sum()), n_out)
             bound_b, by_b = _bound(nbytes_b, flops_b, "bfloat16")
             # (c) no expert kept
             none = torch.zeros_like(rows)
@@ -776,7 +866,8 @@ def grouped_phase(torch, K, cells):
                    "max_rel_err": max(rel, rel_b),
                    "rel_tol": KERNEL_REL_TOL, "kernel_ms": k_ms,
                    "plain_ms": p_ms, "library_ms": l_ms,
-                   "loop_of_2d_calls_ms": loop_ms, "bytes": nbytes,
+                   "loop_of_2d_calls_ms": loop_ms, "n_out": n_out,
+                   "separate_ms": sep_ms, "bytes": nbytes,
                    "flops": flops, "bound_ms": bound, "bound_by": by,
                    "cuda_launches_per_call": launched,
                    "dispatch": {"tokens": tokens, "active_experts": active,
@@ -1381,16 +1472,18 @@ def quant_calls_per_phase(cfg) -> tuple:
 
 
 def expected_quant_loops(cfg, fmt, tokens, enc_rows=()) -> dict:
-    """Under int8 and nf4, the launches of each quant entry point by loop
-    over phases that route ``tokens`` tokens each (a prefill: its rows
-    times its padded length; a decode step: its lanes), and for audio
+    """Under int8, nf4 and float16, the launches of each quant entry point
+    by loop over phases that route ``tokens`` tokens each (a prefill: its
+    rows times its padded length; a decode step: its lanes), and for audio
     prefills whose encoders take ``enc_rows`` rows each: the 2-D calls of
     :func:`quant_calls_per_phase` on the decode loop for at most 8 rows
     and the wgmma loop above, and an MoE layer's grouped expert products
     on the loop their capacity (rows an expert) chooses the same way;
-    none on the tile loop. Empty for the other formats."""
+    under float16 also the LM head, once a phase on the decode loop (its
+    rows are a step's lanes or a prefill's last tokens, at most 8 in every
+    serve cell); none on the tile loop. Empty for the other formats."""
     from repro_torch.models.moe import expert_capacity
-    name = {"int8": "int8_matmul", "nf4": "nf4_matmul"}.get(fmt)
+    name = QUANT_ENTRY.get(fmt)
     if name is None:
         return {}
     per, per_enc, grouped = quant_calls_per_phase(cfg)
@@ -1400,6 +1493,8 @@ def expected_quant_loops(cfg, fmt, tokens, enc_rows=()) -> dict:
         want[name + "_grouped"] = dict(zero)
     for T in tokens:
         want[name]["decode" if T <= 8 else "wgmma"] += per
+        if fmt == "float16":
+            want[name]["decode"] += 1
         if cfg.is_moe:
             C = expert_capacity(T, cfg.num_experts, cfg.experts_per_token,
                                 cfg.moe_capacity_factor)
@@ -1577,11 +1672,13 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch,
 
 def check_quant_entries(cfg, fmt, counts, run) -> None:
     """Fail unless the quant kernels launched in their formats only,
-    the grouped ones only for MoE."""
-    for name, fmt_of in (("int8_matmul", "int8"), ("nf4_matmul", "nf4")):
-        for entry, want in ((name, fmt == fmt_of),
-                            (name + "_grouped", fmt == fmt_of
-                             and cfg.is_moe)):
+    the grouped ones only for MoE (fp16 has none: no cell serves 16-bit
+    experts in float16)."""
+    for fmt_of, name in QUANT_ENTRY.items():
+        pairs = [(name, fmt == fmt_of)]
+        if fmt_of != "float16":
+            pairs.append((name + "_grouped", fmt == fmt_of and cfg.is_moe))
+        for entry, want in pairs:
             if (counts[entry] > 0) != want:
                 raise SystemExit(f"{cfg.name} {fmt} {run}: {entry} "
                                  f"launched {counts[entry]} times")
@@ -1673,6 +1770,16 @@ PAST_RING_BUF = 128
 
 #: the graph check's decode steps, each from the cache the last left
 GRAPH_STEPS = 4
+#: each serve cell's replayed graph: its kernel nodes by function name
+#: (graph_check), by (arch, format[, "kv_quant"])
+GRAPH_NODES = {}
+#: the cells whose graphs the serve phase sets side by side: a format
+#: against the one whose kernel node count it should match (int8's
+#: outlier product and fp16's weights now inside their kernels)
+GRAPH_PAIRS = [(("llama-3.1-8b", "int8"), ("llama-3.1-8b", "nf4")),
+               (("llama-3.1-8b", "float16"), ("llama-3.1-8b", "bfloat16")),
+               (("qwen3-moe-30b-a3b", "int8"), ("qwen3-moe-30b-a3b", "nf4")),
+               (("zamba2-1.2b", "int8"), ("zamba2-1.2b", "bfloat16"))]
 #: the CUDA kernel functions each kernel module launches, by a part of
 #: their names
 KERNEL_FUNCTIONS = {"quant_matmul": ("qmm_wgmma_kernel", "qmm_tile_kernel"),
@@ -1750,6 +1857,9 @@ def graph_check(torch, mods, model, params, backend) -> dict:
                 f"against {eager}")
         del twin
     launched, cases, loops = eager
+    GRAPH_NODES[(model.cfg.name, model.policy.fmt)
+                + (("kv_quant",) if model.kv_quant else ())] = \
+        collections.Counter(names)
     want = {"quant_matmul": sum(launched[e] for e in K.ENTRY_POINTS),
             "flash_attention": launched[FK.NAME],
             "paged_attention": launched[PK.NAME]}
@@ -2084,11 +2194,24 @@ def model_phase(torch, mods) -> dict:
 
 def serve_phase(torch, mods) -> dict:
     """Every SERVE_CELLS config in each of its formats; the timed runs'
-    launch counts by (arch, format) and (arch, format, "kv_quant")."""
+    launch counts by (arch, format) and (arch, format, "kv_quant"). Then a
+    ``graph_nodes`` line: each GRAPH_PAIRS cell's kernel nodes a replayed
+    step beside its partner's, and the functions whose node counts
+    differ."""
     from repro_torch.launch.serve import arch_config
-    return {(arch, fmt) + (("kv_quant",) if kw.get("kv_quant") else ()):
-            serve_cell(torch, mods, arch_config(arch), fmt, kw)
-            for arch, formats, kw in SERVE_CELLS for fmt in formats}
+    out = {(arch, fmt) + (("kv_quant",) if kw.get("kv_quant") else ()):
+           serve_cell(torch, mods, arch_config(arch), fmt, kw)
+           for arch, formats, kw in SERVE_CELLS for fmt in formats}
+    pairs = []
+    for a, b in GRAPH_PAIRS:
+        na, nb = GRAPH_NODES[a], GRAPH_NODES[b]
+        pairs.append({
+            "cell": list(a), "nodes": sum(na.values()), "against": list(b),
+            "against_nodes": sum(nb.values()),
+            "differ": {f: [na[f], nb[f]] for f in sorted(set(na) | set(nb))
+                       if na[f] != nb[f]}})
+    emit({"phase": "serve", "check": "graph_nodes", "pairs": pairs})
+    return out
 
 
 def arrival_requests(cfg, pattern: str) -> list:
@@ -3726,7 +3849,13 @@ def main() -> int:
             r[k] for k in (("E", "C", "K", "N") if grouped
                            else ("M", "K", "N"))) == shape)
         library = ("torch.bmm" if grouped else "torch.matmul") \
-            + " on the weight already dequantized to bf16 (does less work)"
+            + (" on a bf16 copy of the weight (the product alone; "
+               "library_cast_ms: torch.matmul(x, w.to(bfloat16)), the "
+               "conversion included)" if name == "fp16_matmul" else
+               " on the weight already dequantized to bf16 (does less "
+               "work)")
+        extra = {k: head[k] for k in ("n_out", "separate_ms",
+                                      "library_cast_ms") if k in head}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/quant_matmul/csrc/"
@@ -3744,6 +3873,7 @@ def main() -> int:
             "bound_by": head["bound_by"], "bytes": head["bytes"],
             "cuda_launches_per_call": head["cuda_launches_per_call"],
             "library_ms": head["library_ms"], "library_is": library,
+            **extra,
             **({"loop_of_2d_calls_ms": head["loop_of_2d_calls_ms"],
                 # case (b): the dispatch's kept rows of a batch-4 decode
                 "dispatch": head["dispatch"]} if grouped else {}),

@@ -13,10 +13,16 @@ from typing import Optional, Tuple
 
 
 def quant_matmul(M: int, K: int, N: int, weight_bytes: int,
-                 es: int = 2, E: int = 1) -> Tuple[int, int]:
+                 es: int = 2, E: int = 1, n_out: int = 0) -> Tuple[int, int]:
     """x (E, M, K) in the compute dtype (``es`` bytes an element) against
-    E quantized (K, N) weights of ``weight_bytes`` in all, out (E, M, N)."""
-    return es * E * M * K + weight_bytes + es * E * M * N, 2 * E * M * K * N
+    E (K, N) weights of ``weight_bytes`` in all, out (E, M, N): the int8,
+    nf4 and fp16 kernels. ``weight_bytes`` counts every field the kernel
+    reads (int8: codes, scales and, with outliers, their int32 rows and
+    bf16 weights; fp16: the fp16 weight); int8's ``n_out`` outlier rows
+    add their product, x's outlier columns against the outlier weights,
+    whose x bytes are among x's."""
+    return (es * E * M * K + weight_bytes + es * E * M * N,
+            2 * E * M * (K + n_out) * N)
 
 
 def attention_pairs(S: int, T: int, causal: bool,

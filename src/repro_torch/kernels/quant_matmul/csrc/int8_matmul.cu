@@ -1,15 +1,22 @@
-// int8 dequant-matmul for Hopper (sm_90a):
-//   out (M, N) = (x (M, K) @ codes (K, N) as compute dtype) * scale[n]
-// with f32 accumulation and the compute dtype (bf16 or f32) as output;
-// grouped, E such products in one launch: out[e] = (x[e] (M, K) @
-// codes[e] (K, N)) * scale[e, n], the experts of an MoE layer.
+// int8 dequant-matmul for Hopper (sm_90a), LLM.int8's outlier product
+// included:
+//   out (M, N) = round(round((x (M, K) @ codes (K, N)) * scale[n])
+//                      + round(x[:, oidx] (M, n_out) @ ow (n_out, N)))
+// with f32 sums, round() to the compute dtype (bf16 or f32), which is the
+// output's; grouped, E such products in one launch: out[e] from x[e],
+// codes[e], scale[e], oidx[e] and ow[e], the experts of an MoE layer.
+// Without outliers (n_out = 0) the second term and its rounding are not
+// there.
 //
 // Replaces: src/repro/kernels/quant_matmul/kernel.py, int8_matmul_pallas
 // (body _int8_kernel), and that kernel under jax.vmap over the experts
-// (src/repro/models/moe.py, _expert_dense). Same rounding points: x and
-// the codes in the compute dtype (int8 is exact in bf16), f32 sums over
-// K, the per-column scale in the epilogue, one rounding to the compute
-// dtype at the end.
+// (src/repro/models/moe.py, _expert_dense); with the outlier product that
+// src/repro/kernels/quant_matmul/ops.py:43-47 leaves to XLA (a gather, a
+// bf16 product with f32 sums, a cast and an add). Same rounding points: x
+// and the codes in the compute dtype (int8 is exact in bf16), f32 sums
+// over K, the per-column scale in the epilogue, one rounding to the
+// compute dtype; the outlier term's f32 sum rounded on its own, and the
+// two rounded values added and rounded once more.
 //
 // Bound on an H100 SXM: at decode (M = 1-8) the weight bytes. The
 // (4096, 14336) w_gate is 58.7 MB of codes, about 17.5 us at 3.35 TB/s;
@@ -30,8 +37,16 @@
 // 128-byte lines) with one block per SM, the K steps split evenly among
 // the blocks and the split tiles merged in the same launch; prefill walks
 // whole output tiles with a persistent grid.
+// The outlier term is added by the block that stores the output element
+// (qmm_wgmma.cuh, outlier_rows and outlier_tile): at decode on mma.sync
+// from x's outlier columns in device memory, after a split tile's merge;
+// at prefill from those columns gathered into the tile's last ring stage,
+// once a tile, then added to the stored tile. So a call is one launch and
+// the term never leaves the SM as f32 (the parent's path: seven kernels a
+// projection). Its bytes (n_out rows of bf16 weights, n_out of 1% of K)
+// and operations are about 2% of the product's.
 // f32 compute and shapes the plan gives neither loop take the CUDA-core
-// tile kernel (qmm_tile_kernel).
+// tile kernel (qmm_tile_kernel), which adds the term on the CUDA cores.
 #include "qmm_wgmma.cuh"
 #include "quant_matmul.cuh"
 
@@ -40,10 +55,15 @@ namespace {
 struct Int8Format {
   const int8_t* codes;   // (K, N)
   const float* scale;    // (N,)
+  const int* oidx;       // (n_out,) outlier input rows
+  const __nv_bfloat16* ow;   // (n_out, N)
+  int n_out;
+  static constexpr bool kOutliers = true;
 
   // the format of expert e of a grouped call
   __device__ __forceinline__ Int8Format expert(int e, int K, int N) const {
-    return {codes + (size_t)e * K * N, scale + (size_t)e * N};
+    return {codes + (size_t)e * K * N, scale + (size_t)e * N,
+            oidx + (size_t)e * n_out, ow + (size_t)e * n_out * N, n_out};
   }
 
   // -- tile kernel: ws (BK, BN) <- codes[k0:k0+BK, n0:n0+BN] as floats,
@@ -77,6 +97,15 @@ struct Int8Format {
   __device__ __forceinline__ float epilogue(float acc, int n) const {
     return acc * scale[n];
   }
+  // the outlier term of x's row xr at column n, summed in outlier order
+  template <typename T>
+  __device__ __forceinline__ float outlier(const T* xr, int n, int N) const {
+    float o = 0.f;
+    for (int j = 0; j < n_out; ++j)
+      o = fmaf(qmm::to_f<T>(xr[oidx[j]]),
+               __bfloat162float(ow[(size_t)j * N + n]), o);
+    return o;
+  }
 };
 
 // -- the bf16 loops (qmm_wgmma.cuh): a stage holds the raw
@@ -85,6 +114,13 @@ struct Int8Format {
 struct Int8Stage {
   CUtensorMap codes;     // (E K, N) int8, box (64 rows, BN)
   const float* scale;    // (E, N)
+  // the outlier product (qmm_wgmma.cuh): x (E, M, K), oidx (E, n_out),
+  // ow (E, n_out, N)
+  const __nv_bfloat16* x;
+  const int* oidx;
+  const __nv_bfloat16* ow;
+  int n_out;
+  static constexpr bool kOutliers = true;
 
   template <int BN>
   __host__ __device__ static constexpr int raw_bytes() {
@@ -140,8 +176,10 @@ struct Int8Stage {
 }  // namespace
 
 // x (E, M, K) and out (E, M, N) in the compute dtype (bf16 when is_bf16,
-// else f32); codes int8 (E, K, N); scale f32 (E, N); E = 1 for a 2-D
-// call. All row-major and contiguous; codes 4-byte aligned. `rows`: each
+// else f32); codes int8 (E, K, N); scale f32 (E, N); oidx int32
+// (E, n_out) and ow bf16 (E, n_out, N), each outlier row in 0..K-1 (null
+// for n_out = 0); E = 1 for a 2-D call. All row-major and contiguous;
+// codes 4-byte aligned. `rows`: each
 // expert's kept rows (E,) int32, or null for all M; rows at or past the
 // count are written as zeros. `loop` is the host plan's loop (qmm::Loop);
 // for the wgmma and decode loops, (bm, bn) its tile and `grid` its
@@ -151,14 +189,18 @@ struct Int8Stage {
 // synchronise, and returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for a loop the shape does not allow.
 extern "C" int int8_matmul_launch(const void* x, const void* codes,
-                                  const void* scale, void* out, void* part,
+                                  const void* scale, const void* oidx,
+                                  const void* ow, void* out, void* part,
                                   void* counter, const void* rows, int E,
-                                  int M, int N, int K, int is_bf16, int loop,
-                                  int bm, int bn, int grid, int seg,
+                                  int M, int N, int K, int n_out, int is_bf16,
+                                  int loop, int bm, int bn, int grid, int seg,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E < 1) return (int)cudaErrorInvalidValue;
+  if (E < 1 || n_out < 0 || (n_out && (!oidx || !ow)))
+    return (int)cudaErrorInvalidValue;
   const int* kept = static_cast<const int*>(rows);
+  const int* idx = static_cast<const int*>(oidx);
+  const auto* w16 = static_cast<const __nv_bfloat16*>(ow);
   if (loop == qmm::kLoopWgmma || loop == qmm::kLoopDecode) {
     if (!is_bf16) return (int)cudaErrorInvalidValue;
     qmm::wg::Args<Int8Stage> a;
@@ -168,6 +210,10 @@ extern "C" int int8_matmul_launch(const void* x, const void* codes,
                                   qmm::wg::raw_swizzle(bn)))
       return (int)cudaErrorInvalidValue;
     a.st.scale = static_cast<const float*>(scale);
+    a.st.x = static_cast<const __nv_bfloat16*>(x);
+    a.st.oidx = idx;
+    a.st.ow = w16;
+    a.st.n_out = n_out;
     a.out = static_cast<__nv_bfloat16*>(out);
     a.part = static_cast<float*>(part);
     a.counter = static_cast<int*>(counter);
@@ -184,7 +230,7 @@ extern "C" int int8_matmul_launch(const void* x, const void* codes,
   }
   if (loop != qmm::kLoopTile) return (int)cudaErrorInvalidValue;
   Int8Format fmt{static_cast<const int8_t*>(codes),
-                 static_cast<const float*>(scale)};
+                 static_cast<const float*>(scale), idx, w16, n_out};
   if (is_bf16)
     return (int)qmm::launch_tile(static_cast<const __nv_bfloat16*>(x), fmt,
                                  static_cast<__nv_bfloat16*>(out), kept, E,

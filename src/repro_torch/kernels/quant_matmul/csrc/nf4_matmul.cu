@@ -52,6 +52,7 @@ struct NF4Format {
   const uint8_t* packed;   // (K / 2, N)
   const float* absmax;     // (K / block, N)
   int block;               // even, divides K
+  static constexpr bool kOutliers = false;
 
   // the format of expert e of a grouped call
   __device__ __forceinline__ NF4Format expert(int e, int K, int N) const {
@@ -95,6 +96,7 @@ struct NF4Stage {
   CUtensorMap absmax;   // (E K / block, N) f32, box (rows, BN)
   int block;            // 32, or a multiple of 64
   int rows;             // absmax rows a stage holds: 64 / block, or 1
+  static constexpr bool kOutliers = false;
 
   template <int BN>
   __host__ __device__ static constexpr int raw_bytes() {

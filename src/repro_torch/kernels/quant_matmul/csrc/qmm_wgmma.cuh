@@ -1,5 +1,6 @@
-// The bf16 Hopper (sm_90a) loops of the two dequant-matmul kernels,
-// prefill (M > 8) and decode (M <= 8): out (M, N) = x (M, K) @ dequant(W)
+// The bf16 Hopper (sm_90a) loops of the dequant-matmul kernels (int8,
+// nf4, and fp16 weights converted to bf16), prefill (M > 8) and decode
+// (M <= 8): out (M, N) = x (M, K) @ dequant(W)
 // (K, N), bf16 in and out, f32 sums. One kernel, qmm_wgmma_kernel, with
 // BM = 8 rows of x for decode. The same launch runs the grouped form, E
 // such problems at once (the experts of an MoE layer: x (E, M, K) @
@@ -79,7 +80,9 @@
 //   there. What stays on the CUDA cores is the dequantization alone.
 // - The epilogue (the format's per-column scale, one rounding to bf16)
 //   runs from the registers (or the merged partial sums) straight to
-//   device memory, two adjacent columns per store.
+//   device memory, two adjacent columns per store. int8 adds LLM.int8's
+//   outlier term there, once per output element (outlier_rows,
+//   outlier_tile below).
 #pragma once
 
 #include <cuda.h>
@@ -260,6 +263,9 @@ constexpr int kMaxE = 256;
 // zero rows of a grouped call while the first issues the copies
 constexpr int kFillThreads = 96;
 
+// A tile the launch may take: a ring of at least five stages (fp16's raw
+// tiles are twice int8's, so its 256 x 128 tile gets four and is never
+// planned; kernel.py, ring_stages).
 template <class Stage, int BM, int BN>
 struct Layout {
   static constexpr int x_bytes = BM * kBK * 2;
@@ -269,7 +275,7 @@ struct Layout {
   static constexpr int stages = fit < kMaxStages ? fit : kMaxStages;
   static constexpr int raw_off = stages * x_bytes;
   static constexpr int total = raw_off + stages * raw_bytes + 1024;
-  static_assert(stages >= 5, "a ring of at least five stages");
+  static constexpr bool ok = stages >= 5;
 };
 
 template <class Stage>
@@ -532,6 +538,258 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
+// -- LLM.int8's outlier product --------------------------------------------
+// A stage with outliers (Stage::kOutliers: Int8Stage) carries x as a
+// pointer, each expert's n_out outlier input rows `oidx` (E, n_out) int32
+// and their bf16 weights `ow` (E, n_out, N). The block that stores an
+// output element adds the term o[m, n] = sum_j x[m, oidx[j]] ow[j, n], an
+// f32 sum of exact bf16 products (mma.sync m16n8k16, 16 outliers a step,
+// zeros past n_out), with the plain path's rounding points:
+// out = bf16(bf16(acc scale) + bf16(o)). It has the accumulator's layout:
+// A rows g and g + 8 of a warp are columns n and n + 1 (n = its column
+// pair, as for the weight's fragments), the B columns rows of x.
+
+// the outlier fields of a stage, as the out-of-line prefill pass takes
+// them
+struct Outliers {
+  const __nv_bfloat16* x;
+  const int* oidx;
+  const __nv_bfloat16* ow;
+  int n_out;
+};
+
+// the two 16-bit values, each rounded to bf16 first, added in f32
+__device__ __forceinline__ float add_rounded(float base, float o) {
+  return __bfloat162float(__float2bfloat16_rn(base)) +
+         __bfloat162float(__float2bfloat16_rn(o));
+}
+
+// d += a @ (b0, b1) on four separate accumulator registers
+__device__ __forceinline__ void mma_bf16_4(float& d0, float& d1, float& d2,
+                                           float& d3, const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  float d[4] = {d0, d1, d2, d3};
+  mma_bf16(d, a, b0, b1);
+  d0 = d[0];
+  d1 = d[1];
+  d2 = d[2];
+  d3 = d[3];
+}
+
+// The A fragment of outlier rows j0 .. j0 + 15 of ow (n_out rows of N):
+// rows j0 + 2t, + 1, + 8, + 9 (t = lane % 4) at columns n and n + 1, one
+// 4-byte load each, paired along the outlier rows; 0 past n_out.
+__device__ __forceinline__ void outlier_a(const __nv_bfloat16* ow, int n_out,
+                                          int N, int j0, int n, int t,
+                                          uint32_t (&f)[4]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = j0 + 2 * t + (i & 1) + 8 * (i >> 1);
+    w[i] = j < n_out
+               ? *reinterpret_cast<const uint32_t*>(ow + (size_t)j * N + n)
+               : 0u;
+  }
+  f[0] = __byte_perm(w[0], w[1], 0x5410);   // column n
+  f[1] = __byte_perm(w[0], w[1], 0x7632);   // column n + 1
+  f[2] = __byte_perm(w[2], w[3], 0x5410);
+  f[3] = __byte_perm(w[2], w[3], 0x7632);
+}
+
+// Decode: the term of the thread's outputs of a decode tile of expert e,
+// rows 2t, 2t + 1 below lim by columns n, n + 1, in the accumulator's
+// order, each lane's x row (its B column, lane / 4) read straight from
+// device memory (8 rows: a few loads a lane). Up to kGroup 16-outlier
+// steps at a time, their loads in two waves (the outlier rows, then x at
+// them and the outlier weights), so that a group costs two load latencies
+// whatever its steps. The decode loop computes it as a run of the tile
+// starts, before its first stage arrives, so that its loads' latency
+// hides behind the ring's; 0 for a warp whose columns lie past N.
+template <class St>
+__device__ __forceinline__ void outlier_rows(const St& st, int e, int M,
+                                             int N, int K, int lim, int n,
+                                             int lane, float (&o)[4]) {
+  constexpr int kGroup = 8;
+  const int g = lane / 4, t = lane % 4;
+  const int n_out = st.n_out;
+  const int* idx = st.oidx + (size_t)e * n_out;
+  const __nv_bfloat16* ow = st.ow + (size_t)e * n_out * N;
+  const __nv_bfloat16* xr = st.x + ((size_t)e * M + g) * K;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = 0.f;
+  if (n >= N) return;   // warp-uniform: a warp's 16 columns
+  for (int j0 = 0; j0 < n_out; j0 += 16 * kGroup) {
+    // outlier rows j0 + 16 s + 2t + {0, 1, 8, 9} of each step s
+    int col[kGroup][4];
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + 16 * s + 2 * t + (i & 1) + 8 * (i >> 1);
+        col[s][i] = j < n_out && g < lim ? idx[j] : -1;
+      }
+    uint32_t a[kGroup][4], b[kGroup][2];
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s) {
+      if (j0 + 16 * s >= n_out) break;
+      outlier_a(ow, n_out, N, j0 + 16 * s, n, t, a[s]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t lo =
+            col[s][2 * h] >= 0 ? __bfloat16_as_ushort(xr[col[s][2 * h]]) : 0u;
+        const uint32_t hi = col[s][2 * h + 1] >= 0
+                                ? __bfloat16_as_ushort(xr[col[s][2 * h + 1]])
+                                : 0u;
+        b[s][h] = lo | hi << 16;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s) {
+      if (j0 + 16 * s >= n_out) break;
+      mma_bf16(o, a[s], b[s][0], b[s][1]);
+    }
+  }
+}
+
+// Prefill: the term of a whole BM x BN tile of expert e (rows m0 .. below
+// lim), added to the tile that store() wrote (outlier_pass). acc takes the
+// term; xs is the x tile of the ring stage the tile used
+// last, held back from the producer until its release, as staging: per 64
+// outliers the consumers gather x[m0 + r][oidx[j0 + q]] into its row r,
+// column q (the x tile's 128-byte swizzle), then each warp runs its 16
+// columns over the BM rows (ldmatrix, as the decode loop reads x). So a
+// tile reads x's outlier columns once, not once a warp. Every consumer
+// thread calls it (it holds their barriers).
+template <int BM, int NT, class St>
+__device__ __forceinline__ void outlier_tile(const St& st, float (&acc)[BM / 2],
+                                             uint8_t* xs, __nv_bfloat16* out,
+                                             int e, int m0, int n0, int lim,
+                                             int M, int N, int K, int tid,
+                                             int nb, int lane) {
+  const int t = lane % 4, n = n0 + nb + 2 * (lane / 4);
+  const int n_out = st.n_out;
+  const int* idx = st.oidx + (size_t)e * n_out;
+  const __nv_bfloat16* ow = st.ow + (size_t)e * n_out * N;
+  const __nv_bfloat16* x = st.x + (size_t)e * M * K;
+  const bool live = n0 + nb < N;   // the warp's 16 columns (N % 16 == 0)
+  const uint32_t xa = smem_u32(xs);
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 < n_out; j0 += 64) {
+    // the stage's products, or the last chunk's reads, are done
+    consumer_sync<NT>();
+    // element i of the chunk's BM x 64 staging tile: row i % BM, outlier
+    // column i / BM (zeros past n_out and lim), kBatch loads in flight a
+    // thread
+    constexpr int kBatch = 16;
+    const int cols = min(64, n_out - j0);
+    const int zero_from = ((cols + 31) & ~31) * BM;   // whole step pairs
+    for (int i0 = tid; i0 < zero_from; i0 += kBatch * NT) {
+      uint16_t v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * NT, r = i % BM, q = i / BM;
+        v[b] = 0;
+        if (q < cols && m0 + r < lim)
+          v[b] = __bfloat16_as_ushort(x[(size_t)(m0 + r) * K + idx[j0 + q]]);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * NT, r = i % BM, q = i / BM;
+        if (i < zero_from)
+          *reinterpret_cast<uint16_t*>(
+              xs + r * 128 + ((((2 * q) >> 4) ^ (r & 7)) << 4) +
+              ((2 * q) & 15)) = v[b];
+      }
+    }
+    consumer_sync<NT>();
+    if (!live) continue;
+    const int steps = min(4, (n_out - j0 + 15) / 16);
+#pragma unroll
+    for (int sp = 0; sp < 2; ++sp) {
+      if (2 * sp >= steps) break;
+      uint32_t a0[4], a1[4];
+      outlier_a(ow, n_out, N, j0 + 32 * sp, n, t, a0);
+      outlier_a(ow, n_out, N, j0 + 32 * sp + 16, n, t, a1);
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4(b, swz(xa, j * 8 + (lane & 7), 4 * sp + (lane >> 3)));
+        mma_bf16_4(acc[j * 4], acc[j * 4 + 1], acc[j * 4 + 2], acc[j * 4 + 3],
+                   a0, b[0], b[1]);
+        mma_bf16_4(acc[j * 4], acc[j * 4 + 1], acc[j * 4 + 2], acc[j * 4 + 3],
+                   a1, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// out's stored bf16 pairs at the thread's rows below lim and columns n,
+// n + 1, each plus its term (acc, the accumulator's order) rounded to bf16
+// (kJ row groups at a time: their loads in flight together)
+template <int BM>
+__device__ __forceinline__ void add_outliers(const float (&acc)[BM / 2],
+                                             __nv_bfloat16* out, int e, int m0,
+                                             int n, int lim, int M, int N,
+                                             int lane) {
+  if (n >= N) return;
+  constexpr int kJ = BM / 8 < 8 ? BM / 8 : 8;
+#pragma unroll
+  for (int j0 = 0; j0 < BM / 8; j0 += kJ) {
+    uint32_t v[kJ][2];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + (j0 + j) * 8 + 2 * (lane % 4) + r;
+        v[j][r] = m < lim ? *reinterpret_cast<const uint32_t*>(
+                                out + ((size_t)e * M + m) * N + n)
+                          : 0u;
+      }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + (j0 + j) * 8 + 2 * (lane % 4) + r;
+        if (m < lim)
+          *reinterpret_cast<uint32_t*>(out + ((size_t)e * M + m) * N + n) =
+              pack_bf16(add_rounded(__uint_as_float(v[j][r] << 16),
+                                    acc[(j0 + j) * 4 + r]),
+                        add_rounded(__uint_as_float(v[j][r] & 0xFFFF0000u),
+                                    acc[(j0 + j) * 4 + 2 + r]));
+      }
+  }
+}
+
+// generic-proxy writes to shared memory before the async proxy (TMA)
+// writes it again
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The prefill tile's whole outlier pass: outlier_tile and add_outliers
+// over its rows at most 128 at a time (kRows), each part's term in its own
+// 64 accumulators, then the release of the staging stage, `empty`. Out of
+// line, so that its registers are its own: inlined, the pass made the
+// product loop of the 128 x 128 and 256-row tiles spill.
+template <int BM, int NT>
+__device__ __noinline__ void outlier_pass(const Outliers st, uint8_t* xs,
+                                          uint64_t* empty, __nv_bfloat16* out,
+                                          int e, int m0, int n0, int c,
+                                          int lim, int M, int N, int K,
+                                          int tid, int nb, int lane) {
+  constexpr int kRows = BM < 128 ? BM : 128;
+#pragma unroll 1
+  for (int r0 = 0; r0 < BM; r0 += kRows) {
+    float o[kRows / 2];
+    outlier_tile<kRows, NT>(st, o, xs, out, e, m0 + r0, n0, lim, M, N, K,
+                            tid, nb, lane);
+    add_outliers<kRows>(o, out, e, m0 + r0, n0 + c, lim, M, N, lane);
+  }
+  fence_proxy_async();
+  mbar_arrive(empty);
+}
+
 template <class Stage, int BM, int BN>
 __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     qmm_wgmma_kernel(const __grid_constant__ Args<Stage> a) {
@@ -593,7 +851,11 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
     const int c = nb + 2 * (lane / 4);
     // rows m0 .. of expert ex below lim, its kept rows (the others are
     // the zero fill's)
-    auto store = [&](const float* acc, int ex, int m0, int n0, int lim) {
+    // (with outl, o, a decode tile's outlier term, outlier_rows, added;
+    // prefill adds it after the store, outlier_pass)
+    const float no_term[4] = {0.f, 0.f, 0.f, 0.f};
+    auto store = [&](const float* acc, int ex, int m0, int n0, int lim,
+                     bool outl, const float (&o)[4]) {
       const int n = n0 + c;
       if (n >= a.N) return;   // N is even, so n + 1 < N too
       const size_t col = (size_t)ex * a.N + n;
@@ -602,11 +864,15 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int m = m0 + j * 8 + 2 * (lane % 4) + e;
-          if (m < lim)
-            *reinterpret_cast<uint32_t*>(
-                a.out + ((size_t)ex * a.M + m) * a.N + n) =
-                pack_bf16(a.st.epilogue(acc[j * 4 + e], col),
-                          a.st.epilogue(acc[j * 4 + 2 + e], col + 1));
+          if (m >= lim) continue;
+          float v0 = a.st.epilogue(acc[j * 4 + e], col);
+          float v1 = a.st.epilogue(acc[j * 4 + 2 + e], col + 1);
+          if (outl) {
+            v0 = add_rounded(v0, o[e]);
+            v1 = add_rounded(v1, o[2 + e]);
+          }
+          *reinterpret_cast<uint32_t*>(
+              a.out + ((size_t)ex * a.M + m) * a.N + n) = pack_bf16(v0, v1);
         }
     };
     int it = 0;
@@ -680,6 +946,16 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
               *reinterpret_cast<float2*>(slot + (r0 + e) * BN) =
                   make_float2(acc[e], acc[2 + e]);
         };
+        // int8's outlier term of the tile, before the run's first stage
+        // arrives (every block that holds part of a split tile computes it;
+        // the one that stores it uses it)
+        float o[4] = {0.f, 0.f, 0.f, 0.f};
+        bool outl = false;
+        if constexpr (Stage::kOutliers) {
+          outl = a.st.n_out > 0;
+          if (outl)
+            outlier_rows(a.st, g.e, a.M, a.N, a.K, lim, g.n0 + c, lane, o);
+        }
         float acc[4];
         if (g.s0 < 0) {
           run(acc, g.k0, g.k1);
@@ -691,7 +967,7 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
         }
 
         if (g.b0 == g.b1) {
-          if (g.k1 == nk) store(tot, g.e, 0, g.n0, lim);
+          if (g.k1 == nk) store(tot, g.e, 0, g.n0, lim, outl, o);
           return;
         }
         // a split tile: after the block's run of it, the last of the
@@ -732,7 +1008,7 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
                 sum[2 + e] += v[i][e].y;
               }
         }
-        store(sum, g.e, 0, g.n0, lim);
+        store(sum, g.e, 0, g.n0, lim, outl, o);
       } else {
         float acc[BM / 2];
 #pragma unroll
@@ -775,8 +1051,20 @@ __global__ void __launch_bounds__(128 * (BN / 64 + 1), 1)
           fence_regs(f0[kk]);
           fence_regs(f1[kk]);
         }
-        mbar_arrive(&empty[(it - 1) % S]);
-        store(acc, g.e, g.m0, g.n0, lim);
+        const int last = (it - 1) % S;
+        bool outl = false;
+        if constexpr (Stage::kOutliers) outl = a.st.n_out > 0;
+        // with outliers the last stage is released after its x tile has
+        // staged them
+        if (!outl) mbar_arrive(&empty[last]);
+        store(acc, g.e, g.m0, g.n0, lim, false, no_term);
+        if constexpr (Stage::kOutliers) {
+          if (outl)
+            outlier_pass<BM, NT>(
+                Outliers{a.st.x, a.st.oidx, a.st.ow, a.st.n_out},
+                smem + last * L::x_bytes, &empty[last], a.out, g.e, g.m0,
+                g.n0, c, lim, a.M, a.N, a.K, tid, nb, lane);
+        }
       }
     });
   }
@@ -839,6 +1127,7 @@ template <class Stage, int BM, int BN>
 cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
                          cudaStream_t stream) {
   using L = Layout<Stage, BM, BN>;
+  static_assert(L::ok, "a ring of at least five stages");
   const uint64_t dims[3] = {(uint64_t)a.K, (uint64_t)a.M, (uint64_t)a.E};
   const uint64_t strides[2] = {(uint64_t)a.K * 2, (uint64_t)a.M * a.K * 2};
   const uint32_t box[3] = {(uint32_t)kBK, (uint32_t)BM, 1};
@@ -864,14 +1153,16 @@ cudaError_t launch_tiles(Args<Stage>& a, const __nv_bfloat16* x, int grid,
 // their kept rows, a.rows). The caller has filled a.st with the format's
 // tensor maps for BN. Refuses (cudaErrorInvalidValue) what the plan never
 // gives it: K not a multiple of 64, N not a multiple of 16, no expert or
-// more than kMaxE, another tile.
+// more than kMaxE, another tile, a tile whose ring the format's stages
+// make shorter than five (Layout::ok).
 template <class Stage>
 cudaError_t launch(Args<Stage>& a, const __nv_bfloat16* x, int bm, int bn,
                    int grid, cudaStream_t stream) {
   if (a.K % kBK || a.N % 16 || grid < 1 || a.E < 1 || a.E > kMaxE)
     return cudaErrorInvalidValue;
   if (bn == 128) {
-    if (bm == 256) return launch_tiles<Stage, 256, 128>(a, x, grid, stream);
+    if constexpr (Layout<Stage, 256, 128>::ok)
+      if (bm == 256) return launch_tiles<Stage, 256, 128>(a, x, grid, stream);
     if (bm == 128) return launch_tiles<Stage, 128, 128>(a, x, grid, stream);
     if (bm == 64) return launch_tiles<Stage, 64, 128>(a, x, grid, stream);
   }

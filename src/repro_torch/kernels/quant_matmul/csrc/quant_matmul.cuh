@@ -1,10 +1,11 @@
-// The CUDA-core tile loop of the two dequant-matmul kernels
-// (int8_matmul.cu, nf4_matmul.cu): out (M, N) = x (M, K) @ dequant(W)
+// The CUDA-core tile loop of the dequant-matmul kernels (int8_matmul.cu,
+// nf4_matmul.cu, fp16_matmul.cu): out (M, N) = x (M, K) @ dequant(W)
 // (K, N), with the weight dequantized in shared memory, never written
-// back to device memory. A format (Int8Format, NF4Format) supplies the
-// tile loads and the epilogue. It runs f32 compute and every shape the
-// bf16 loops of qmm_wgmma.cuh (decode, M <= 8; prefill, M > 8) do not
-// take (launch, at the end).
+// back to device memory. A format (Int8Format, NF4Format, F16Format)
+// supplies the tile loads and the epilogue (int8's with its outlier
+// term). It runs f32 compute and every shape the bf16 loops of
+// qmm_wgmma.cuh (decode, M <= 8; prefill, M > 8) do not take (launch, at
+// the end).
 //
 // Grouped calls (E problems, x (E, M, K), out (E, M, N)) take one grid
 // layer per expert (blockIdx.z) and the format of that expert (its
@@ -150,9 +151,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gm = m0 + ty + i * NY, gn = n0 + tx + j * NX;
-      if (gm < M && gn < N)
-        out[(size_t)gm * N + gn] =
-            from_f<T>(gm < lim ? fmt.epilogue(acc[i][j], gn) : 0.f);
+      if (gm < M && gn < N) {
+        float v = 0.f;
+        if (gm < lim) {
+          v = fmt.epilogue(acc[i][j], gn);
+          // LLM.int8's outlier term (int8 only), rounded on its own and
+          // added to the rounded product
+          if constexpr (Format::kOutliers)
+            if (fmt.n_out)
+              v = round_to<T>(v) +
+                  round_to<T>(fmt.outlier(x + (size_t)gm * K, gn, N));
+        }
+        out[(size_t)gm * N + gn] = from_f<T>(v);
+      }
     }
 }
 

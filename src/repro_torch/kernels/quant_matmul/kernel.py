@@ -1,11 +1,24 @@
-"""The two dequant-matmul kernels: CUDA C++ for Hopper, bound with ctypes.
+"""The dequant-matmul kernels: CUDA C++ for Hopper, bound with ctypes.
 
 Counterpart of ``repro.kernels.quant_matmul.kernel`` (the Pallas
-``int8_matmul_pallas`` / ``nf4_matmul_pallas``). Sources are
-``csrc/int8_matmul.cu`` and ``csrc/nf4_matmul.cu``; each is compiled at
-first use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
-shared library with a plain C interface under ``build/kernels/`` at the
-root of the checkout, and loaded with ``ctypes``.
+``int8_matmul_pallas`` / ``nf4_matmul_pallas``), with int8's LLM.int8
+outlier product inside its kernel (the reference adds it at the XLA
+level, ``repro.kernels.quant_matmul.ops``), and a third kernel,
+``fp16_matmul``, for the float16 format's product: its fp16 weights
+converted to bf16 in registers, the reference's ``einsum(x.astype(cd),
+w.astype(cd))`` (``repro.quant.apply``), which no Pallas kernel computes.
+Sources are ``csrc/int8_matmul.cu``, ``csrc/nf4_matmul.cu`` and
+``csrc/fp16_matmul.cu``; each is compiled at first use with ``nvcc
+-gencode arch=compute_90a,code=sm_90a`` into a shared library with a
+plain C interface under ``build/kernels/`` at the root of the checkout,
+and loaded with ``ctypes``.
+
+``int8_matmul`` and ``int8_matmul_grouped`` take the weight's outlier
+rows and their bf16 weights (``outlier_idx``, ``outlier_w``: the
+``Int8Weight`` fields) as optional arguments: the kernel then adds
+``bf16(x[:, idx] @ ow)`` (an f32 sum) to its rounded output and rounds
+once more, the rounding points of the product the reference adds, in
+the same launch.
 
 ``int8_matmul``/``nf4_matmul`` take a 2-D problem; ``*_grouped`` take its
 grouped form, E problems at once (x (E, C, K) against a weight with a
@@ -78,26 +91,32 @@ from repro_torch.core.sharded import (is_sharded, matmul_placements,
                                      on_shards)
 from repro_torch.quant.nf4 import codebook, unpack_codes
 
-KERNELS = ("int8_matmul", "nf4_matmul")
+KERNELS = ("int8_matmul", "nf4_matmul", "fp16_matmul")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = cuda_build.BUILD_DIR
 HEADERS = ("quant_matmul.cuh", "qmm_wgmma.cuh", cuda_build.HOPPER_HEADER)
 SOURCES = {
-    # x, codes, scale, out, part, counter, rows, E, M, N, K, is_bf16, loop,
-    # bm, bn, grid, seg
+    # x, codes, scale, outlier_idx, outlier_w, out, part, counter, rows, E,
+    # M, N, K, n_out, is_bf16, loop, bm, bn, grid, seg
     "int8_matmul": cuda_build.Source(
         "int8_matmul", CSRC,
-        (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I), HEADERS),
+        (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I),
+        HEADERS),
     # x, packed, absmax, out, part, counter, rows, E, M, N, K, block,
     # is_bf16, loop, bm, bn, grid, seg
     "nf4_matmul": cuda_build.Source(
         "nf4_matmul", CSRC,
         (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I), HEADERS),
+    # x, w, out, part, counter, rows, E, M, N, K, is_bf16, loop, bm, bn,
+    # grid, seg
+    "fp16_matmul": cuda_build.Source(
+        "fp16_matmul", CSRC,
+        (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I), HEADERS),
 }
 #: the wrappers that launch the kernels, each with its own count: the
 #: 2-D calls and the grouped calls (one launch over all experts)
 ENTRY_POINTS = ("int8_matmul", "nf4_matmul", "int8_matmul_grouped",
-                "nf4_matmul_grouped")
+                "nf4_matmul_grouped", "fp16_matmul")
 
 #: the loops of the C entry points, by their number there (qmm::Loop)
 LOOPS = ("decode", "wgmma", "tile")
@@ -155,8 +174,23 @@ WG_STEP_US = {
     "nf4": {(128, 128): 0.81, (256, 128): 1.03, (256, 64): 0.63,
             (128, 64): 0.52, (64, 128): 0.69, (64, 64): 0.49},
 }
+#: fp16 weights (a conversion a weight, as int8's): not swept, int8's
+WG_STEP_US["fp16"] = dict(WG_STEP_US["int8"])
 #: the tiles the plan may take, in order of preference on a tie
 WG_TILES = tuple(WG_STEP_US["int8"])
+
+
+def ring_stages(fmt: str, bm: int, bn: int) -> int:
+    """Stages of the bf16 loops' ring at tile (bm, bn) for a format's
+    weights (qmm_wgmma.cuh, Layout): an x tile of bm rows and the raw
+    weight tile of 64 K rows (int8: a byte a weight; nf4: half a byte and
+    two absmax rows; fp16: two bytes), each rounded up to 1024 bytes, as
+    many as fit beside 4 KB of static shared memory, at most 8. A tile
+    whose ring holds fewer than 5 is never planned (fp16's 256 x 128)."""
+    raw = {"int8": WG_BK * bn, "nf4": WG_BK // 2 * bn + 2 * bn * 4,
+           "fp16": WG_BK * bn * 2}[fmt]
+    raw = -(-raw // 1024) * 1024
+    return min(8, (232448 - 4096) // (bm * WG_BK * 2 + raw))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,11 +280,14 @@ def decode_scratch(plan: Plan, N: int) -> Tuple[int, int]:
 
 def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
                 block: Optional[int] = None, aligned: bool = True,
-                experts: int = 1, grouped: bool = False) -> Plan:
+                experts: int = 1, grouped: bool = False,
+                fmt: Optional[str] = None) -> Plan:
     """The loop for x (M, K) @ W (K, N), from shapes alone (``block``: the
     nf4 block, None for int8; ``aligned``: every pointer 16-byte aligned),
     or for ``experts`` such products in one launch, M rows each
-    (``grouped``: a grouped call, which may skip experts and rows).
+    (``grouped``: a grouped call, which may skip experts and rows);
+    ``fmt`` names the weight format of :data:`WG_STEP_US` ("int8" for
+    ``block`` None, else "nf4", by default; "fp16" for fp16 weights).
 
     Where the bf16 loops take the shape (bf16, N % 16 == 0, K % 64 == 0,
     aligned, an nf4 block of 32 or a multiple of 64, at most
@@ -266,11 +303,12 @@ def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
       kept ones.
       Neither depends on M, so a row of x gets the same sums whatever the
       batch;
-    - "wgmma" for M > 8: of :data:`WG_TILES`, the tile whose waves over
-      ``n_sm`` SMs (tiles of all experts / n_sm, rounded up) take the
-      least time at the format's :data:`WG_STEP_US`, the earlier on a
-      tie, and a grid of min(tiles, n_sm) blocks. A block walks each of
-      its tiles' whole K axis in order, so here too a row of x gets the
+    - "wgmma" for M > 8: of :data:`WG_TILES` whose ring holds at least
+      five of the format's stages (:func:`ring_stages`), the tile whose
+      waves over ``n_sm`` SMs (tiles of all experts / n_sm, rounded up)
+      take the least time at the format's :data:`WG_STEP_US`, the earlier
+      on a tie, and a grid of min(tiles, n_sm) blocks. A block walks each
+      of its tiles' whole K axis in order, so here too a row of x gets the
       same sums whatever the batch.
 
     "tile" otherwise (f32, and unaligned shapes or small nf4 blocks)."""
@@ -287,26 +325,29 @@ def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
                         min(n_sm, experts * n_col * seg), experts, seg)
         return Plan("decode", DEC_M, DEC_BN, min(n_sm, experts * n_col * nk),
                     experts)
-    step_us = WG_STEP_US["int8" if block is None else "nf4"]
+    fmt = fmt or ("int8" if block is None else "nf4")
+    step_us = WG_STEP_US[fmt]
 
     def tiles(tile):
         return experts * wgmma_tiles(M, N, *tile)[1]
 
     def cost(tile):
         return -(-tiles(tile) // n_sm) * step_us[tile]
-    bm, bn = min(WG_TILES, key=cost)
+    bm, bn = min((t for t in WG_TILES if ring_stages(fmt, *t) >= 5),
+                 key=cost)
     return Plan("wgmma", bm, bn, min(tiles((bm, bn)), n_sm), experts)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_plan(M: int, N: int, K: int, bf16: bool, block: Optional[int],
                  aligned: bool, device: int, experts: int = 1,
-                 grouped: bool = False) -> Plan:
+                 grouped: bool = False, fmt: Optional[str] = None) -> Plan:
     """:func:`matmul_plan` for CUDA device ``device``, once per shape:
     prefill repeats seven shapes in every layer, decode one per step."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return matmul_plan(M, N, K, n_sm, bf16=bf16, block=block,
-                       aligned=aligned, experts=experts, grouped=grouped)
+                       aligned=aligned, experts=experts, grouped=grouped,
+                       fmt=fmt)
 
 
 def _library_path(name: str) -> Path:
@@ -338,15 +379,42 @@ def _zero_past(out: torch.Tensor, rows: Optional[torch.Tensor]
 
 def int8_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
                       scale: torch.Tensor, compute_dtype=torch.bfloat16,
-                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      rows: Optional[torch.Tensor] = None,
+                      outlier_idx: Optional[torch.Tensor] = None,
+                      outlier_w: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """x and the codes cast to the compute dtype, an f32 product (exact
     products of compute-dtype values, f32 sums), the per-column scale,
-    one rounding to the compute dtype. 2-D, or grouped: x (E, C, K),
+    one rounding to the compute dtype. With outliers (``outlier_idx``
+    int32 ([E,] n_out), ``outlier_w`` ([E,] n_out, N)), LLM.int8's
+    outlier product is added: x's outlier columns (``index_select``;
+    grouped, ``gather``) in the compute dtype against the outlier weights
+    in it, an f32 product rounded to the compute dtype, added to the
+    rounded output in the compute dtype. 2-D, or grouped: x (E, C, K),
     codes (E, K, N), scale (E, N), expert by expert, and with ``rows``
     each expert's rows at or past its count zero."""
-    acc = torch.matmul(x.to(compute_dtype).float(),
-                       codes.to(compute_dtype).float())
-    return _zero_past((acc * scale[..., None, :]).to(compute_dtype), rows)
+    xc = x.to(compute_dtype)
+    acc = torch.matmul(xc.float(), codes.to(compute_dtype).float())
+    out = (acc * scale[..., None, :]).to(compute_dtype)
+    if outlier_idx is not None and outlier_idx.shape[-1]:
+        idx = outlier_idx.long()
+        if x.ndim == 2:
+            x_out = torch.index_select(xc, -1, idx)
+        else:
+            x_out = torch.gather(xc, 2, idx[:, None, :].expand(
+                *x.shape[:2], idx.shape[-1]))
+        out = out + torch.matmul(
+            x_out.float(), outlier_w.to(compute_dtype).float()
+        ).to(compute_dtype)
+    return _zero_past(out, rows)
+
+
+def fp16_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x and the fp16 weight cast to the compute dtype (round to nearest
+    even), their product in it (f32 sums, one rounding): the float16
+    format's ``torch.matmul(x.to(cd), w.to(cd))``. x (..., K), w (K, N)."""
+    return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
 
 
 def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -369,9 +437,12 @@ def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def _meta(entry: str, x: torch.Tensor, wargs, compute_dtype) -> torch.Tensor:
-    """The meta branch: an empty output, the kernel's cost reported. The
-    weight's local shape gives N (its side fields stay replicated)."""
+def _meta(entry: str, x: torch.Tensor, wargs, compute_dtype,
+          n_out: int = 0) -> torch.Tensor:
+    """The meta branch: an empty output, the kernel's cost reported
+    (every field of the weight read: int8's outliers too, whose product,
+    ``n_out`` rows, it counts). The weight's local shape gives N (its side
+    fields stay replicated)."""
     from repro_torch.core import op_analysis
     from repro_torch.kernels import cost
     *lead, M, K = x.shape
@@ -379,27 +450,32 @@ def _meta(entry: str, x: torch.Tensor, wargs, compute_dtype) -> torch.Tensor:
     E = lead[0] if lead else 1
     es = torch.finfo(compute_dtype).bits // 8
     nbytes, flops = cost.quant_matmul(
-        M, K, N, sum(op_analysis.tensor_bytes(w) for w in wargs), es, E)
+        M, K, N, sum(op_analysis.tensor_bytes(w) for w in wargs), es, E,
+        n_out)
     op_analysis.record(entry, flops, nbytes)
     return torch.empty((*lead, M, N), dtype=compute_dtype, device="meta")
 
 
-def _on_meta(entry: str, fn, x: torch.Tensor, wargs,
-             compute_dtype) -> torch.Tensor:
-    """A wrapper's ``meta`` branch: on DTensors ``fn`` (the wrapper) on
-    each rank's shards, placed by the weight's main field (codes, packed)
-    as :func:`~repro_torch.core.sharded.matmul_placements` says; else, under
-    a cost analysis, :func:`_meta`. Outside one a meta tensor has no
-    kernel. A grouped call's kept counts are not passed: a meta tensor
-    holds no counts, so every expert and row is counted."""
+def _on_meta(entry: str, call, x: torch.Tensor, wargs, compute_dtype,
+             n_out: int = 0) -> torch.Tensor:
+    """A wrapper's ``meta`` branch: on DTensors ``call(x, *wargs)`` (the
+    wrapper) on each rank's shards, placed by the weight's main field
+    (codes, packed, the fp16 weight) as
+    :func:`~repro_torch.core.sharded.matmul_placements` says, its side
+    fields (scale, absmax, outliers) as they are; else, under a cost
+    analysis, :func:`_meta`. Outside one a meta tensor has no kernel. A
+    grouped call's kept counts are not passed: a meta tensor holds no
+    counts, so every expert and row is counted. On an x sharded on K
+    (``wo``, ``w_down``) each rank counts every outlier row's product, as
+    the product of the whole x's outlier columns counted on every rank
+    before the outliers joined the kernel."""
     if is_sharded(x, *wargs):
         x_pl, out_pl, _, _ = matmul_placements(x, wargs[0])
-        return on_shards(fn, out_pl, x, *wargs, compute_dtype,
-                         in_placements=[x_pl] + [t.placements for t in wargs]
-                         + [None])
+        return on_shards(call, out_pl, x, *wargs,
+                         in_placements=[x_pl] + [t.placements for t in wargs])
     if not counting():
         raise ValueError(f"no kernel for device {x.device}")
-    return _meta(entry, x, wargs, compute_dtype)
+    return _meta(entry, x, wargs, compute_dtype, n_out)
 
 
 def _check_x(x: torch.Tensor, compute_dtype, ndim: int = 2) -> None:
@@ -432,12 +508,13 @@ def _launch(name: str, entry: str, plan: Plan, x: torch.Tensor, wargs,
             out: torch.Tensor, *shape,
             rows: Optional[torch.Tensor] = None) -> None:
     """Launch library ``name`` at ``plan`` and count it for the wrapper
-    ``entry`` (``rows``: a grouped call's kept rows)."""
+    ``entry`` (``rows``: a grouped call's kept rows; None in ``wargs``: a
+    null pointer)."""
     part = counter = None
     if plan.loop == "decode":
         part, counter = _scratch(plan, out.shape[-1], x.device)
     cuda_build.launch(SOURCES[name], LAUNCHES, x.data_ptr(),
-                      *(w.data_ptr() for w in wargs), out.data_ptr(),
+                      *(cuda_build.ptr(w) for w in wargs), out.data_ptr(),
                       cuda_build.ptr(part), cuda_build.ptr(counter),
                       cuda_build.ptr(rows), plan.experts, *shape,
                       LOOPS.index(plan.loop), plan.bm, plan.bn, plan.grid,
@@ -449,18 +526,39 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+def _outliers(idx: Optional[torch.Tensor], ow: Optional[torch.Tensor],
+              E: int, N: int, device) -> Tuple[Optional[torch.Tensor],
+                                               Optional[torch.Tensor], int]:
+    """(idx, ow, n_out) of an int8 call on the card: both None, or idx
+    int32 (E, n_out) and ow bf16 (E, n_out, N) on ``device`` (None for
+    n_out = 0). The rows in idx must lie in 0..K-1: the kernel reads x
+    there unchecked, as a gather would."""
+    if (idx is None) != (ow is None):
+        raise ValueError("outlier_idx and outlier_w go together")
+    if idx is None or idx.shape[-1] == 0:
+        return None, None, 0
+    n_out = idx.shape[-1]
+    _check("outlier_idx", idx, torch.int32, (E, n_out), device)
+    _check("outlier_w", ow, torch.bfloat16, (E, n_out, N), device)
+    return idx, ow, n_out
+
+
 def _int8_launch(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                  compute_dtype, entry: str, grouped: bool,
-                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (E, C, K) @ dequant(codes (E, K, N), scale (E, N)) on the card,
-    counted for the wrapper ``entry``; E = 1 for a 2-D call (``grouped``
-    false)."""
+                 rows: Optional[torch.Tensor] = None,
+                 outlier_idx: Optional[torch.Tensor] = None,
+                 outlier_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, K) @ dequant(codes (E, K, N), scale (E, N)) plus the
+    outlier product of ``outlier_idx`` (E, n_out), ``outlier_w`` (E,
+    n_out, N) on the card, counted for the wrapper ``entry``; E = 1 for a
+    2-D call (``grouped`` false)."""
     E, C, K = x.shape
     N = codes.shape[-1]
     _check("x", x, compute_dtype, (E, C, K), x.device)
     _check("codes", codes, torch.int8, (E, K, N), x.device)
     _check("scale", scale, torch.float32, (E, N), x.device)
     _check_rows(rows, x)
+    idx, ow, n_out = _outliers(outlier_idx, outlier_w, E, N, x.device)
     if N % 4 == 0 and codes.data_ptr() % 4:
         raise ValueError("codes must be 4-byte aligned")
     out = torch.empty((E, C, N), dtype=compute_dtype, device=x.device)
@@ -468,8 +566,8 @@ def _int8_launch(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         bf16 = compute_dtype == torch.bfloat16
         plan = _plan(entry, grouped, C, N, K, bf16, None,
                      _aligned(x, codes), x, E)
-        _launch("int8_matmul", entry, plan, x, (codes, scale), out, C, N, K,
-                int(bf16), rows=rows)
+        _launch("int8_matmul", entry, plan, x, (codes, scale, idx, ow), out,
+                C, N, K, n_out, int(bf16), rows=rows)
     return out
 
 
@@ -501,11 +599,11 @@ def _nf4_launch(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
 
 def _plan(entry: str, grouped: bool, C: int, N: int, K: int, bf16: bool,
           block: Optional[int], aligned: bool, x: torch.Tensor,
-          E: int) -> Plan:
+          E: int, fmt: Optional[str] = None) -> Plan:
     """The device plan of a call; a grouped call in bf16 raises where the
     plan gives it neither bf16 loop (``entry`` names it)."""
     plan = _device_plan(C, N, K, bf16, block, aligned, x.get_device(), E,
-                        grouped)
+                        grouped, fmt)
     if grouped and bf16 and plan.loop == "tile":
         raise ValueError(
             f"{entry}: no grouped bf16 kernel for E={E} C={C} K={K} N={N}"
@@ -516,19 +614,37 @@ def _plan(entry: str, grouped: bool, C: int, N: int, K: int, bf16: bool,
     return plan
 
 
+def _outlier_args(idx, ow) -> tuple:
+    """The outlier fields a call was given, as extra weight arguments."""
+    return () if idx is None else (idx, ow)
+
+
 def int8_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+                compute_dtype=torch.bfloat16,
+                outlier_idx: Optional[torch.Tensor] = None,
+                outlier_w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M, K) @ dequant(codes int8 (K, N), scale f32 (N,)) -> (M, N)
-    in the compute dtype."""
+    in the compute dtype, plus LLM.int8's outlier product of x's columns
+    ``outlier_idx`` (int32 (n_out,)) and ``outlier_w`` (bf16 (n_out, N))
+    where given, in the same launch."""
     cuda_build.refuse_grad("int8_matmul", x, codes, scale)
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, codes, scale, compute_dtype)
+        return int8_matmul_plain(x, codes, scale, compute_dtype, None,
+                                 outlier_idx, outlier_w)
     if x.is_meta:
-        return _on_meta("int8_matmul", int8_matmul, x, (codes, scale),
-                        compute_dtype)
+        extra = _outlier_args(outlier_idx, outlier_w)
+        return _on_meta(
+            "int8_matmul",
+            lambda x_, c_, s_, *o: int8_matmul(x_, c_, s_, compute_dtype,
+                                               *o),
+            x, (codes, scale, *extra), compute_dtype,
+            extra[0].shape[-1] if extra else 0)
     _check_x(x, compute_dtype)
-    return _int8_launch(x[None], codes[None], scale[None], compute_dtype,
-                        "int8_matmul", grouped=False)[0]
+    return _int8_launch(
+        x[None], codes[None], scale[None], compute_dtype, "int8_matmul",
+        grouped=False,
+        outlier_idx=None if outlier_idx is None else outlier_idx[None],
+        outlier_w=None if outlier_w is None else outlier_w[None])[0]
 
 
 def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
@@ -539,8 +655,10 @@ def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, packed, absmax, compute_dtype)
     if x.is_meta:
-        return _on_meta("nf4_matmul", nf4_matmul, x, (packed, absmax),
-                        compute_dtype)
+        return _on_meta(
+            "nf4_matmul",
+            lambda x_, p_, a_: nf4_matmul(x_, p_, a_, compute_dtype),
+            x, (packed, absmax), compute_dtype)
     _check_x(x, compute_dtype)
     return _nf4_launch(x[None], packed[None], absmax[None], compute_dtype,
                        "nf4_matmul", grouped=False)[0]
@@ -548,22 +666,33 @@ def nf4_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
 
 def int8_matmul_grouped(x: torch.Tensor, codes: torch.Tensor,
                         scale: torch.Tensor, compute_dtype=torch.bfloat16,
-                        rows: Optional[torch.Tensor] = None
+                        rows: Optional[torch.Tensor] = None,
+                        outlier_idx: Optional[torch.Tensor] = None,
+                        outlier_w: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """x (E, C, K) @ dequant(codes int8 (E, K, N), scale f32 (E, N)) ->
-    (E, C, N) in the compute dtype: every expert in one launch. ``rows``:
-    each expert's kept rows, int32 (E,) in 0..C on x's device, or None
-    for all C; the rows at or past the count are zero."""
+    (E, C, N) in the compute dtype: every expert in one launch, each with
+    its outlier product where given (``outlier_idx`` int32 (E, n_out),
+    ``outlier_w`` bf16 (E, n_out, N)). ``rows``: each expert's kept rows,
+    int32 (E,) in 0..C on x's device, or None for all C; the rows at or
+    past the count are zero."""
     cuda_build.refuse_grad("int8_matmul_grouped", x, codes, scale)
     if x.device.type == "cpu":
         _check_rows(rows, x)
-        return int8_matmul_plain(x, codes, scale, compute_dtype, rows)
+        return int8_matmul_plain(x, codes, scale, compute_dtype, rows,
+                                 outlier_idx, outlier_w)
     if x.is_meta:
-        return _on_meta("int8_matmul_grouped", int8_matmul_grouped, x,
-                        (codes, scale), compute_dtype)
+        extra = _outlier_args(outlier_idx, outlier_w)
+        return _on_meta(
+            "int8_matmul_grouped",
+            lambda x_, c_, s_, *o: int8_matmul_grouped(
+                x_, c_, s_, compute_dtype, None, *o),
+            x, (codes, scale, *extra), compute_dtype,
+            extra[0].shape[-1] if extra else 0)
     _check_x(x, compute_dtype, ndim=3)
     return _int8_launch(x, codes, scale, compute_dtype,
-                        "int8_matmul_grouped", grouped=True, rows=rows)
+                        "int8_matmul_grouped", grouped=True, rows=rows,
+                        outlier_idx=outlier_idx, outlier_w=outlier_w)
 
 
 def nf4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
@@ -577,8 +706,37 @@ def nf4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
         _check_rows(rows, x)
         return nf4_matmul_plain(x, packed, absmax, compute_dtype, rows)
     if x.is_meta:
-        return _on_meta("nf4_matmul_grouped", nf4_matmul_grouped, x,
-                        (packed, absmax), compute_dtype)
+        return _on_meta(
+            "nf4_matmul_grouped",
+            lambda x_, p_, a_: nf4_matmul_grouped(x_, p_, a_, compute_dtype),
+            x, (packed, absmax), compute_dtype)
     _check_x(x, compute_dtype, ndim=3)
     return _nf4_launch(x, packed, absmax, compute_dtype,
                        "nf4_matmul_grouped", grouped=True, rows=rows)
+
+
+def fp16_matmul(x: torch.Tensor, w: torch.Tensor,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (M, K) @ w float16 (K, N) -> (M, N) in the compute dtype, each
+    weight converted to it in registers (bf16: round to nearest even, as
+    ``.to(torch.bfloat16)``), no converted copy of w written."""
+    cuda_build.refuse_grad("fp16_matmul", x, w)
+    if x.device.type == "cpu":
+        return fp16_matmul_plain(x, w, compute_dtype)
+    if x.is_meta:
+        return _on_meta(
+            "fp16_matmul", lambda x_, w_: fp16_matmul(x_, w_, compute_dtype),
+            x, (w,), compute_dtype)
+    _check_x(x, compute_dtype)
+    M, K = x.shape
+    N = w.shape[-1]
+    _check("x", x, compute_dtype, (M, K), x.device)
+    _check("w", w, torch.float16, (K, N), x.device)
+    out = torch.empty((M, N), dtype=compute_dtype, device=x.device)
+    if M and N:
+        bf16 = compute_dtype == torch.bfloat16
+        plan = _plan("fp16_matmul", False, M, N, K, bf16, None,
+                     _aligned(x, w), x, 1, "fp16")
+        _launch("fp16_matmul", "fp16_matmul", plan, x, (w,), out, M, N, K,
+                int(bf16))
+    return out

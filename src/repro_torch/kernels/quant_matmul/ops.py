@@ -1,32 +1,31 @@
 """Quantized linear ops backed by the dequant-matmul kernels.
 
 Counterpart of ``repro.kernels.quant_matmul.ops``: the entry points
-:func:`repro_torch.quant.apply.linear_apply` uses for ``Int8Weight`` and
-``NF4Weight``. Leading dims are flattened into the kernel's M. The
-LLM.int8 outlier product stays a ``torch.matmul`` outside the kernel,
-added to its output in the compute dtype, as the reference leaves it to
-XLA (``ops.py:43-47`` there).
+:func:`repro_torch.quant.apply.linear_apply` uses for ``Int8Weight``,
+``NF4Weight`` and a float16 weight under a bf16 compute dtype. Leading
+dims are flattened into the kernel's M. The LLM.int8 outlier product,
+which the reference leaves to XLA beside its Pallas kernel (``ops.py:43-
+47`` there: a gather, a bf16 product with f32 sums, a cast and an add),
+runs inside the int8 kernel with the same rounding points: one launch a
+call, on the meta device one record of the whole call.
 
 The ``*_grouped_kernel`` entry points take weights with a leading expert
 axis (E, K, N) and x (E, C, K): one grouped launch over all experts,
 what the reference's ``_expert_dense`` computes by ``jax.vmap`` of
 ``linear_apply`` over the experts, and optionally each expert's kept-row
 count (``rows``, the dispatch's: the kernel then reads only the experts
-with a kept row and zeros the rest). int8's outlier product stays
-outside, per expert and for every row (the dispatch's rows past a count
-are zeros, so theirs is too), with the 2-D path's rounding points: one
-batched gather of each expert's outlier columns of x and one f32
-``torch.bmm``, rounded to the compute dtype and added.
+with a kept row and zeros the rest), int8's with each expert's outlier
+product.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.quant_matmul.kernel import (int8_matmul,
+from repro_torch.kernels.quant_matmul.kernel import (fp16_matmul,
+                                                     int8_matmul,
                                                      int8_matmul_grouped,
                                                      nf4_matmul,
                                                      nf4_matmul_grouped)
-from repro_torch.core.sharded import gather_last, is_sharded
 from repro_torch.quant.int8 import Int8Weight
 from repro_torch.quant.nf4 import NF4Weight
 
@@ -39,14 +38,20 @@ def _as_2d(x: torch.Tensor, compute_dtype):
 def int8_matmul_kernel(x: torch.Tensor, q: Int8Weight,
                        compute_dtype=torch.bfloat16) -> torch.Tensor:
     x2, lead = _as_2d(x, compute_dtype)
-    out = int8_matmul(x2, q.codes, q.scale, compute_dtype)
-    if q.outlier_idx.shape[0]:
-        if is_sharded(x2):        # the dry run: its rows, whole
-            x2 = gather_last(x2)
-        x_out = torch.index_select(x2, -1, q.outlier_idx.long())
-        out = out + torch.matmul(
-            x_out.float(), q.outlier_w.to(compute_dtype).float()
-        ).to(out.dtype)
+    out = int8_matmul(x2, q.codes, q.scale, compute_dtype, *_outliers(q))
+    return out.reshape(lead + (out.shape[-1],))
+
+
+def _outliers(q: Int8Weight) -> tuple:
+    """The weight's outlier fields, or none where it has no outlier row."""
+    return (q.outlier_idx, q.outlier_w) if q.outlier_idx.shape[-1] else ()
+
+
+def fp16_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (..., K) @ w float16 (K, N) in the compute dtype."""
+    x2, lead = _as_2d(x, compute_dtype)
+    out = fp16_matmul(x2, w, compute_dtype)
     return out.reshape(lead + (out.shape[-1],))
 
 
@@ -61,17 +66,8 @@ def int8_matmul_grouped_kernel(x: torch.Tensor, q: Int8Weight,
                                compute_dtype=torch.bfloat16,
                                rows=None) -> torch.Tensor:
     """x (E, C, K) @ q (E, K, N) -> (E, C, N), expert by expert."""
-    x3 = x.to(compute_dtype).contiguous()
-    out = int8_matmul_grouped(x3, q.codes, q.scale, compute_dtype, rows)
-    n_out = q.outlier_idx.shape[-1]
-    if n_out:
-        cols = q.outlier_idx.long()[:, None, :].expand(
-            x3.shape[0], x3.shape[1], n_out)
-        x_out = torch.gather(x3, 2, cols)
-        out = out + torch.bmm(
-            x_out.float(), q.outlier_w.to(compute_dtype).float()
-        ).to(out.dtype)
-    return out
+    return int8_matmul_grouped(x.to(compute_dtype).contiguous(), q.codes,
+                               q.scale, compute_dtype, rows, *_outliers(q))
 
 
 def nf4_matmul_grouped_kernel(x: torch.Tensor, q: NF4Weight,

@@ -4,8 +4,11 @@ Counterpart of ``repro.quant.apply``. Every matmul of the model goes
 through :func:`linear_apply`, which dispatches on the parameter's
 representation:
 
-* plain tensor -> a matmul in the policy's compute dtype,
-* Int8Weight   -> the int8 dequant-matmul kernel (+ outlier matmul),
+* plain tensor -> a matmul in the policy's compute dtype; a 2-D float16
+  weight under a bf16 compute dtype -> the fp16 kernel, which converts
+  its weights to bf16 in registers (no converted copy written),
+* Int8Weight   -> the int8 dequant-matmul kernel (its outlier product
+  inside),
 * NF4Weight    -> the nf4 dequant-matmul kernel;
 
 with an expert axis on the weight (E, in, out) and on x (E, C, in), the
@@ -59,10 +62,18 @@ def linear_apply(w: Any, x: torch.Tensor, policy: PrecisionPolicy,
     cd = policy.compute_dtype
     if not x.is_meta:
         return _linear(w, x, cd, rows)
-    if isinstance(w, torch.Tensor) and is_sharded(x, w):
+    if (isinstance(w, torch.Tensor) and not _fp16_kernel(w, cd)
+            and is_sharded(x, w)):
         return sharded_matmul(x, w, cd)
     y = _linear(w, x, cd, rows)
     return reduce_partial(y) if is_sharded(y) else y
+
+
+def _fp16_kernel(w: torch.Tensor, cd) -> bool:
+    """Whether a plain weight's product is the fp16 kernel's: a 2-D
+    float16 weight under a bf16 compute dtype (3-D float16 experts keep
+    the batched matmul)."""
+    return w.ndim == 2 and w.dtype == torch.float16 and cd == torch.bfloat16
 
 
 def _linear(w: Any, x: torch.Tensor, cd, rows=None) -> torch.Tensor:
@@ -76,6 +87,8 @@ def _linear(w: Any, x: torch.Tensor, cd, rows=None) -> torch.Tensor:
             return qops.nf4_matmul_grouped_kernel(x, w, compute_dtype=cd,
                                                   rows=rows)
         return qops.nf4_matmul_kernel(x, w, compute_dtype=cd)
+    if _fp16_kernel(w, cd):
+        return qops.fp16_matmul_kernel(x, w, compute_dtype=cd)
     return torch.matmul(x.to(cd), w.to(cd))
 
 

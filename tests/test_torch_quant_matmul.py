@@ -138,8 +138,11 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
                        K.int8_matmul_plain(x, q8.codes, q8.scale))
     assert torch.equal(K.nf4_matmul(x, q4.packed, q4.absmax),
                        K.nf4_matmul_plain(x, q4.packed, q4.absmax))
+    w16 = torch.from_numpy(_rand((128, 32), 1)).half()
+    assert torch.equal(K.fp16_matmul(x, w16), K.fp16_matmul_plain(x, w16))
     assert K.LAUNCHES == {"int8_matmul": 0, "nf4_matmul": 0,
-                          "int8_matmul_grouped": 0, "nf4_matmul_grouped": 0}
+                          "int8_matmul_grouped": 0, "nf4_matmul_grouped": 0,
+                          "fp16_matmul": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():

@@ -10,7 +10,9 @@ in turns, each from its own ``git archive``. At ``chip_smoke.py``'s
 ``GROUPED_SHAPES`` (qwen3-moe-30b-a3b's two expert products at decode, C
 = 8, and prefill, C = 40; granite-moe-1b-a400m's at C = 8 and 160), with
 the weights and x of ``torch.Generator(device="cuda").manual_seed(4)``,
-it prints one JSON line a format and shape: (a) the kernel's time with
+it prints one JSON line a format and shape (int8 without its outlier
+rows, which older trees' grouped kernels do not take): (a) the kernel's
+time with
 every row kept (random x, no counts), and (b) its time on the kept rows
 of a seeded top-8 routing of the cell's tokens through this checkout's
 dispatch (``chip_smoke.dispatch_rows``; x zero past the counts), given
@@ -75,7 +77,11 @@ def main() -> int:
         active = int((rows > 0).sum())
         for fmt in args.fmt:
             name = f"{fmt}_matmul"
-            wargs, wbytes, _ = cs._quantized(torch, name, w, bf16)
+            wargs, wbytes, _, n_out = cs._quantized(torch, name, w, bf16)
+            # the weight's main fields alone (any tree's grouped wrapper
+            # takes them): int8 without its outlier rows
+            wargs = wargs[:2]
+            wbytes -= E * n_out * (4 + 2 * N)
             kern = getattr(K, name + "_grouped")
             plain = getattr(K, name + "_plain")
             wsets = [wargs] + [tuple(t.clone() for t in wargs)

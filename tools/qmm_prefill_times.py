@@ -35,7 +35,13 @@ grid, the K segments of every tile, ``seg``, and the tiles shared out,
 ``split``) and the K steps of its busiest block (``steps``), where the
 tree plans them. Each line also holds the host's time to enqueue one
 call of the kernel's wrapper (``host_us_per_call``, 200 eager calls back
-to back). The first line holds the card's name and power limit. Exits
+to back). ``--outliers`` gives int8 its LLM.int8 outlier rows (1% of K,
+the policy's) and times the call with their product: in a tree whose
+``int8_matmul`` takes them, inside the kernel; in an older tree, the
+kernel and the separate product its ops ran after it (a gather, an f32
+``torch.matmul``, a rounding and an add), as one line (``outliers``:
+"kernel" or "separate"). The first line holds the card's name and power
+limit. Exits
 non-zero when no CUDA device is visible or a kernel disagrees with its
 plain version by more than 1e-2 relative (1e-5 in f32).
 """
@@ -178,6 +184,28 @@ def plan_fields(K, M: int, N: int, Kd: int, name: str, dtype: str) -> dict:
             "steps": busiest}
 
 
+def outlier_calls(torch, K, cd) -> tuple:
+    """(call, plain version, "kernel" or "separate") of int8 with outlier
+    rows, each f(x, codes, scale, idx, ow, cd): the kernel's own outlier
+    product where the tree's wrapper takes it, else the kernel and the
+    separate product; the plain version the separate product after the
+    plain kernel (the rounding points of both)."""
+    import inspect
+
+    def separate(fn):
+        def call(x, codes, scale, idx, ow, cd_):
+            out = fn(x, codes, scale, cd_)
+            x_out = torch.index_select(x, -1, idx.long())
+            return out + torch.matmul(x_out.float(),
+                                      ow.to(cd_).float()).to(cd_)
+        return call
+    plain = separate(K.int8_matmul_plain)
+    if "outlier_idx" in inspect.signature(K.int8_matmul).parameters:
+        return (lambda x, c, s, i, w, cd_: K.int8_matmul(x, c, s, cd_, i, w),
+                plain, "kernel")
+    return separate(K.int8_matmul), plain, "separate"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
@@ -199,6 +227,8 @@ def main() -> int:
                          "wherever the shape has tiles to share")
     ap.add_argument("--seg", type=int, default=None,
                     help="cut every shape into this many K segments")
+    ap.add_argument("--outliers", action="store_true",
+                    help="int8 with its outlier rows and their product")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -231,8 +261,10 @@ def main() -> int:
         w = torch.randn((Kd, N), generator=gen, device="cuda") * Kd ** -0.5
         q8, q4 = quantize_int8(w, 0.01), quantize_nf4(w, 64)
         del w
+        n_out = q8.outlier_idx.shape[0] if args.outliers else 0
         weights = {
-            "int8_matmul": ((q8.codes, q8.scale), Kd * N + 4 * N,
+            "int8_matmul": (tuple(q8)[:4 if n_out else 2],
+                            Kd * N + 4 * N + n_out * (4 + 2 * N),
                             dequantize_int8(q8, cd)),
             "nf4_matmul": ((q4.packed, q4.absmax),
                            Kd * N // 2 + 4 * (Kd // 64) * N,
@@ -242,6 +274,10 @@ def main() -> int:
             if name not in by_name:
                 continue
             kern = getattr(K, name)
+            plain = getattr(K, name + "_plain")
+            how = None
+            if name == "int8_matmul" and n_out:
+                kern, plain, how = outlier_calls(torch, K, cd)
             copies = max(1, min(32, math.ceil(2 * L2_BYTES / wbytes)))
             wsets = [wargs] + [tuple(t.clone() for t in wargs)
                                for _ in range(copies - 1)]
@@ -254,7 +290,7 @@ def main() -> int:
                 counts = getattr(K, "LOOP_LAUNCHES", {}).get(name)
                 before = dict(counts) if counts is not None else None
                 got = kern(x, *wargs, cd)
-                ref = getattr(K, name + "_plain")(x, *wargs, cd)
+                ref = plain(x, *wargs, cd)
                 torch.cuda.synchronize()
                 loop = (next(lp for lp, n in counts.items()
                              if n != before[lp])
@@ -263,12 +299,14 @@ def main() -> int:
                        / ref.float().abs().max()).item()
                 worst = max(worst, rel)
                 nbytes = es * M * Kd + wbytes + es * M * N
-                flops = 2 * M * Kd * N
+                flops = 2 * M * (Kd + (n_out if name == "int8_matmul"
+                                       else 0)) * N
                 t_b = nbytes / HBM_BYTES_PER_S * 1e3
                 t_o = flops / peak * 1e3
                 print(json.dumps({
                     "name": name, "dtype": args.dtype, "M": M, "K": Kd,
                     "N": N, "loop": loop,
+                    **({"outliers": how, "n_out": n_out} if how else {}),
                     **plan_fields(K, M, N, Kd, name, args.dtype),
                     "max_rel_err": rel,
                     "kernel_ms": timed_ms(
