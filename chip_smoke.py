@@ -7,9 +7,9 @@ Phases, each printing JSON lines; any failure ends the script with a
 non-zero exit code:
 
 1. card: the GPU's name and power limit (``nvidia-smi``); TF32 off.
-2. build: the five kernels (``src/repro_torch/kernels/*/csrc``: the
-   flash backward among them), one ``nvcc`` each, all started
-   together, timed.
+2. build: every kernel library (``src/repro_torch/kernels/*/csrc``: the
+   flash backward and the 16-bit grouped kernels among them), one
+   ``nvcc`` each, all started together, timed.
 3. kernels: each kernel against its plain PyTorch version, with the
    kernel, plain and library times and the card's bound: the two
    dequant-matmul kernels (int8 with the policy's outlier rows, 1% of K,
@@ -65,18 +65,22 @@ non-zero exit code:
    with its mask edge moved by one key) that the check must see. At each
    cell one call of either attention kernel, captured in a CUDA graph,
    must be one kernel node and nothing else (paged attention merges its
-   splits in the same launch). The grouped launch of both quant kernels
-   (every expert of an MoE projection in one launch) at
+   splits in the same launch). The grouped launch of every grouped entry
+   point (every expert of an MoE projection in one launch: the int8 and
+   nf4 kernels, and ``bf16_matmul_grouped`` and ``fp16_matmul_grouped``
+   for 16-bit expert stacks) at
    qwen3-moe-30b-a3b's expert shapes (E = 128; (K, N) = (2048, 768) and
-   (768, 2048); C = 8 rows an expert at decode, 40 at prefill) in both
-   formats, and at every (E, C, K, N) that a serve cell's grouped
+   (768, 2048); C = 8 rows an expert at decode, 40 at prefill) in all
+   four, and at every (E, C, K, N) that a serve cell's grouped
    products run (qwen3's and granite-moe-1b-a400m's, E = 32 over (1024,
    512) and (512, 1024), under the configs' capacity factor and the
    no-drop one of the logit pair, at decode, a request's own prefill and
    a batched prefill: C up to 512) in the formats the cell serves,
    against its plain version, each call one kernel node, beside
-   ``torch.bmm`` on the weights already dequantized to bf16 and a Python
-   loop of the 2-D kernel over the experts, in three occupancy cases:
+   ``torch.bmm`` on the weights already dequantized to bf16 (for bf16
+   experts the product the kernel replaced; fp16's also with its cast,
+   ``library_cast_ms``) and a Python loop of the 2-D kernel over the
+   experts (none for bf16), in three occupancy cases:
    (a) every row kept (rows=None, timed: ``kernel_ms``); (b) the kept
    rows of a seeded top-8 routing of the cell's tokens through the
    port's dispatch (``dispatch``: its active experts, kernel time and
@@ -84,7 +88,7 @@ non-zero exit code:
    the counts the output must be exact zeros, and the first kept
    expert's rows the same bits alone, among the others and with
    rows=None. Then one qwen3-moe-30b-a3b MoE layer at full width, batch-4
-   decode, int8 and nf4, must give the same bits with the dispatch's
+   decode, int8, nf4 and bf16, must give the same bits with the dispatch's
    counts and with rows=None (the ``moe_layer_rows`` line). Every
    attention geometry a serve cell runs must be among the flash and
    paged cells.
@@ -119,14 +123,18 @@ non-zero exit code:
    eager and replayed.
 5. moe: qwen3-moe-30b-a3b at full width and depth (48 layers, 128
    experts, top 8) in bfloat16, int8 and nf4, and granite-moe-1b-a400m
-   (24 layers, 32 experts) in int8, with llama's traffic and checks: the
+   (24 layers, 32 experts) in int8 and float16, with llama's traffic and
+   checks: the
    timed continuous run keeps the config's capacity factor (1.25) and
    prints the layer-mean dropped fraction of each prefill; the prefill
    logit check runs a continuous and a sequential run under a capacity
    that drops nothing (E / top_k), since capacity drops depend on the
-   number of tokens routed together. Under int8 and nf4 each layer makes
-   4 attention projections and 3 grouped expert products a phase, each
-   on the loop its rows choose (decode for at most 8, wgmma above).
+   number of tokens routed together. Under int8, nf4 and float16 each
+   layer makes 4 attention projections and, in every format, 3 grouped
+   expert products a phase (bfloat16's through ``bf16_matmul_grouped``,
+   float16's through ``fp16_matmul_grouped``: qwen3 bf16 144 a decode
+   step), each on the loop its rows choose (decode for at most 8, wgmma
+   above).
 6. dense: stablelm-1.6b, minitron-8b and h2o-danube-3-4b in bfloat16
    and command-r-35b in int8, at full width and depth, 4 requests of 8
    new tokens, the same checks (h2o-danube's windowed decode takes the
@@ -274,9 +282,8 @@ no CUDA device is visible.
 
 Cuts: qwen3-moe-30b-a3b runs no float32 (120 GB of weights, more than
 the card's 80 GB) and no float16 (it stores the same 16-bit bytes as
-bfloat16; its 2-D projections would take the fp16 kernel, which converts
-the weights to bf16 in registers, but its 16-bit experts keep a batched
-torch.matmul that casts them per product); the dense ARCH_IDS configs run
+bfloat16; granite-moe-1b-a400m's float16 cell runs the fp16 kernels, 2-D
+and grouped, end to end); the dense ARCH_IDS configs run
 one format each, 4 requests of 8 new tokens; the families' cells run one
 or two formats each, with the same traffic. Weights are random.
 """
@@ -323,6 +330,17 @@ QUANT_PROJECTIONS = 7
 # stored in fp16)
 QUANT_ENTRY = {"int8": "int8_matmul", "nf4": "nf4_matmul",
                "float16": "fp16_matmul"}
+# the grouped kernel of each format's MoE expert stacks: the quant formats'
+# and the 16-bit ones' (bf16 weights as they are, float16 converted to
+# bf16 in registers)
+GROUPED_ENTRY = {"int8": "int8_matmul_grouped", "nf4": "nf4_matmul_grouped",
+                 "float16": "fp16_matmul_grouped",
+                 "bfloat16": "bf16_matmul_grouped"}
+# the 16-bit expert product's reference: no Pallas kernel
+REPLACES_16 = ("none: the reference's 16-bit expert product, jax.vmap of "
+               "linear_apply over the experts (src/repro/models/moe.py:147 "
+               "_expert_dense), jnp.einsum(x.astype(cd), w.astype(cd)) "
+               "(src/repro/quant/apply.py:68-69), has no Pallas kernel")
 # int8's outlier rows, the policy's (core/precision.py): 1% of K
 OUTLIER_FRACTION = 0.01
 # batched prefill vs the request's own prefill: the same arithmetic at
@@ -340,6 +358,8 @@ REPLACES = {
     "nf4_matmul": "src/repro/kernels/quant_matmul/kernel.py:112",
     "int8_matmul_grouped": "src/repro/kernels/quant_matmul/kernel.py:55",
     "nf4_matmul_grouped": "src/repro/kernels/quant_matmul/kernel.py:112",
+    "bf16_matmul_grouped": REPLACES_16,
+    "fp16_matmul_grouped": REPLACES_16,
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:67",
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:71",
 }
@@ -498,7 +518,8 @@ def serve_projections(cfg) -> list:
 
 def quant_cells(configs) -> tuple:
     """The quant kernel calls of the kernel phase: llama-3.1-8b's
-    SHAPES_KN x SHAPES_M and GROUPED_SHAPES in both formats, and the calls
+    SHAPES_KN x SHAPES_M, GROUPED_SHAPES through every grouped entry point
+    (GROUPED_ENTRY), and the calls
     every SERVE_CELLS
     config makes in each quantized format it serves: its 2-D projections
     at 1 row (a sequential decode step), max_batch rows (a continuous
@@ -510,7 +531,8 @@ def quant_cells(configs) -> tuple:
     run (:func:`arrival_cells`) and orchestration run
     (:func:`orch_cells`); under float16 the fp16 kernel's calls at the
     same rows, and the LM head at a step's lanes and a prefill's rows;
-    and for MoE its grouped expert products
+    and for MoE its grouped expert products in the format's grouped entry
+    point (bfloat16's and float16's too)
     (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
@@ -534,8 +556,8 @@ def quant_cells(configs) -> tuple:
                                                                  tokens)
 
     for arch, E, C, T, Kd, N in GROUPED_SHAPES:
-        for name in ("int8_matmul", "nf4_matmul"):
-            add_grouped((name + "_grouped", E, Kd, N), C, arch, T)
+        for entry in GROUPED_ENTRY.values():
+            add_grouped((entry, E, Kd, N), C, arch, T)
     cells = [(arch, formats, kw, [1, kw["max_batch"],
                                   kw["max_prefill_batch"]
                                   * kw["prompt_len"][1]])
@@ -557,16 +579,16 @@ def quant_cells(configs) -> tuple:
         cfg = configs[arch]
         for fmt in formats:
             name = QUANT_ENTRY.get(fmt)
-            if name is None:
-                continue
-            for Kd, N in serve_projections(cfg):
-                add(two_d, (name, Kd, N), rows, arch)
-            if fmt == "float16":
+            if name is not None:
+                for Kd, N in serve_projections(cfg):
+                    add(two_d, (name, Kd, N), rows, arch)
+            if name is not None and fmt == "float16":
                 # the LM head at a decode step's lanes and a prefill's
                 # rows (its last tokens only)
                 add(two_d, (name, cfg.d_model, cfg.vocab_size),
                     [1, kw["max_prefill_batch"], kw["max_batch"]], arch)
-            if not cfg.is_moe:
+            entry = GROUPED_ENTRY.get(fmt)
+            if not cfg.is_moe or entry is None:
                 continue
             batched = kw["max_prefill_batch"] * kw["prompt_len"][1]
             E, k = cfg.num_experts, cfg.experts_per_token
@@ -576,8 +598,7 @@ def quant_cells(configs) -> tuple:
                     C = expert_capacity(T, E, k, cf)
                     for Kd, N in ((cfg.d_model, cfg.d_ff),
                                   (cfg.d_ff, cfg.d_model)):
-                        add_grouped((name + "_grouped", E, Kd, N), C, arch,
-                                    T)
+                        add_grouped((entry, E, Kd, N), C, arch, T)
     return two_d, grouped
 
 
@@ -585,8 +606,8 @@ def _quantized(torch, name, w, bf16):
     """(kernel weight args, bytes, the weight dequantized to bf16, outlier
     rows) of a float weight (K, N) or (E, K, N) in the format of the entry
     point ``name``: int8's with the policy's outliers (codes, scale,
-    outlier rows, their bf16 weights), nf4's, and fp16's (the weight in
-    float16)."""
+    outlier rows, their bf16 weights), nf4's, fp16's (the weight in
+    float16) and bf16's (the weight in bf16)."""
     from repro_torch.quant.int8 import dequantize_int8, quantize_int8
     from repro_torch.quant.nf4 import dequantize_nf4, quantize_nf4
     *E, Kd, N = w.shape
@@ -599,6 +620,9 @@ def _quantized(torch, name, w, bf16):
     if name.startswith("fp16"):
         w16 = w.half()
         return (w16,), n * 2 * Kd * N, w16.to(bf16), 0
+    if name.startswith("bf16"):
+        wb = w.to(bf16)
+        return (wb,), n * 2 * Kd * N, wb, 0
     q = quantize_nf4(w, 64)
     return ((q.packed, q.absmax), n * (Kd * N // 2 + 4 * (Kd // 64) * N),
             dequantize_nf4(q, bf16), 0)
@@ -766,9 +790,11 @@ def _check_alone(torch, K, entry, x, wargs, rows, bf16, got) -> int:
 
 
 def grouped_phase(torch, K, cells):
-    """The grouped launch of both quant kernels (all E experts of an MoE
-    projection in one launch) against its plain grouped version at
-    ``cells`` (:func:`quant_cells`), bf16, in three cases: (a) every row
+    """The grouped launch of every grouped entry point (GROUPED_ENTRY: the
+    int8 and nf4 kernels, and the bf16 and fp16 kernels of 16-bit expert
+    stacks; all E experts of an MoE projection in one launch) against its
+    plain grouped version at ``cells`` (:func:`quant_cells`), bf16, in
+    three cases: (a) every row
     kept (random x, rows=None: the worst case, timed); (b) the kept rows
     of a seeded top-8 routing of the cell's tokens through the port's
     dispatch (:func:`dispatch_rows`; x zero past the counts; timed, with
@@ -779,23 +805,26 @@ def grouped_phase(torch, K, cells):
     be exact zeros; the first kept expert's rows the same bits alone,
     among the dispatch's experts and with rows=None; each call one kernel
     node. Two yardsticks at (a): ``torch.bmm`` on the weights already
-    dequantized to bf16 (less work: no dequantization), and a Python loop
-    of the 2-D kernel over the experts, timed from eager launches (what E
-    launches cost the host). int8 runs with each expert's outliers (the
-    policy's 1%), and its row adds ``separate_ms``: the kernel without
-    them and the parent's batched gather and f32 product over every row.
-    Ends with :func:`moe_layer_rows_check`."""
+    dequantized to bf16 (less work: no dequantization; for bf16 weights
+    the product the kernel replaced, every expert read), and a Python
+    loop of the 2-D kernel over the experts, timed from eager launches
+    (what E launches cost the host; bf16 weights have no 2-D kernel).
+    int8 runs with each expert's outliers (the policy's 1%), and its row
+    adds ``separate_ms``: the kernel without them and the parent's
+    batched gather and f32 product over every row; fp16's adds
+    ``library_cast_ms``, ``torch.bmm(x, w.to(bfloat16))``, the product it
+    replaced. Ends with :func:`moe_layer_rows_check`."""
     from repro_torch.kernels import cost
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows_out = {"int8_matmul_grouped": [], "nf4_matmul_grouped": []}
+    rows_out = {entry: [] for entry in GROUPED_ENTRY.values()}
     for (entry, E, Kd, N), cs in cells.items():
         name = entry.replace("_grouped", "")
         w = torch.randn((E, Kd, N), generator=gen, device="cuda") * Kd ** -0.5
         wargs, wbytes, wdeq, n_out = _quantized(torch, name, w, bf16)
         del w
         kern, plain = quant_calls(K, name, True)
-        two_d, _ = quant_calls(K, name)
+        two_d = quant_calls(K, name)[0] if hasattr(K, name) else None
         wsets = [wargs] + [tuple(t.clone() for t in wargs)
                            for _ in range(_copies(wbytes) - 1)]
         lsets = [(wdeq,)] + [(wdeq.clone(),)
@@ -830,9 +859,12 @@ def grouped_phase(torch, K, cells):
             p_ms = timed_ms(torch, lambda *a: plain(x, a, bf16), [wargs],
                             reps=3, graph=False)
             l_ms = timed_ms(torch, lambda w_: torch.bmm(x, w_), lsets)
-            loop_ms = timed_ms(torch, loop_2d, wsets, reps=3, graph=False)
+            loop_ms = (timed_ms(torch, loop_2d, wsets, reps=3, graph=False)
+                       if two_d else None)
             sep_ms = (timed_ms(torch, separate, wsets)
                       if name == "int8_matmul" else None)
+            cast_ms = (timed_ms(torch, lambda w_: torch.bmm(x, w_.to(bf16)),
+                                wsets) if name == "fp16_matmul" else None)
             nbytes, flops = cost.quant_matmul(C, Kd, N, wbytes, 2, E, n_out)
             bound, by = _bound(nbytes, flops, "bfloat16")
 
@@ -867,7 +899,8 @@ def grouped_phase(torch, K, cells):
                    "rel_tol": KERNEL_REL_TOL, "kernel_ms": k_ms,
                    "plain_ms": p_ms, "library_ms": l_ms,
                    "loop_of_2d_calls_ms": loop_ms, "n_out": n_out,
-                   "separate_ms": sep_ms, "bytes": nbytes,
+                   "separate_ms": sep_ms, "library_cast_ms": cast_ms,
+                   "bytes": nbytes,
                    "flops": flops, "bound_ms": bound, "bound_by": by,
                    "cuda_launches_per_call": launched,
                    "dispatch": {"tokens": tokens, "active_experts": active,
@@ -893,8 +926,9 @@ def grouped_phase(torch, K, cells):
 
 def moe_layer_rows_check(torch, K) -> dict:
     """One qwen3-moe-30b-a3b MoE layer (``moe_ffn``) at full width (d 2048,
-    128 experts of d_ff 768, top 8), weights from seed 5, in int8 and nf4,
-    at the serve cells' batch-4 decode: the output with the dispatch's
+    128 experts of d_ff 768, top 8), weights from seed 5, in int8, nf4 and
+    bfloat16 (the experts cast to bf16: the bf16 grouped kernel), at the
+    serve cells' batch-4 decode: the output with the dispatch's
     counts (the path the serve cells run, one grouped launch a product)
     must equal, bit for bit, the output with every expert's grouped
     products given rows=None."""
@@ -915,10 +949,11 @@ def moe_layer_rows_check(torch, K) -> dict:
     out = {"phase": "kernel", "check": "moe_layer_rows",
            "arch": "qwen3-moe-30b-a3b", "tokens": 4}
     dense = moe._expert_dense
-    for fmt in ("int8", "nf4"):
+    for fmt in ("int8", "nf4", "bfloat16"):
         pol = make_policy(fmt)
-        q = quantize_params(p, pol)
-        entry = f"{fmt}_matmul_grouped"
+        q = quantize_params(p, pol) if fmt != "bfloat16" else {
+            k: v.to(torch.bfloat16) for k, v in p.items()}
+        entry = GROUPED_ENTRY[fmt]
         before = K.LAUNCHES[entry]
         with torch.no_grad():
             y_rows, _ = moe.moe_ffn(q, x, top_k=cfg.experts_per_token,
@@ -1477,30 +1512,33 @@ def expected_quant_loops(cfg, fmt, tokens, enc_rows=()) -> dict:
     rows times its padded length; a decode step: its lanes), and for audio
     prefills whose encoders take ``enc_rows`` rows each: the 2-D calls of
     :func:`quant_calls_per_phase` on the decode loop for at most 8 rows
-    and the wgmma loop above, and an MoE layer's grouped expert products
-    on the loop their capacity (rows an expert) chooses the same way;
-    under float16 also the LM head, once a phase on the decode loop (its
-    rows are a step's lanes or a prefill's last tokens, at most 8 in every
-    serve cell); none on the tile loop. Empty for the other formats."""
+    and the wgmma loop above; under float16 also the LM head, once a phase
+    (its rows are a step's lanes or a prefill's last tokens, at most 8 in
+    every serve cell) on the decode loop, or on the tile loop where the
+    bf16 loops do not take its vocabulary (granite-moe-1b-a400m's 49155
+    columns: N % 16 != 0). Under those and bfloat16, an MoE layer's
+    grouped expert products in the format's GROUPED_ENTRY on the loop
+    their capacity (rows an expert) chooses the same way (qwen3 bf16: 144
+    on the decode loop a step). Nothing else on the tile loop. Empty for
+    the other formats and cells."""
+    from repro_torch.kernels.quant_matmul.kernel import matmul_plan
     from repro_torch.models.moe import expert_capacity
     name = QUANT_ENTRY.get(fmt)
-    if name is None:
-        return {}
+    entry = GROUPED_ENTRY.get(fmt) if cfg.is_moe else None
     per, per_enc, grouped = quant_calls_per_phase(cfg)
     zero = {"decode": 0, "wgmma": 0, "tile": 0}
-    want = {name: dict(zero)}
-    if cfg.is_moe:
-        want[name + "_grouped"] = dict(zero)
+    want = {n: dict(zero) for n in (name, entry) if n is not None}
     for T in tokens:
-        want[name]["decode" if T <= 8 else "wgmma"] += per
+        if name is not None:
+            want[name]["decode" if T <= 8 else "wgmma"] += per
         if fmt == "float16":
-            want[name]["decode"] += 1
-        if cfg.is_moe:
+            want[name][matmul_plan(8, cfg.vocab_size, cfg.d_model, 1,
+                                   fmt="fp16").loop] += 1
+        if entry is not None:
             C = expert_capacity(T, cfg.num_experts, cfg.experts_per_token,
                                 cfg.moe_capacity_factor)
-            want[name + "_grouped"]["decode" if C <= 8 else "wgmma"] \
-                += grouped
-    for T in enc_rows:
+            want[entry]["decode" if C <= 8 else "wgmma"] += grouped
+    for T in enc_rows if name is not None else ():
         want[name]["decode" if T <= 8 else "wgmma"] += per_enc
     return want
 
@@ -1568,6 +1606,7 @@ SERVE_CELLS = [
     ("llama-3.1-8b", ("bfloat16",), dict(TRAFFIC, kv_quant=True)),
     ("qwen3-moe-30b-a3b", ("bfloat16", "int8", "nf4"), TRAFFIC),
     ("granite-moe-1b-a400m", ("int8",), TRAFFIC),
+    ("granite-moe-1b-a400m", ("float16",), TRAFFIC),
     ("stablelm-1.6b", ("bfloat16",), DENSE_TRAFFIC),
     ("minitron-8b", ("bfloat16",), DENSE_TRAFFIC),
     ("h2o-danube-3-4b", ("bfloat16",), DENSE_TRAFFIC),
@@ -1671,17 +1710,16 @@ def _check_run(torch, mods, cfg, fmt, res, mode, max_batch,
 
 
 def check_quant_entries(cfg, fmt, counts, run) -> None:
-    """Fail unless the quant kernels launched in their formats only,
-    the grouped ones only for MoE (fp16 has none: no cell serves 16-bit
-    experts in float16)."""
-    for fmt_of, name in QUANT_ENTRY.items():
-        pairs = [(name, fmt == fmt_of)]
-        if fmt_of != "float16":
-            pairs.append((name + "_grouped", fmt == fmt_of and cfg.is_moe))
-        for entry, want in pairs:
-            if (counts[entry] > 0) != want:
-                raise SystemExit(f"{cfg.name} {fmt} {run}: {entry} "
-                                 f"launched {counts[entry]} times")
+    """Fail unless the quant kernels launched in their formats only (the
+    2-D ones of QUANT_ENTRY), and the grouped ones (GROUPED_ENTRY: bf16's
+    under bfloat16, fp16's under float16) in theirs and only for MoE."""
+    pairs = [(name, fmt == fmt_of) for fmt_of, name in QUANT_ENTRY.items()]
+    pairs += [(entry, fmt == fmt_of and cfg.is_moe)
+              for fmt_of, entry in GROUPED_ENTRY.items()]
+    for entry, want in pairs:
+        if (counts[entry] > 0) != want:
+            raise SystemExit(f"{cfg.name} {fmt} {run}: {entry} "
+                             f"launched {counts[entry]} times")
 
 
 def check_attention_launches(cfg, fmt, counts, prefills, steps) -> None:
@@ -1775,10 +1813,13 @@ GRAPH_STEPS = 4
 GRAPH_NODES = {}
 #: the cells whose graphs the serve phase sets side by side: a format
 #: against the one whose kernel node count it should match (int8's
-#: outlier product and fp16's weights now inside their kernels)
+#: outlier product and fp16's weights now inside their kernels; qwen3's
+#: bf16 experts, one grouped launch a product as nf4's)
 GRAPH_PAIRS = [(("llama-3.1-8b", "int8"), ("llama-3.1-8b", "nf4")),
                (("llama-3.1-8b", "float16"), ("llama-3.1-8b", "bfloat16")),
                (("qwen3-moe-30b-a3b", "int8"), ("qwen3-moe-30b-a3b", "nf4")),
+               (("qwen3-moe-30b-a3b", "bfloat16"),
+                ("qwen3-moe-30b-a3b", "nf4")),
                (("zamba2-1.2b", "int8"), ("zamba2-1.2b", "bfloat16"))]
 #: the CUDA kernel functions each kernel module launches, by a part of
 #: their names
@@ -3848,12 +3889,17 @@ def main() -> int:
         head = next(r for r in rows[name] if tuple(
             r[k] for k in (("E", "C", "K", "N") if grouped
                            else ("M", "K", "N"))) == shape)
-        library = ("torch.bmm" if grouped else "torch.matmul") \
-            + (" on a bf16 copy of the weight (the product alone; "
-               "library_cast_ms: torch.matmul(x, w.to(bfloat16)), the "
-               "conversion included)" if name == "fp16_matmul" else
-               " on the weight already dequantized to bf16 (does less "
-               "work)")
+        op = "torch.bmm" if grouped else "torch.matmul"
+        if name.startswith("fp16"):
+            library = (f"{op} on a bf16 copy of the weight (the product "
+                       f"alone; library_cast_ms: {op}(x, w.to(bfloat16)), "
+                       "the conversion included)")
+        elif name.startswith("bf16"):
+            library = (f"{op} on the same bf16 weights: the product it "
+                       "replaced, every expert read")
+        else:
+            library = (f"{op} on the weight already dequantized to bf16 "
+                       "(does less work)")
         extra = {k: head[k] for k in ("n_out", "separate_ms",
                                       "library_cast_ms") if k in head}
         kernels.append({
@@ -3863,7 +3909,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             **({"replaces_as": "that kernel under jax.vmap over the "
                                "experts, src/repro/models/moe.py:147 "
-                               "_expert_dense"} if grouped else {}),
+                               "_expert_dense"}
+               if grouped and REPLACES[name] != REPLACES_16 else {}),
             "launches": max(c[name] for c in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "max_rel_err": max(r["max_rel_err"] for r in rows[name]),

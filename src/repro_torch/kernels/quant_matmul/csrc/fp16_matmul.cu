@@ -19,29 +19,29 @@
 // 2*M*K*N operations bound it instead.
 //
 // What the design does about it: the bf16 loops of qmm_wgmma.cuh, with
-// F16Stage below as the weight's stage: a TMA ring of raw 64 x BN fp16
-// tiles (two 64-column boxes for BN = 128, since a 128-byte swizzle span
-// holds 64 columns of 16 bits) and x tiles, each consumer thread reading
-// its fragment's column pairs with 4-byte shared loads and converting
-// them in registers, the A operand of wgmma (x is B). Decode (M <= 8)
+// Stage16<__half> (f16_stage.cuh, shared with bf16_matmul.cu) as the
+// weight's stage: a TMA ring of raw 64 x BN fp16 tiles (two 64-column
+// boxes for BN = 128, since a 128-byte swizzle span holds 64 columns of
+// 16 bits) and x tiles, each consumer thread reading its fragment's
+// column pairs with 4-byte shared loads and converting them in
+// registers, the A operand of wgmma (x is B). Decode (M <= 8)
 // streams 128-column tiles with one block per SM, the K steps split
 // evenly among the blocks and the split tiles merged in the same launch;
 // prefill walks whole output tiles with a persistent grid. A stage holds
 // twice int8's bytes: the decode ring keeps 8 stages, 128 KB of weights,
 // in flight per SM, and the 256 x 128 prefill tile (four stages) is not
 // planned. f32 compute and shapes the plan gives neither loop take the
-// CUDA-core tile kernel (qmm_tile_kernel).
+// CUDA-core tile kernel (qmm_tile_kernel). The grouped form
+// (fp16_matmul_grouped: an MoE's float16 expert stack, E products in one
+// launch) walks only the experts and rows the dispatch kept, as the int8
+// and nf4 grouped calls do (qmm_wgmma.cuh).
 #include <cuda_fp16.h>
 
+#include "f16_stage.cuh"
 #include "qmm_wgmma.cuh"
 #include "quant_matmul.cuh"
 
 namespace {
-
-// fp16 bits as f32: exact
-__device__ __forceinline__ float f16_bits(uint32_t h) {
-  return __half2float(__ushort_as_half((unsigned short)h));
-}
 
 struct F16Format {
   const __half* w;   // (K, N)
@@ -71,76 +71,6 @@ struct F16Format {
   }
 };
 
-// -- the bf16 loops (qmm_wgmma.cuh): a stage holds the raw (64, BN) fp16
-// tile, copied by TMA (0 past N) as BN / 64 boxes of 64 rows x 128 bytes,
-// each with the 128-byte swizzle (f16_at)
-constexpr int kBox = qmm::wg::kBK * 128;   // bytes of one 64-column box
-
-// byte c (0..255 for BN = 128) of row k of a raw fp16 tile
-__device__ __forceinline__ int f16_at(int k, int c) {
-  const int cc = c & 127;
-  return (c >> 7) * kBox + k * 128 +
-         ((((cc >> 4) ^ (k & 7)) << 4) | (cc & 15));
-}
-
-struct F16Stage {
-  CUtensorMap w;   // (E K, N) fp16, box (64 rows, 64 columns)
-  int N;
-  static constexpr bool kOutliers = false;
-
-  template <int BN>
-  __host__ __device__ static constexpr int raw_bytes() {
-    return qmm::wg::kBK * BN * 2;
-  }
-  template <int BN>
-  __device__ __forceinline__ uint32_t tx_bytes() const {
-    return raw_bytes<BN>();
-  }
-  __device__ __forceinline__ void prepare(float*, int) const {}
-  // the 64 weight rows from row k_row of the experts' stacked (E K, N);
-  // a box that would start past N (the last tile of an N with a
-  // 64-column remainder) copies the tile's first box again instead, for
-  // columns that are never stored
-  template <int BN>
-  __device__ __forceinline__ void load(uint8_t* raw, uint64_t* bar,
-                                       int k_row, int n0) const {
-#pragma unroll
-    for (int b = 0; b < BN / 64; ++b)
-      qmm::wg::tma_load_2d(raw + b * kBox, &w, bar,
-                           n0 + 64 * b < N ? n0 + 64 * b : n0, k_row);
-  }
-  // The thread's A fragments of the stage: for the 16 columns nb .. nb+15
-  // of its warp, A row g (g = lane / 4) is column c = nb + 2g and row g + 8
-  // column c + 1, as for the other formats. For each 16 K rows kk and each
-  // half, one 4-byte load of columns c, c + 1 at K rows 2t and 2t + 1 (t =
-  // lane % 4; + 8 for the second half) gives both columns' pairs along K.
-  // Each weight is converted exactly to f32, then rounded to bf16 (round
-  // to nearest even). The swizzle puts a warp's four K rows in different
-  // banks.
-  template <int BN>
-  __device__ __forceinline__ void fragments(const uint8_t* raw, const float*,
-                                            int nb, int lane,
-                                            uint32_t (&f)[4][4]) const {
-    const int cb = 2 * (nb + 2 * (lane / 4)), t = lane % 4;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = 16 * kk + 8 * h + 2 * t;
-        const uint32_t u0 =
-            *reinterpret_cast<const uint32_t*>(raw + f16_at(k, cb));
-        const uint32_t u1 =
-            *reinterpret_cast<const uint32_t*>(raw + f16_at(k + 1, cb));
-        f[kk][2 * h] = qmm::wg::pack_bf16(f16_bits(u0 & 0xFFFFu),
-                                          f16_bits(u1 & 0xFFFFu));
-        f[kk][2 * h + 1] =
-            qmm::wg::pack_bf16(f16_bits(u0 >> 16), f16_bits(u1 >> 16));
-      }
-  }
-  __device__ __forceinline__ float epilogue(float acc, size_t) const {
-    return acc;
-  }
-};
 }  // namespace
 
 // x (E, M, K) and out (E, M, N) in the compute dtype (bf16 when is_bf16,
@@ -162,27 +92,10 @@ extern "C" int fp16_matmul_launch(const void* x, const void* w, void* out,
   if (E < 1) return (int)cudaErrorInvalidValue;
   const int* kept = static_cast<const int*>(rows);
   if (loop == qmm::kLoopWgmma || loop == qmm::kLoopDecode) {
-    if (!is_bf16 || (bn != 64 && bn != 128))
-      return (int)cudaErrorInvalidValue;
-    qmm::wg::Args<F16Stage> a;
-    if (!qmm::wg::make_map_cached(&a.st.w, w, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                                  2, (uint64_t)E * K, N, qmm::wg::kBK, 64,
-                                  CU_TENSOR_MAP_SWIZZLE_128B))
-      return (int)cudaErrorInvalidValue;
-    a.st.N = N;
-    a.out = static_cast<__nv_bfloat16*>(out);
-    a.part = static_cast<float*>(part);
-    a.counter = static_cast<int*>(counter);
-    a.rows = kept;
-    a.E = E;
-    a.M = M;
-    a.N = N;
-    a.K = K;
-    a.seg = seg;
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    if (loop == qmm::kLoopDecode)
-      return (int)qmm::wg::launch_decode(a, xb, bn, grid, s);
-    return (int)qmm::wg::launch(a, xb, bm, bn, grid, s);
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    return (int)qmm::wg::launch16<__half>(x, w, out, part, counter, kept, E,
+                                          M, N, K, loop, bm, bn, grid, seg,
+                                          s);
   }
   if (loop != qmm::kLoopTile) return (int)cudaErrorInvalidValue;
   F16Format fmt{static_cast<const __half*>(w)};

@@ -1,5 +1,6 @@
 // The bf16 Hopper (sm_90a) loops of the dequant-matmul kernels (int8,
-// nf4, and fp16 weights converted to bf16), prefill (M > 8) and decode
+// nf4, fp16 weights converted to bf16, and bf16 weights as they are: the
+// 16-bit stage is f16_stage.cuh's), prefill (M > 8) and decode
 // (M <= 8): out (M, N) = x (M, K) @ dequant(W)
 // (K, N), bf16 in and out, f32 sums. One kernel, qmm_wgmma_kernel, with
 // BM = 8 rows of x for decode. The same launch runs the grouped form, E
@@ -263,9 +264,9 @@ constexpr int kMaxE = 256;
 // zero rows of a grouped call while the first issues the copies
 constexpr int kFillThreads = 96;
 
-// A tile the launch may take: a ring of at least five stages (fp16's raw
-// tiles are twice int8's, so its 256 x 128 tile gets four and is never
-// planned; kernel.py, ring_stages).
+// A tile the launch may take: a ring of at least five stages (the 16-bit
+// formats' raw tiles are twice int8's, so their 256 x 128 tile gets four
+// and is never planned; kernel.py, ring_stages).
 template <class Stage, int BM, int BN>
 struct Layout {
   static constexpr int x_bytes = BM * kBK * 2;

@@ -3,12 +3,15 @@
 Counterpart of ``repro.kernels.quant_matmul.kernel`` (the Pallas
 ``int8_matmul_pallas`` / ``nf4_matmul_pallas``), with int8's LLM.int8
 outlier product inside its kernel (the reference adds it at the XLA
-level, ``repro.kernels.quant_matmul.ops``), and a third kernel,
-``fp16_matmul``, for the float16 format's product: its fp16 weights
-converted to bf16 in registers, the reference's ``einsum(x.astype(cd),
-w.astype(cd))`` (``repro.quant.apply``), which no Pallas kernel computes.
-Sources are ``csrc/int8_matmul.cu``, ``csrc/nf4_matmul.cu`` and
-``csrc/fp16_matmul.cu``; each is compiled at first use with ``nvcc
+level, ``repro.kernels.quant_matmul.ops``), and two kernels of 16-bit
+weights for the reference's ``einsum(x.astype(cd), w.astype(cd))``
+(``repro.quant.apply``), which no Pallas kernel computes:
+``fp16_matmul``/``fp16_matmul_grouped``, the float16 format's product,
+its weights converted to bf16 in registers, and ``bf16_matmul_grouped``,
+an MoE's bf16 expert stack, whose grouped launch reads only the kept
+experts. Sources are ``csrc/int8_matmul.cu``, ``csrc/nf4_matmul.cu``,
+``csrc/fp16_matmul.cu`` and ``csrc/bf16_matmul.cu`` (the last two share
+``csrc/f16_stage.cuh``); each is compiled at first use with ``nvcc
 -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
 plain C interface under ``build/kernels/`` at the root of the checkout,
 and loaded with ``ctypes``.
@@ -29,10 +32,11 @@ int32 (E,) on the call's device: the capacity dispatch's, which never
 sends a row past it to a token): its output rows at or past the count
 are exactly zero, and the kernel reads only the weights of experts with
 a kept row and computes only those rows, reading the counts on the
-device in the same launch. For a tensor on the CPU a wrapper returns the
-plain PyTorch version (``*_plain``, which takes either form: the
-kernel's exact rounding points, used by the CPU tests). For a CUDA
-tensor it checks
+device in the same launch. The 16-bit grouped calls compute in bf16
+only (f32 compute keeps ``torch.matmul``: no 16-bit stage takes it).
+For a tensor on the CPU a wrapper returns the plain PyTorch version
+(``*_plain``, which takes either form: the kernel's exact rounding
+points, used by the CPU tests). For a CUDA tensor it checks
 device, dtype, shape and contiguity, raises on anything the kernel does
 not take, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to
@@ -91,10 +95,12 @@ from repro_torch.core.sharded import (is_sharded, matmul_placements,
                                      on_shards)
 from repro_torch.quant.nf4 import codebook, unpack_codes
 
-KERNELS = ("int8_matmul", "nf4_matmul", "fp16_matmul")
+KERNELS = ("int8_matmul", "nf4_matmul", "fp16_matmul", "bf16_matmul")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = cuda_build.BUILD_DIR
 HEADERS = ("quant_matmul.cuh", "qmm_wgmma.cuh", cuda_build.HOPPER_HEADER)
+#: the 16-bit weight stage's libraries add its header
+HEADERS16 = HEADERS + ("f16_stage.cuh",)
 SOURCES = {
     # x, codes, scale, outlier_idx, outlier_w, out, part, counter, rows, E,
     # M, N, K, n_out, is_bf16, loop, bm, bn, grid, seg
@@ -111,12 +117,17 @@ SOURCES = {
     # grid, seg
     "fp16_matmul": cuda_build.Source(
         "fp16_matmul", CSRC,
-        (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I), HEADERS),
+        (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I), HEADERS16),
+    # x, w, out, part, counter, rows, E, M, N, K, loop, bm, bn, grid, seg
+    "bf16_matmul": cuda_build.Source(
+        "bf16_matmul", CSRC,
+        (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I), HEADERS16),
 }
 #: the wrappers that launch the kernels, each with its own count: the
 #: 2-D calls and the grouped calls (one launch over all experts)
 ENTRY_POINTS = ("int8_matmul", "nf4_matmul", "int8_matmul_grouped",
-                "nf4_matmul_grouped", "fp16_matmul")
+                "nf4_matmul_grouped", "fp16_matmul", "bf16_matmul_grouped",
+                "fp16_matmul_grouped")
 
 #: the loops of the C entry points, by their number there (qmm::Loop)
 LOOPS = ("decode", "wgmma", "tile")
@@ -174,8 +185,10 @@ WG_STEP_US = {
     "nf4": {(128, 128): 0.81, (256, 128): 1.03, (256, 64): 0.63,
             (128, 64): 0.52, (64, 128): 0.69, (64, 64): 0.49},
 }
-#: fp16 weights (a conversion a weight, as int8's): not swept, int8's
+#: fp16 weights (a conversion a weight, as int8's) and bf16 weights (none):
+#: not swept, int8's
 WG_STEP_US["fp16"] = dict(WG_STEP_US["int8"])
+WG_STEP_US["bf16"] = dict(WG_STEP_US["int8"])
 #: the tiles the plan may take, in order of preference on a tie
 WG_TILES = tuple(WG_STEP_US["int8"])
 
@@ -184,11 +197,12 @@ def ring_stages(fmt: str, bm: int, bn: int) -> int:
     """Stages of the bf16 loops' ring at tile (bm, bn) for a format's
     weights (qmm_wgmma.cuh, Layout): an x tile of bm rows and the raw
     weight tile of 64 K rows (int8: a byte a weight; nf4: half a byte and
-    two absmax rows; fp16: two bytes), each rounded up to 1024 bytes, as
-    many as fit beside 4 KB of static shared memory, at most 8. A tile
-    whose ring holds fewer than 5 is never planned (fp16's 256 x 128)."""
+    two absmax rows; fp16 and bf16: two bytes), each rounded up to 1024
+    bytes, as many as fit beside 4 KB of static shared memory, at most 8.
+    A tile whose ring holds fewer than 5 is never planned (the 16-bit
+    formats' 256 x 128)."""
     raw = {"int8": WG_BK * bn, "nf4": WG_BK // 2 * bn + 2 * bn * 4,
-           "fp16": WG_BK * bn * 2}[fmt]
+           "fp16": WG_BK * bn * 2, "bf16": WG_BK * bn * 2}[fmt]
     raw = -(-raw // 1024) * 1024
     return min(8, (232448 - 4096) // (bm * WG_BK * 2 + raw))
 
@@ -287,7 +301,8 @@ def matmul_plan(M: int, N: int, K: int, n_sm: int, *, bf16: bool = True,
     or for ``experts`` such products in one launch, M rows each
     (``grouped``: a grouped call, which may skip experts and rows);
     ``fmt`` names the weight format of :data:`WG_STEP_US` ("int8" for
-    ``block`` None, else "nf4", by default; "fp16" for fp16 weights).
+    ``block`` None, else "nf4", by default; "fp16" and "bf16" for 16-bit
+    weights).
 
     Where the bf16 loops take the shape (bf16, N % 16 == 0, K % 64 == 0,
     aligned, an nf4 block of 32 or a multiple of 64, at most
@@ -410,11 +425,20 @@ def int8_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
 
 
 def fp16_matmul_plain(x: torch.Tensor, w: torch.Tensor,
-                      compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x and the fp16 weight cast to the compute dtype (round to nearest
-    even), their product in it (f32 sums, one rounding): the float16
-    format's ``torch.matmul(x.to(cd), w.to(cd))``. x (..., K), w (K, N)."""
-    return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+                      compute_dtype=torch.bfloat16,
+                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x and the 16-bit weight cast to the compute dtype (fp16: round to
+    nearest even; bf16: itself), their product in it (f32 sums, one
+    rounding): ``torch.matmul(x.to(cd), w.to(cd))``, the product the
+    16-bit kernels replace. x (..., K), w (K, N); or grouped: x (E, C, K),
+    w (E, K, N), expert by expert, and with ``rows`` each expert's rows at
+    or past its count zero."""
+    return _zero_past(
+        torch.matmul(x.to(compute_dtype), w.to(compute_dtype)), rows)
+
+
+#: the bf16 grouped kernel's plain version: the same expression
+bf16_matmul_plain = fp16_matmul_plain
 
 
 def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -740,3 +764,55 @@ def fp16_matmul(x: torch.Tensor, w: torch.Tensor,
         _launch("fp16_matmul", "fp16_matmul", plan, x, (w,), out, M, N, K,
                 int(bf16))
     return out
+
+
+def _grouped16(fmt: str, x: torch.Tensor, w: torch.Tensor, compute_dtype,
+               rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """The 16-bit grouped wrappers: x (E, C, K) @ w (E, K, N) of the
+    format ``fmt`` ("bf16" or "fp16") in bf16, one launch of the format's
+    kernel over all experts, counted for ``<fmt>_matmul_grouped``."""
+    entry = f"{fmt}_matmul_grouped"
+    cuda_build.refuse_grad(entry, x, w)
+    if x.device.type == "cpu":
+        _check_rows(rows, x)
+        return fp16_matmul_plain(x, w, compute_dtype, rows)
+    if x.is_meta:
+        return _on_meta(
+            entry, lambda x_, w_: _grouped16(fmt, x_, w_, compute_dtype,
+                                             None),
+            x, (w,), compute_dtype)
+    _check_x(x, compute_dtype, ndim=3)
+    if compute_dtype != torch.bfloat16:
+        raise TypeError(f"{entry} computes in bf16, not {compute_dtype}")
+    E, C, K = x.shape
+    N = w.shape[-1]
+    _check("x", x, torch.bfloat16, (E, C, K), x.device)
+    _check("w", w, torch.float16 if fmt == "fp16" else torch.bfloat16,
+           (E, K, N), x.device)
+    _check_rows(rows, x)
+    out = torch.empty((E, C, N), dtype=torch.bfloat16, device=x.device)
+    if E and C and N:
+        plan = _plan(entry, True, C, N, K, True, None, _aligned(x, w), x, E,
+                     fmt)
+        _launch(f"{fmt}_matmul", entry, plan, x, (w,), out, C, N, K,
+                *((1,) if fmt == "fp16" else ()), rows=rows)
+    return out
+
+
+def bf16_matmul_grouped(x: torch.Tensor, w: torch.Tensor,
+                        compute_dtype=torch.bfloat16,
+                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, K) @ w bf16 (E, K, N) -> (E, C, N) in bf16: every expert
+    in one launch, reading only the experts with a kept row. ``rows`` as
+    for :func:`int8_matmul_grouped`."""
+    return _grouped16("bf16", x, w, compute_dtype, rows)
+
+
+def fp16_matmul_grouped(x: torch.Tensor, w: torch.Tensor,
+                        compute_dtype=torch.bfloat16,
+                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, K) @ w float16 (E, K, N) -> (E, C, N) in bf16, each weight
+    converted to bf16 in registers: every expert in one launch, reading
+    only the experts with a kept row. ``rows`` as for
+    :func:`int8_matmul_grouped`."""
+    return _grouped16("fp16", x, w, compute_dtype, rows)

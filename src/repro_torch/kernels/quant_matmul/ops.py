@@ -15,13 +15,19 @@ what the reference's ``_expert_dense`` computes by ``jax.vmap`` of
 ``linear_apply`` over the experts, and optionally each expert's kept-row
 count (``rows``, the dispatch's: the kernel then reads only the experts
 with a kept row and zeros the rest), int8's with each expert's outlier
-product.
+product. A plain bf16 or float16 expert stack under a bf16 compute
+dtype takes :func:`f16_matmul_grouped_kernel` (the bf16 or fp16 grouped
+kernel). A product that autograd records keeps ``torch.matmul``
+instead, 2-D float16 ones too: the kernels have no backward, so
+training does (``repro_torch.quant.apply``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.quant_matmul.kernel import (fp16_matmul,
+from repro_torch.kernels.quant_matmul.kernel import (bf16_matmul_grouped,
+                                                     fp16_matmul,
+                                                     fp16_matmul_grouped,
                                                      int8_matmul,
                                                      int8_matmul_grouped,
                                                      nf4_matmul,
@@ -76,3 +82,13 @@ def nf4_matmul_grouped_kernel(x: torch.Tensor, q: NF4Weight,
     """x (E, C, K) @ q (E, K, N) -> (E, C, N), expert by expert."""
     return nf4_matmul_grouped(x.to(compute_dtype).contiguous(), q.packed,
                               q.absmax, compute_dtype, rows)
+
+
+def f16_matmul_grouped_kernel(x: torch.Tensor, w: torch.Tensor,
+                              compute_dtype=torch.bfloat16,
+                              rows=None) -> torch.Tensor:
+    """x (E, C, K) @ w bf16 or float16 (E, K, N) -> (E, C, N), expert by
+    expert: the grouped kernel of w's dtype."""
+    fn = fp16_matmul_grouped if w.dtype == torch.float16 \
+        else bf16_matmul_grouped
+    return fn(x.to(compute_dtype).contiguous(), w, compute_dtype, rows)

@@ -245,9 +245,12 @@ def _moe_ffn_local(p: Dict[str, Any], x: torch.Tensor, *, top_k: int,
 def _expert_dense(w: Any, x: torch.Tensor, policy: PrecisionPolicy,
                   rows=None) -> torch.Tensor:
     """Batched per-expert product: w (E, in, out) [possibly quantized],
-    x (E, C, in) -> (E, C, out). Quantized weights take the grouped
-    kernel, one launch over all experts (``linear_apply``), which with
-    ``rows`` (each expert's kept rows) computes only those."""
+    x (E, C, in) -> (E, C, out). Quantized weights, and bf16 or float16
+    ones under a bf16 compute dtype, take a grouped kernel, one launch
+    over all experts (``linear_apply``), which with ``rows`` (each
+    expert's kept rows) reads only the kept experts and computes only
+    those rows. A 16-bit product that autograd records (MoE training) and
+    f32 compute keep the batched ``torch.matmul``."""
     return linear_apply(w, x, policy, rows)
 
 

@@ -4,9 +4,12 @@ Counterpart of ``repro.quant.apply``. Every matmul of the model goes
 through :func:`linear_apply`, which dispatches on the parameter's
 representation:
 
-* plain tensor -> a matmul in the policy's compute dtype; a 2-D float16
-  weight under a bf16 compute dtype -> the fp16 kernel, which converts
-  its weights to bf16 in registers (no converted copy written),
+* plain tensor -> a matmul in the policy's compute dtype; under a bf16
+  compute dtype a 2-D float16 weight -> the fp16 kernel, which converts
+  its weights to bf16 in registers (no converted copy written), and an
+  (E, in, out) bf16 or float16 expert stack -> the bf16 or fp16 grouped
+  kernel; either unless autograd records the product (the kernels have
+  no backward: training keeps the matmul),
 * Int8Weight   -> the int8 dequant-matmul kernel (its outlier product
   inside),
 * NF4Weight    -> the nf4 dequant-matmul kernel;
@@ -45,10 +48,12 @@ def dequantize_weight(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
 def linear_apply(w: Any, x: torch.Tensor, policy: PrecisionPolicy,
                  rows=None) -> torch.Tensor:
     """y = x @ w under the precision policy; for an (E, in, out) weight
-    and x (E, C, in), y[e] = x[e] @ w[e]. ``rows``: for a quantized
-    (E, in, out) weight, each expert's kept rows (int32 (E,)); the grouped
-    kernel then computes only those and zeros the rest. A plain weight's
-    product ignores it.
+    and x (E, C, in), y[e] = x[e] @ w[e]. ``rows``: for an (E, in, out)
+    weight that takes a grouped kernel (quantized, or bf16 or float16
+    under a bf16 compute dtype), each expert's kept rows (int32 (E,)); the
+    kernel then computes only those and zeros the rest. A product that
+    keeps ``torch.matmul`` (f32 compute, or one that autograd records)
+    ignores it.
 
     The output dtype is the compute dtype. For 16-bit policies the
     matmul accumulates in f32 and rounds its output to the compute dtype
@@ -62,18 +67,26 @@ def linear_apply(w: Any, x: torch.Tensor, policy: PrecisionPolicy,
     cd = policy.compute_dtype
     if not x.is_meta:
         return _linear(w, x, cd, rows)
-    if (isinstance(w, torch.Tensor) and not _fp16_kernel(w, cd)
+    if (isinstance(w, torch.Tensor) and not _kernel16(w, x, cd)
             and is_sharded(x, w)):
         return sharded_matmul(x, w, cd)
     y = _linear(w, x, cd, rows)
     return reduce_partial(y) if is_sharded(y) else y
 
 
-def _fp16_kernel(w: torch.Tensor, cd) -> bool:
-    """Whether a plain weight's product is the fp16 kernel's: a 2-D
-    float16 weight under a bf16 compute dtype (3-D float16 experts keep
-    the batched matmul)."""
-    return w.ndim == 2 and w.dtype == torch.float16 and cd == torch.bfloat16
+def _kernel16(w: torch.Tensor, x: torch.Tensor, cd) -> bool:
+    """Whether a plain weight's product takes a 16-bit kernel, under a
+    bf16 compute dtype only: a 2-D float16 weight (``fp16_matmul``), or an
+    (E, in, out) bf16 or float16 expert stack (the grouped kernel of its
+    dtype); unless autograd records the product (grad mode on, and x or w
+    requiring grad, as in training): the kernels have no backward, so
+    that product keeps ``torch.matmul``."""
+    if cd != torch.bfloat16 or (torch.is_grad_enabled()
+                                and (x.requires_grad or w.requires_grad)):
+        return False
+    if w.ndim == 2:
+        return w.dtype == torch.float16
+    return w.ndim == 3 and w.dtype in (torch.bfloat16, torch.float16)
 
 
 def _linear(w: Any, x: torch.Tensor, cd, rows=None) -> torch.Tensor:
@@ -87,7 +100,10 @@ def _linear(w: Any, x: torch.Tensor, cd, rows=None) -> torch.Tensor:
             return qops.nf4_matmul_grouped_kernel(x, w, compute_dtype=cd,
                                                   rows=rows)
         return qops.nf4_matmul_kernel(x, w, compute_dtype=cd)
-    if _fp16_kernel(w, cd):
+    if _kernel16(w, x, cd):
+        if w.ndim == 3:
+            return qops.f16_matmul_grouped_kernel(x, w, compute_dtype=cd,
+                                                  rows=rows)
         return qops.fp16_matmul_kernel(x, w, compute_dtype=cd)
     return torch.matmul(x.to(cd), w.to(cd))
 

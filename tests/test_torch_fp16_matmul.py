@@ -76,8 +76,9 @@ def test_linear_apply_routes_2d_fp16_weights_under_bf16_to_the_kernel():
     """On the meta device under a cost analysis: a 2-D float16 weight with
     the float16 policy (bf16 compute) is one fp16_matmul record, priced by
     kernels/cost.py over the fp16 bytes, as chip_smoke prices its bound;
-    a 3-D float16 stack (experts), an f32 compute dtype and a bf16 weight
-    keep the plain product and record no kernel."""
+    a 3-D float16 stack (experts) is one fp16_matmul_grouped record
+    (tests/test_torch_grouped16.py); an f32 compute dtype and a 2-D bf16
+    weight keep the plain product and record no kernel."""
     M, Kd, N = 6, 512, 384
     x = torch.empty((2, 3, Kd), dtype=torch.bfloat16, device="meta")
     w = torch.empty((Kd, N), dtype=torch.float16, device="meta")
@@ -86,13 +87,16 @@ def test_linear_apply_routes_2d_fp16_weights_under_bf16_to_the_kernel():
     assert c.kernels == {"fp16_matmul": 1}
     nbytes, flops = cost.quant_matmul(M, Kd, N, 2 * Kd * N)
     assert (c.dot_flops, c.dot_bytes) == (flops, nbytes)
-    for w_, pol in ((torch.empty((4, Kd, N), dtype=torch.float16,
-                                 device="meta"), make_policy("float16")),
-                    (w, make_policy("float16", torch.float32)),
+    with OpCounter() as c3:
+        pt_apply.linear_apply(torch.empty((4, Kd, N), dtype=torch.float16,
+                                          device="meta"),
+                              x[:1].expand(4, 3, Kd),
+                              make_policy("float16"))
+    assert c3.cost.kernels == {"fp16_matmul_grouped": 1}
+    for w_, pol in ((w, make_policy("float16", torch.float32)),
                     (w.to(torch.bfloat16), make_policy("bfloat16"))):
-        x_ = x[:1].expand(4, 3, Kd) if w_.ndim == 3 else x
         with OpCounter() as c2:
-            pt_apply.linear_apply(w_, x_, pol)
+            pt_apply.linear_apply(w_, x, pol)
         assert c2.cost.kernels == {}
 
 

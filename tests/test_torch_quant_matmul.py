@@ -142,7 +142,8 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert torch.equal(K.fp16_matmul(x, w16), K.fp16_matmul_plain(x, w16))
     assert K.LAUNCHES == {"int8_matmul": 0, "nf4_matmul": 0,
                           "int8_matmul_grouped": 0, "nf4_matmul_grouped": 0,
-                          "fp16_matmul": 0}
+                          "fp16_matmul": 0, "bf16_matmul_grouped": 0,
+                          "fp16_matmul_grouped": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -175,8 +176,12 @@ def test_library_path_follows_the_sources(tmp_path):
     import shutil
     assert set(K.HEADERS) == {"quant_matmul.cuh", "qmm_wgmma.cuh",
                               "../../csrc/hopper.cuh"}
+    # the two 16-bit libraries share their weight stage's header too
+    assert K.HEADERS16 == K.HEADERS + ("f16_stage.cuh",)
     for name in K.KERNELS:
-        assert K.SOURCES[name].headers == K.HEADERS
+        assert K.SOURCES[name].headers == (
+            K.HEADERS16 if name in ("fp16_matmul", "bf16_matmul")
+            else K.HEADERS)
     # the module's csrc and the shared csrc two levels up, as in the tree
     csrc = tmp_path / "quant_matmul" / "csrc"
     shutil.copytree(K.CSRC, csrc)
@@ -184,7 +189,7 @@ def test_library_path_follows_the_sources(tmp_path):
     for name in K.KERNELS:
         src = dataclasses.replace(K.SOURCES[name], csrc=csrc)
         before = K.cuda_build.library_path(src)
-        for header in K.HEADERS:
+        for header in src.headers:
             with open(csrc / header, "a") as f:
                 f.write("// edited\n")
             after = K.cuda_build.library_path(src)
