@@ -91,7 +91,18 @@ non-zero exit code:
    decode, int8, nf4 and bf16, must give the same bits with the dispatch's
    counts and with rows=None (the ``moe_layer_rows`` line). Every
    attention geometry a serve cell runs must be among the flash and
-   paged cells.
+   paged cells. Then the fused kernels (``kernels/fused``, phase
+   "fused"): ``rms_norm``, ``rope_qk`` and ``silu_mul`` at every call the
+   runs make (``fused_cells``: each run's rows over d_model and the SSM
+   gate norm's d_inner, each format's activation and gamma dtypes; RoPE
+   over every causal flash cell and every paged cell's lanes, at every
+   served head_dim; the gated activation over d_ff and every MoE expert
+   stack of the grouped cells, whose rows past C / 2 are zeros that must
+   stay zeros) against their plain versions (the eager ops they replace):
+   ``rope_qk`` and ``silu_mul`` bit for bit, ``rms_norm`` within 1e-2
+   (bf16) and 1e-5 (f32), one counted launch and one kernel
+   node a call, with kernel, plain and, for the norm,
+   ``torch.nn.functional.rms_norm`` times.
 4. serve: llama-3.1-8b at full width (random weights from
    ``torch.Generator(device="cuda").manual_seed(0)``) under each of the
    five formats, and in bfloat16 with an int8 KV cache (``kv_quant``: 32
@@ -118,7 +129,9 @@ non-zero exit code:
    ``Model.decode_step`` eagerly on a copy of the cache and through a
    replay, logits, tokens and cache bit for bit, each step's launch
    counts equal, the graph's kernel nodes by function name equal to the
-   eager step's launches (32 paged and 224 quant for llama in int8), and
+   eager step's launches (32 paged and 224 quant for llama in int8; 65
+   rms_norm, 32 rope_qk and 32 silu_mul for llama: ``fused_launches``,
+   checked per run and per step), and
    the host time to enqueue a step and its device time from CUDA events,
    eager and replayed.
 5. moe: qwen3-moe-30b-a3b at full width and depth (48 layers, 128
@@ -240,11 +253,14 @@ non-zero exit code:
    S = 1024, through the kernels against the same step with attention
    through the plain versions (bf16 and f32, each grad leaf within
    ``STEP_GRAD_TOL``), with ``remat=True`` (grads equal bit for bit, 2
-   forward launches a layer) and one whole f32 step; then stablelm-1.6b
+   forward launches a layer, flash's and the fused kernels') and one
+   whole f32 step; then stablelm-1.6b
    at full width and depth trained in bf16 on ``SyntheticLM`` through
    ``repro_torch.training.train`` for 20 steps (``TRAIN``) under the
    power sampler: per step the loss, grad norm, host ms and launches
-   (exactly 24 flash forward and 24 backward, nothing else), finite
+   (exactly 24 flash forward and 24 backward, 49 rms_norm, 24 rope_qk
+   and 24 silu_mul, nothing else: the fused kernels' backward reruns
+   their plain ops), finite
    losses whose last 5 average below step 0's, peak memory and mean W;
    the trained params saved by ``save_checkpoint``, loaded by
    ``load_checkpoint`` and served (2 prompts, 8 greedy tokens, flash
@@ -516,6 +532,37 @@ def serve_projections(cfg) -> list:
     return kn
 
 
+def served_rows(configs) -> list:
+    """(arch, formats, traffic or None, rows) of every run: the rows of x
+    its layers take (a token a row): each SERVE_CELLS config at 1 row (a
+    sequential decode step), max_batch rows (a continuous one) and
+    max_prefill_batch times the longest prompt (a batched prefill); each
+    MODEL_CELLS config at the rows its run gives them
+    (:func:`model_prefills`: each prefill's rows times its padded length,
+    stubs included, an audio encoder's rows times T_ENC, and a decoded
+    pair's rows); the arrival, orchestration and api runs' rows
+    (:func:`arrival_cells`, :func:`orch_cells`, :func:`api_cells`), by
+    format."""
+    cells = [(arch, formats, kw, [1, kw["max_batch"],
+                                  kw["max_prefill_batch"]
+                                  * kw["prompt_len"][1]])
+             for arch, formats, kw in SERVE_CELLS]
+    for arch, formats in MODEL_CELLS:
+        runs = model_prefills(configs[arch])
+        audio = configs[arch].family == "audio"
+        rows = sorted({B * (prefix + pad) for B, pad, prefix, _, _ in runs}
+                      | {B * T_ENC for B, *_ in runs if audio}
+                      | {B for B, *_, decoded in runs if decoded})
+        cells.append((arch, formats, None, rows))
+    for fmt, rows in arrival_cells()[2].items():
+        cells.append((ARRIVAL_ARCH, (fmt,), None, sorted(rows)))
+    for fmt, rows in orch_cells()[2].items():
+        cells.append((ORCH_ARCH, (fmt,), None, sorted(rows)))
+    for fmt, rows in api_cells()[2].items():
+        cells.append((API_BASE["model"], (fmt,), None, sorted(rows)))
+    return cells
+
+
 def quant_cells(configs) -> tuple:
     """The quant kernel calls of the kernel phase: llama-3.1-8b's
     SHAPES_KN x SHAPES_M, GROUPED_SHAPES through every grouped entry point
@@ -536,7 +583,8 @@ def quant_cells(configs) -> tuple:
     (E, C, K, N) at the
     capacity C of a decode step, a request's own prefill and a batched
     prefill, under the config's capacity factor and the no-drop one (E /
-    top_k) of the logit pair. ``configs`` maps an arch to its config.
+    top_k) of the logit pair (the rows: :func:`served_rows`). ``configs``
+    maps an arch to its config.
     Returns ({(name, K, N): {M: [arch, ...]}}, {(name, E, K, N): {C:
     {arch: tokens routed}}})."""
     from repro_torch.models.moe import expert_capacity
@@ -558,24 +606,7 @@ def quant_cells(configs) -> tuple:
     for arch, E, C, T, Kd, N in GROUPED_SHAPES:
         for entry in GROUPED_ENTRY.values():
             add_grouped((entry, E, Kd, N), C, arch, T)
-    cells = [(arch, formats, kw, [1, kw["max_batch"],
-                                  kw["max_prefill_batch"]
-                                  * kw["prompt_len"][1]])
-             for arch, formats, kw in SERVE_CELLS]
-    for arch, formats in MODEL_CELLS:
-        runs = model_prefills(configs[arch])
-        audio = configs[arch].family == "audio"
-        rows = sorted({B * (prefix + pad) for B, pad, prefix, _, _ in runs}
-                      | {B * T_ENC for B, *_ in runs if audio}
-                      | {B for B, *_, decoded in runs if decoded})
-        cells.append((arch, formats, None, rows))
-    for fmt, rows in arrival_cells()[2].items():
-        cells.append((ARRIVAL_ARCH, (fmt,), None, sorted(rows)))
-    for fmt, rows in orch_cells()[2].items():
-        cells.append((ORCH_ARCH, (fmt,), None, sorted(rows)))
-    for fmt, rows in api_cells()[2].items():
-        cells.append((API_BASE["model"], (fmt,), None, sorted(rows)))
-    for arch, formats, kw, rows in cells:
+    for arch, formats, kw, rows in served_rows(configs):
         cfg = configs[arch]
         for fmt in formats:
             name = QUANT_ENTRY.get(fmt)
@@ -1471,6 +1502,233 @@ def _paged_case(torch, PK, dtype, case, sets, lib_sets, valid, work, shape,
     return row
 
 
+# ---------------------------------------------------------------------------
+# the fused passes (kernels/fused): norm, RoPE, gated activation
+# ---------------------------------------------------------------------------
+#: what each replaces: no Pallas kernel, a jnp chain XLA fuses
+FUSED_REPLACES = {
+    name: f"none: XLA fuses the reference's ops under jax.jit "
+          f"(src/repro/serving/backend.py:451); {what}"
+    for name, what in (
+        ("rms_norm", "rms_norm, src/repro/models/layers.py:24"),
+        ("rope_qk", "apply_rope of q and of k, "
+                    "src/repro/models/layers.py:46"),
+        ("silu_mul", "jax.nn.silu(g) * u, src/repro/models/layers.py:236 "
+                     "and the MoE experts' FFN"))}
+#: rms_norm against its plain version, over the whole output: max |diff|
+#: over max |plain|. f32: the same operations, the sum in another order;
+#: bf16: one rounding of (nearly) the same f32 value, an ulp apart.
+#: rope_qk and silu_mul round where their plain ops round, and are held to
+#: them bit for bit (FUSED_EXACT)
+FUSED_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FUSED_EXACT = ("rope_qk", "silu_mul")
+#: RoPE's theta in the fused cells (llama-3.1-8b's); the table's values do
+#: not change the kernel's work
+FUSED_THETA = 500000.0
+#: the kernels line's shapes: llama-3.1-8b's bf16 decode at batch 4
+HEADLINE_FUSED = {
+    "rms_norm": {"dtype": "bfloat16", "rows": 4, "D": 4096,
+                 "gamma": "bfloat16"},
+    "rope_qk": {"dtype": "bfloat16", "B": 4, "S": 1, "H": 32, "Kv": 8,
+                "hd": 128},
+    "silu_mul": {"dtype": "bfloat16", "shape": [4, 14336]},
+}
+
+
+def fused_cells(configs) -> dict:
+    """Every call the runs make of the fused kernels, by kernel:
+    rms_norm at each run's rows (:func:`served_rows`) over d_model and,
+    for SSM and hybrid, the gate norm's d_inner, x in the format's
+    activation dtype and gamma in its parameter dtype; rope_qk at each
+    causal flash cell (B, S, int64 positions (S,)) and each audio
+    encoder's (B, T_ENC), and each paged cell's lanes (B, 1, int32
+    positions (B, 1)), in bf16, and in f32 at llama-3.1-8b's heads (its
+    float32 cell); silu_mul at each run's rows over d_ff (dense, vlm,
+    audio, the hybrid's shared block), and over each MoE expert stack (E,
+    C, d_ff) of the grouped cells (:func:`quant_cells`), in the
+    activation dtype. Returns {name: [cell, ...]}: rms_norm (rows, D,
+    dtype, gamma dtype), rope_qk (B, S, H, Kv, hd, dtype, positions)
+    and silu_mul (shape, dtype)."""
+    from repro_torch.core.precision import make_policy
+    from repro_torch.models.ssm import ssm_dims
+    norms, silu = set(), set()
+    for arch, formats, _, rows in served_rows(configs):
+        cfg = configs[arch]
+        widths = [cfg.d_model]
+        if cfg.family in ("ssm", "hybrid"):
+            widths.append(ssm_dims(cfg)["d_inner"])
+        for fmt in formats:
+            pol = make_policy(fmt)
+            act = str(pol.activation_dtype).removeprefix("torch.")
+            gam = str(pol.param_dtype).removeprefix("torch.")
+            norms |= {(r, D, act, gam) for r in rows for D in widths}
+            if cfg.d_ff and not cfg.is_moe and cfg.family != "ssm":
+                silu |= {((r, cfg.d_ff), act) for r in rows}
+    for (_, E, _, N), caps in quant_cells(configs)[1].items():
+        for C, archs in caps.items():
+            if any(configs[a].d_ff == N for a in archs):
+                silu.add(((E, C, N), "bfloat16"))
+    causal, full, paged = attention_cells(configs)
+    rope = {(B, S, *h, "bfloat16", "S") for B, S, h, _ in causal}
+    rope |= {(B, S, *h, "bfloat16", "S") for B, S, T, h in full if S == T}
+    rope |= {(B, 1, *h, "bfloat16", "B1") for B, _, h in paged}
+    rope |= {(*c[:5], "float32", c[6]) for c in list(rope)
+             if tuple(c[2:5]) == LLAMA_HEADS}
+    return {"rms_norm": sorted(norms), "rope_qk": sorted(rope),
+            "silu_mul": sorted(silu)}
+
+
+def _fused_call(torch, FU, name, cell, gen):
+    """(kernel call, plain call, library call or None, arg sets, the
+    cell's fields, (bytes, FLOPs)) of one fused cell, the inputs drawn
+    from ``gen``; arg sets cycle past the L2 (:func:`_copies`). MoE
+    expert stacks keep their rows from C / 2 on at zero, as rows past a
+    dispatch's counts are."""
+    from repro_torch.kernels import cost
+    td = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    if name == "rms_norm":
+        rows, D, dt, gd = cell
+        x, gamma = randn((rows, D), td[dt], 3.0), randn((D,), getattr(
+            torch, gd))
+        work = cost.rms_norm(rows, D, x.element_size(),
+                             gamma.element_size())
+        lib_gamma = gamma.to(x.dtype)
+        sets = [(x, gamma)] + [(x.clone(), gamma) for _ in range(
+            _copies(work[0]) - 1)]
+        return (FU.rms_norm, FU.rms_norm_plain,
+                lambda x, g: torch.nn.functional.rms_norm(
+                    x, (D,), lib_gamma, 1e-6), sets,
+                {"dtype": dt, "rows": rows, "D": D, "gamma": gd}, work)
+    if name == "rope_qk":
+        B, S, H, Kv, hd, dt, kind = cell
+        q, k = randn((B, S, H, hd), td[dt]), randn((B, S, Kv, hd), td[dt])
+        pos = (torch.arange(S, device="cuda") if kind == "S" else
+               torch.randint(0, 4096, (B, 1), generator=gen, device="cuda",
+                             dtype=torch.int32))
+        work = cost.rope_qk(B * S, H, Kv, hd, q.element_size(),
+                            pos.element_size(), pos.numel())
+        sets = [(q, k, pos)] + [(q.clone(), k.clone(), pos) for _ in range(
+            _copies(work[0]) - 1)]
+        return (lambda q, k, p: FU.rope_qk(q, k, p, FUSED_THETA),
+                lambda q, k, p: FU.rope_qk_plain(q, k, p, FUSED_THETA),
+                None, sets, {"dtype": dt, "B": B, "S": S, "H": H, "Kv": Kv,
+                             "hd": hd, "positions": kind}, work)
+    shape, dt = cell
+    g, u = randn(shape, td[dt], 4.0), randn(shape, td[dt])
+    if len(shape) == 3:
+        g[:, shape[1] // 2:] = 0
+        u[:, shape[1] // 2:] = 0
+    work = cost.silu_mul(g.numel(), g.element_size())
+    sets = [(g, u)] + [(g.clone(), u.clone()) for _ in range(
+        _copies(work[0]) - 1)]
+    return (FU.silu_mul, FU.silu_mul_plain, None, sets,
+            {"dtype": dt, "shape": list(shape)}, work)
+
+
+def fused_phase(torch, FU, cells) -> dict:
+    """Each fused kernel at every cell of :func:`fused_cells` against its
+    plain version (bit for bit for FUSED_EXACT, else within
+    FUSED_REL_TOL), one launch a call counted and one
+    kernel node in a CUDA graph (``check_one_launch``), an expert stack's
+    zero rows kept zero; kernel, plain (today's eager ops) and, for
+    rms_norm, library (``torch.nn.functional.rms_norm``, a yardstick the
+    port never calls) times, CUDA graphs replayed between CUDA events,
+    beside the bound (bytes over HBM, or the f32 operations over the f32
+    peak). Returns each kernel's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {name: [] for name in FU.NAMES}
+    faults = []
+    for name in FU.NAMES:
+        for cell in cells[name]:
+            kern, plain, lib, sets, fields, (nbytes, flops) = _fused_call(
+                torch, FU, name, cell, gen)
+            args = sets[0]
+            before = FU.LAUNCHES[name]
+            got = kern(*args)
+            launched_once = FU.LAUNCHES[name] == before + 1
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, ref))
+            rel = diff / max(max(b.float().abs().max().item() for b in ref),
+                             1e-30)
+            zeros_kept = not (name == "silu_mul" and len(fields["shape"]) == 3
+                              and got[0][:, fields["shape"][1] // 2:].any())
+            bound, by = _bound(nbytes, flops, "float32")
+            exact = name in FUSED_EXACT
+            tol = 0.0 if exact else FUSED_REL_TOL[fields["dtype"]]
+            equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+            row = {"phase": "kernel", "name": name, **fields,
+                   "max_abs_err": diff, "max_rel_err": rel, "rel_tol": tol,
+                   "bit_equal": equal,
+                   "kernel_ms": timed_ms(torch, kern, sets),
+                   "plain_ms": timed_ms(torch, plain, sets),
+                   "library_ms": (timed_ms(torch, lib, sets)
+                                  if lib is not None else None),
+                   "bytes": nbytes, "flops": flops, "bound_ms": bound,
+                   "bound_by": by,
+                   "cuda_launches_per_call": check_one_launch(
+                       torch, name, lambda: kern(*args))}
+            emit(row)
+            if not ((equal if exact else rel <= tol) and launched_once
+                    and zeros_kept):
+                faults.append(f"{name} at {fields}: rel {rel} (tol {tol}), "
+                              f"bit equal {equal}, counted once "
+                              f"{launched_once}, zero rows kept "
+                              f"{zeros_kept}")
+            out[name].append(row)
+            del sets, args, got, ref
+        torch.cuda.empty_cache()
+    if faults:
+        raise SystemExit("fused: " + "; ".join(faults[:5]))
+    return out
+
+
+def fused_launches(cfg) -> tuple:
+    """({kernel: launches} a prefill phase, a decode step) of the fused
+    kernels: two norms a decoder layer (attention and FFN; a Mamba
+    layer's norm and gate norm), RoPE of q and k and the gated activation
+    once a layer with attention and a gated MLP or MoE FFN, and the
+    final norm; audio adds a cross-attention norm a decoder layer and,
+    at prefill, its encoder's layers and final norm; hybrid its shared
+    block's two norms, RoPE and activation at each site."""
+    L = cfg.num_layers
+
+    def per(norms, rope, silu):
+        return {"rms_norm": norms, "rope_qk": rope, "silu_mul": silu}
+
+    if cfg.family == "ssm":
+        step = per(2 * L + 1, 0, 0)
+        return step, step
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_sites
+        s = n_attn_sites(cfg)
+        step = per(2 * L + 1 + 2 * s, s, s)
+        return step, step
+    if cfg.family == "audio":
+        E = cfg.enc_layers
+        return (per(3 * L + 1 + 2 * E + 1, L + E, L + E),
+                per(3 * L + 1, L, L))
+    step = per(2 * L + 1, L, L)
+    return step, step
+
+
+def train_fused_launches(cfg, remat: bool = False) -> dict:
+    """{kernel: launches} of the fused kernels in a dense model's train
+    step: its forward's, a prefill phase's (:func:`fused_launches`), with
+    a layer's twice under ``remat`` (rerun in the backward); the backward
+    launches none (it reruns the plain ops for their gradient)."""
+    L, r = cfg.num_layers, 2 if remat else 1
+    return {"rms_norm": 2 * L * r + 1, "rope_qk": L * r, "silu_mul": L * r}
+
+
 def reset_launches(mods) -> None:
     for m in mods:
         m.reset_launches()
@@ -1725,7 +1983,8 @@ def check_quant_entries(cfg, fmt, counts, run) -> None:
 def check_attention_launches(cfg, fmt, counts, prefills, steps) -> None:
     """Fail unless the attention kernels launched
     :func:`attention_launches` times over ``prefills`` prefill phases
-    and ``steps`` decode steps."""
+    and ``steps`` decode steps, and the fused kernels
+    :func:`fused_launches` times."""
     for name, phase, per, n in zip(("flash_attention", "paged_attention"),
                                    ("prefill", "decode"),
                                    attention_launches(cfg),
@@ -1734,6 +1993,12 @@ def check_attention_launches(cfg, fmt, counts, prefills, steps) -> None:
             raise SystemExit(f"{cfg.name} {fmt}: {name} launched "
                              f"{counts[name]} times, not {per} per "
                              f"{phase} ({per * n})")
+    pre, step = fused_launches(cfg)
+    want = {k: pre[k] * prefills + step[k] * steps for k in pre}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise SystemExit(f"{cfg.name} {fmt}: fused launches {got}, not "
+                         f"{pre} a prefill and {step} a step ({want})")
 
 
 def check_paged_cases(cfg, fmt, PK, steps, kv_quant) -> dict:
@@ -1821,11 +2086,17 @@ GRAPH_PAIRS = [(("llama-3.1-8b", "int8"), ("llama-3.1-8b", "nf4")),
                (("qwen3-moe-30b-a3b", "bfloat16"),
                 ("qwen3-moe-30b-a3b", "nf4")),
                (("zamba2-1.2b", "int8"), ("zamba2-1.2b", "bfloat16"))]
+#: the most kernel nodes a replayed llama-3.1-8b bf16 step may have: its
+#: 2453 before the fused kernels (PERF.md section 5) less the 1500 they
+#: must take out at least
+LLAMA_BF16_NODES_MAX = 2453 - 1500
 #: the CUDA kernel functions each kernel module launches, by a part of
 #: their names
 KERNEL_FUNCTIONS = {"quant_matmul": ("qmm_wgmma_kernel", "qmm_tile_kernel"),
                     "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
-                    "paged_attention": ("paged_kernel",)}
+                    "paged_attention": ("paged_kernel",),
+                    "fused": ("rms_norm_kernel", "rope_qk_kernel",
+                              "silu_mul_kernel")}
 
 
 def graph_check(torch, mods, model, params, backend) -> dict:
@@ -1843,7 +2114,7 @@ def graph_check(torch, mods, model, params, backend) -> dict:
     time to enqueue and its span between two CUDA events on the device,
     eager and replayed (the eager span holds the device's waits for the
     host)."""
-    K, FK, PK = mods
+    K, FK, PK, FU = mods
     g = backend.decode_graph
     name = f"{model.cfg.name} {model.policy.fmt}"
     steps = [p.phase for p in backend.phases].count("decode")
@@ -1903,10 +2174,15 @@ def graph_check(torch, mods, model, params, backend) -> dict:
         collections.Counter(names)
     want = {"quant_matmul": sum(launched[e] for e in K.ENTRY_POINTS),
             "flash_attention": launched[FK.NAME],
-            "paged_attention": launched[PK.NAME]}
+            "paged_attention": launched[PK.NAME],
+            "fused": sum(launched[n] for n in FU.NAMES)}
     if nodes != want:
         raise SystemExit(f"{name}: the graph's kernel nodes {nodes}, the "
                          f"eager step's launches {want}")
+    fused = {n: launched[n] for n in FU.NAMES}
+    if fused != fused_launches(model.cfg)[1]:
+        raise SystemExit(f"{name}: a step launched the fused kernels "
+                         f"{fused}, not {fused_launches(model.cfg)[1]}")
     mean = statistics.mean
     return {"run_decode_steps": steps, "run_replays": run_replays,
             "check_steps": GRAPH_STEPS, "logits_bit_identical": True,
@@ -2251,7 +2527,16 @@ def serve_phase(torch, mods) -> dict:
             "against_nodes": sum(nb.values()),
             "differ": {f: [na[f], nb[f]] for f in sorted(set(na) | set(nb))
                        if na[f] != nb[f]}})
-    emit({"phase": "serve", "check": "graph_nodes", "pairs": pairs})
+    llama = GRAPH_NODES[("llama-3.1-8b", "bfloat16")]
+    emit({"phase": "serve", "check": "graph_nodes", "pairs": pairs,
+          "llama_bf16_nodes": sum(llama.values()),
+          "llama_bf16_fused_nodes": sum(
+              n for f, n in llama.items()
+              if any(k in f for k in KERNEL_FUNCTIONS["fused"]))})
+    if sum(llama.values()) > LLAMA_BF16_NODES_MAX:
+        raise SystemExit(f"serve: a llama-3.1-8b bf16 replay has "
+                         f"{sum(llama.values())} kernel nodes, more than "
+                         f"{LLAMA_BF16_NODES_MAX}")
     return out
 
 
@@ -3355,10 +3640,11 @@ def step_checks(torch, mods, FK) -> dict:
     """One train step of stablelm-1.6b cut to STEP_LAYERS layers at full
     width, three ways: through the kernels against the same step with
     attention through the plain versions (bf16 and f32, each grad leaf
-    within STEP_GRAD_TOL); with ``remat=True``, every grad equal bit for
-    bit to the plain step's, with 2 flash forward launches a layer (the
-    recompute) and 1 backward; and one whole f32 step (the launcher's
-    default format) through ``make_train_step``."""
+    within STEP_GRAD_TOL), the fused kernels launched as
+    :func:`train_fused_launches` says; with ``remat=True``, every grad
+    equal bit for bit to the plain step's, with 2 flash forward launches
+    a layer (the recompute) and 1 backward; and one whole f32 step (the
+    launcher's default format) through ``make_train_step``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3385,7 +3671,8 @@ def step_checks(torch, mods, FK) -> dict:
                    / b.float().abs().max().clamp_min(1e-30)).item()
                   for a, b in zip(g_k, g_p))
         want = {"flash_attention": STEP_LAYERS,
-                "flash_attention_bwd": STEP_LAYERS}
+                "flash_attention_bwd": STEP_LAYERS,
+                **train_fused_launches(cfg)}
         line = {"loss": loss_k, "plain_loss": loss_p,
                 "max_leaf_rel_err": rel, "tol": STEP_GRAD_TOL[fmt],
                 "launches": counts}
@@ -3401,7 +3688,8 @@ def step_checks(torch, mods, FK) -> dict:
             line["remat_bit_equal"] = all(torch.equal(a, b)
                                           for a, b in zip(g_r, g_k))
             want = {"flash_attention": 2 * STEP_LAYERS,
-                    "flash_attention_bwd": STEP_LAYERS}
+                    "flash_attention_bwd": STEP_LAYERS,
+                    **train_fused_launches(cfg, remat=True)}
             if not line["remat_bit_equal"]:
                 faults.append("the remat step's grads are not the plain "
                               "step's bit for bit")
@@ -3447,7 +3735,9 @@ def train_phase(torch, mods) -> dict:
     """Full-width training: stablelm-1.6b at full width and depth in bf16
     on SyntheticLM through ``repro_torch.training.train`` (TRAIN), under
     the power sampler, with exactly one flash forward and one backward
-    launch a layer and step and no other kernel; finite losses whose last
+    launch a layer and step, the fused kernels' launches of
+    :func:`train_fused_launches`, and no other kernel; finite losses
+    whose last
     5 steps' mean is below step 0's. Then the trained params are saved
     with ``save_checkpoint``, loaded with ``load_checkpoint`` and serve
     the same greedy tokens as the params in memory; then the launcher
@@ -3512,7 +3802,8 @@ def train_phase(torch, mods) -> dict:
     emit(line)
     faults = []
     want = {"flash_attention": cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers}
+            "flash_attention_bwd": cfg.num_layers,
+            **train_fused_launches(cfg)}
     for s in steps:
         if {k: v for k, v in s["launches"].items() if v} != want:
             faults.append(f"step {s['step']} launched {s['launches']}, "
@@ -3844,8 +4135,9 @@ def main() -> int:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.kernels.fused import kernel as FU
     from repro_torch.kernels.quant_matmul import kernel as K
-    mods = (K, FK, PK)
+    mods = (K, FK, PK, FU)
 
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
@@ -3870,6 +4162,8 @@ def main() -> int:
     rows["flash_attention"] = timed("flash", flash_phase, torch, FK, causal,
                                     full)
     rows["paged_attention"] = timed("paged", paged_phase, torch, PK, paged)
+    rows.update(timed("fused", fused_phase, torch, FU,
+                      fused_cells(configs)))
     launches = timed("serve", serve_phase, torch, mods)
     launches.update(timed("model", model_phase, torch, mods))
     launches.update(timed("arrival", arrival_phase, torch, mods))
@@ -3962,6 +4256,27 @@ def main() -> int:
             "bound_by": head["bound_by"], "bytes": head["bytes"],
             "library_ms": head["library_ms"],
             "library_is": head["library_is"],
+        })
+    for name, shape in HEADLINE_FUSED.items():
+        head = next(r for r in rows[name]
+                    if all(r[k] == v for k, v in shape.items()))
+        kernels.append({
+            "name": name, "route": "cuda", "source": str(
+                FU.SOURCES[name].files[0].relative_to(ROOT)),
+            "replaces": FUSED_REPLACES[name],
+            "launches": max(c.get(name, 0) for c in launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "max_rel_err": max(r["max_rel_err"] for r in rows[name]),
+            "shape": shape,
+            "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "bytes": head["bytes"],
+            "cuda_launches_per_call": head["cuda_launches_per_call"],
+            "library_ms": head["library_ms"],
+            "library_is": ("torch.nn.functional.rms_norm with gamma cast to "
+                           "x's dtype beforehand (a yardstick: the port "
+                           "never calls it)" if name == "rms_norm" else
+                           "none: no single PyTorch call computes it"),
         })
     head = next(r for r in rows[FK.BWD]
                 if all(r[k] == v for k, v in HEADLINE_BWD.items()))

@@ -2,7 +2,8 @@
 
 Each function returns (bytes, FLOPs) of one call from its shapes: the
 bytes it must move (each input read once, each output written once) and
-the multiply-add operations of its products (two FLOPs each). The same
+the multiply-add operations of its products (two FLOPs each), or for the
+fused elementwise passes (``kernels/fused``) their f32 operations. The same
 formulas price a kernel's bound in ``chip_smoke.py`` and its call in the
 dry run (each wrapper's ``meta`` branch reports them to
 :func:`repro_torch.core.op_analysis.record`), so the two cannot drift.
@@ -70,3 +71,28 @@ def paged_attention(B: int, H: int, Kv: int, d: int, n_valid: int,
             + (2 * 4 * n_valid * Kv if scales else 0)
             + (4 * (n_valid + B) if positions else 0)
             + 4 * (table_entries + B), 4 * H * d * n_valid)
+
+
+def rms_norm(rows: int, D: int, es: int, gamma_es: int) -> Tuple[int, int]:
+    """x and out (rows, D) at ``es`` bytes an element, gamma (D,) at
+    ``gamma_es``; a square, a sum, a scale and a product an element (f32
+    on the CUDA cores), and a mean and an rsqrt a row."""
+    return es * 2 * rows * D + gamma_es * D, 4 * rows * D + 2 * rows
+
+
+def rope_qk(tokens: int, H: int, Kv: int, hd: int, es: int,
+            pos_es: int, positions: int) -> Tuple[int, int]:
+    """q (tokens, H, hd) and k (tokens, Kv, hd) read and written at ``es``
+    bytes an element, ``positions`` positions of ``pos_es`` bytes and the
+    f32 frequencies (hd / 2,) read once; an angle a token and frequency,
+    and four products and two sums a rotated pair (the sines and cosines
+    are not counted)."""
+    half = hd // 2
+    return (es * 2 * tokens * (H + Kv) * hd + pos_es * positions + 4 * half,
+            tokens * half + 6 * tokens * (H + Kv) * half)
+
+
+def silu_mul(n: int, es: int) -> Tuple[int, int]:
+    """g and u read and out written, ``n`` elements each at ``es`` bytes;
+    a negation, an exp, a sum, a division and a product an element."""
+    return 3 * es * n, 5 * n

@@ -31,9 +31,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.core.sharded import is_sharded, on_shards
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_rope, cache_write_decode,
-                                       gated_mlp, ring_cache_pages,
-                                       rms_norm, write_rows)
+from repro_torch.models.layers import (cache_write_decode, gated_mlp,
+                                       ring_cache_pages, rms_norm, rope_qk,
+                                       write_rows)
 from repro_torch.models.transformer import _project_qkv, init_decoder_layer
 from repro_torch.quant.apply import linear_apply
 
@@ -51,8 +51,7 @@ def _shared_attn_seq(shared: Dict[str, Any], x: torch.Tensor,
     xn = rms_norm(x, shared["attn_norm"])
     q, k, v = _project_qkv(shared["attn"], xn, cfg, policy)
     positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = rope_qk(q, k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=True)
     x = x + linear_apply(shared["attn"]["wo"], o.reshape(B, S, -1), policy)
     xn = rms_norm(x, shared["mlp_norm"])
@@ -135,8 +134,7 @@ def decode_step(params: Dict[str, Any], x: torch.Tensor,
         s = i // period
         xn = rms_norm(x2d[:, None, :], shared["attn_norm"])
         q, k, v = _project_qkv(shared["attn"], xn, cfg, policy)
-        q = apply_rope(q, pos1, cfg.rope_theta)
-        k = apply_rope(k, pos1, cfg.rope_theta)
+        q, k = rope_qk(q, k, pos1, cfg.rope_theta)
         cache_write_decode(cache["shared_k"][s], cache["shared_v"][s],
                            k, v, pos)
         o = paged_attention(q[:, 0], k_pages[s], v_pages[s], page_table,

@@ -7,7 +7,9 @@ public function: q (B, S, H, hd), k/v (B, T, Kv, hd), caches
 plain PyTorch, as the reference computes them outside any Pallas kernel;
 the model's prefill and decode call the attention kernels instead
 (``repro_torch.kernels.flash_attention``, ``paged_attention``, the latter
-over :func:`ring_cache_pages`). Scores, softmax and sums are f32.
+over :func:`ring_cache_pages`). Scores, softmax and sums are f32. The
+norm, RoPE of q and k, and the gated activation run through the fused
+kernels on the card (``repro_torch.kernels.fused``), one launch each.
 
 Where the reference builds new arrays, the cache functions here write
 into the cache tensors in place (:func:`write_rows`, :func:`write_layer`;
@@ -19,11 +21,16 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.sharded import (gather_dim, is_sharded, on_shards,
                                      split_lookup)
+# apply_rope (of one tensor; halves, not interleaved) and
+# rope_frequencies are the plain version of rope_qk
+from repro_torch.kernels.fused.kernel import (  # noqa: F401
+    apply_rope, rope_frequencies)
+from repro_torch.kernels.fused.ops import (  # noqa: F401
+    rms_norm, rope_qk, silu_mul)
 from repro_torch.kernels.paged_attention.kernel import slot_mask
 from repro_torch.quant.apply import linear_apply
 
@@ -31,15 +38,8 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# norms & embeddings
+# embeddings
 # ---------------------------------------------------------------------------
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
-
-
 def embed(tokens: torch.Tensor, table: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
     """Rows of the table. On DTensors (the dry run) a table split on its
@@ -52,28 +52,6 @@ def embed(tokens: torch.Tensor, table: torch.Tensor,
                                                          device=tab.device)),
             table, tokens, tokens.placements, 0).to(dtype)
     return table[tokens.long()].to(dtype)
-
-
-# ---------------------------------------------------------------------------
-# RoPE (halves, not interleaved)
-# ---------------------------------------------------------------------------
-def rope_frequencies(head_dim: int, theta: float,
-                     device=None) -> torch.Tensor:
-    half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                         device=device) / half))
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)
-    angles = positions[..., :, None].float() * freqs        # (..., s, half)
-    cos = torch.cos(angles)[..., :, None, :]                # (..., s, 1, half)
-    sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -384,4 +362,4 @@ def gated_mlp(p: Dict[str, Any], x: torch.Tensor,
               policy: PrecisionPolicy) -> torch.Tensor:
     g = linear_apply(p["w_gate"], x, policy)
     u = linear_apply(p["w_up"], x, policy)
-    return linear_apply(p["w_down"], F.silu(g) * u, policy)
+    return linear_apply(p["w_down"], silu_mul(g, u), policy)

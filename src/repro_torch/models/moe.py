@@ -53,10 +53,10 @@ import contextvars
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.sharded import axis_size, is_sharded, on_shards
+from repro_torch.models.layers import silu_mul
 from repro_torch.quant.apply import linear_apply
 
 # (mesh, data axes, model axis) while an expert_parallel context is open
@@ -236,7 +236,7 @@ def _moe_ffn_local(p: Dict[str, Any], x: torch.Tensor, *, top_k: int,
     rows = routing[-1]
     gate_w = _expert_dense(p["experts_gate"], buf, policy, rows)
     up_w = _expert_dense(p["experts_up"], buf, policy, rows)
-    out_e = _expert_dense(p["experts_down"], F.silu(gate_w) * up_w,
+    out_e = _expert_dense(p["experts_down"], silu_mul(gate_w, up_w),
                           policy, rows)                       # (E, C, D)
     y = _combine(out_e, routing, top_k).to(policy.compute_dtype)
     return y, (_aux(routing, E) if with_aux else {})
@@ -284,8 +284,8 @@ def _ep_body(wr, wg, wu, wd, x_loc, *, top_k: int, policy: PrecisionPolicy,
     C = expert_capacity(T_loc, E, top_k, capacity_factor)
     buf, routing = _dispatch(x_loc, wr, top_k, E, C)
     mine = buf[r * E_loc:(r + 1) * E_loc]
-    h = F.silu(_expert_dense(wg, mine, policy)) \
-        * _expert_dense(wu, mine, policy)
+    h = silu_mul(_expert_dense(wg, mine, policy),
+                 _expert_dense(wu, mine, policy))
     cd = policy.compute_dtype
     out = torch.zeros((E, C, D), dtype=cd, device=x_loc.device)
     out[r * E_loc:(r + 1) * E_loc] = _expert_dense(wd, h, policy).to(cd)

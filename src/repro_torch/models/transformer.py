@@ -29,10 +29,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.core.sharded import split_heads
-from repro_torch.models.layers import (apply_rope, cache_write_decode,
+from repro_torch.models.layers import (cache_write_decode,
                                        encoder_kv_pages, gated_mlp,
                                        ring_cache_pages, ring_pages,
-                                       rms_norm, write_rows)
+                                       rms_norm, rope_qk, write_rows)
 from repro_torch.quant.apply import linear_apply
 
 
@@ -152,8 +152,7 @@ def attn_block_seq(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(p["attn"], xn, cfg, policy)
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = rope_qk(q, k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
     o = linear_apply(p["attn"]["wo"], o.reshape(B, S, -1), policy)
     return x + o, k, v
@@ -305,8 +304,7 @@ def decoder_decode_step(layers: List[Dict[str, Any]], x: torch.Tensor,
         ck, cv = cache["k"][i], cache["v"][i]
         xn = rms_norm(x, lp["attn_norm"])
         q, k, v = _project_qkv(lp["attn"], xn, cfg, policy)
-        q = apply_rope(q, pos1, cfg.rope_theta)
-        k = apply_rope(k, pos1, cfg.rope_theta)
+        q, k = rope_qk(q, k, pos1, cfg.rope_theta)
         if quant:
             kq, ksc = quantize_kv(k)
             vq, vsc = quantize_kv(v)

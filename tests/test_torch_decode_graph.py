@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cuda_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.fused import kernel as FU  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
 from repro_torch.kernels.quant_matmul import kernel as QK  # noqa: E402
 from repro_torch.launch.serve import arch_config, build_params, serve  # noqa: E402,E501
@@ -30,7 +31,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import backend as backend_mod  # noqa: E402
 from repro_torch.serving.backend import DecodeGraph, ExecutedBackend  # noqa: E402,E501
 
-KERNELS = (QK, FK, PK)
+KERNELS = (QK, FK, PK, FU)
 
 #: (arch, fmt, kv_quant), reduced: dense in bf16 and int8, an int8 KV
 #: cache, a sliding window, MoE, SSM and hybrid

@@ -185,7 +185,11 @@ def test_model_forward_matches_workload_estimate():
     assert logits.shape == (B, S, cfg.vocab_size)
     est = W.prefill_workload(cfg, B, S).flops
     assert est / 2 < c.dot_flops < est * 2
-    assert c.kernels == {"flash_attention": cfg.num_layers}
+    L = cfg.num_layers
+    # attention through flash, and the norms, RoPE and gated activation
+    # through the fused kernels' records (2 norms a layer and the final)
+    assert c.kernels == {"flash_attention": L, "rms_norm": 2 * L + 1,
+                         "rope_qk": L, "silu_mul": L}
 
     jm = jax_build_model(jax_get_config("stablelm-1.6b").reduced(),
                          fmt="float32")

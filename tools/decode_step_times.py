@@ -3,7 +3,7 @@
 tree, on one NVIDIA GPU.
 
     python3 tools/decode_step_times.py [--src DIR] [--fmt bfloat16 int8]
-        [--steps 300] [--arch ID] [--kv-quant]
+        [--steps 300] [--arch ID] [--kv-quant] [--by-name]
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (default: this checkout's), so that one call can time two commits
@@ -23,8 +23,11 @@ holds the device back. Where the tree serves the decode step as a CUDA graph
 step through it on a new cache (its first call eager, the second
 captured and replayed, then replays): ``graph_*`` host ms over as many
 steps, and ``graph_device_ms``, the median span of a replay between two
-CUDA events. The first line holds the card's name and power limit.
-Exits non-zero when no CUDA device is visible.
+CUDA events. With ``--by-name`` it adds, for the eager step and for a
+replay, a line of the step's device time by kernel name from a
+``torch.profiler`` trace of PROFILED_STEPS steps (us and launches a
+step, largest first). The first line holds the card's name and power
+limit. Exits non-zero when no CUDA device is visible.
 """
 from __future__ import annotations
 
@@ -49,21 +52,28 @@ def quartiles(prefix: str, times) -> dict:
             f"{prefix}mean_ms": statistics.mean(times)}
 
 
-def eager_device_ms(torch, step, n: int):
-    """The device time of one eager step: the kernels' own time over ``n``
-    steps in a ``torch.profiler`` trace, over n; None if the trace holds
-    no device time."""
+def device_by_name(torch, step, n: int) -> dict:
+    """The device time of one ``step`` by kernel name, from the kernels of
+    ``n`` steps in a ``torch.profiler`` trace: {"kernels": [[name, us a
+    step, launches a step], ...] largest first, "us_per_step",
+    "launches_per_step"}; the list is empty if the trace holds no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / n if us else None
+    rows = sorted(([e.key, e.self_device_time_total / n, e.count / n]
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    return {"kernels": rows, "us_per_step": sum(r[1] for r in rows),
+            "launches_per_step": sum(r[2] for r in rows)}
 
 
 def graph_times(torch, graph_cls, model, params, toks, cache, n: int,
@@ -71,7 +81,7 @@ def graph_times(torch, graph_cls, model, params, toks, cache, n: int,
     """``n`` steps through ``graph_cls`` (a ``DecodeGraph``) on ``cache``,
     fed their own greedy tokens: host ms a step to the argmax on the host,
     and the median span of a replay on the device between two CUDA
-    events, over the steps after ``warmup``."""
+    events, over the steps after ``warmup``; and the graph."""
     feed = toks.clone()
 
     def step():
@@ -93,7 +103,7 @@ def graph_times(torch, graph_cls, model, params, toks, cache, n: int,
             device.append(ev[0].elapsed_time(ev[1]))
     return {**quartiles("graph_", host),
             "graph_device_ms": statistics.median(device),
-            "graph_replays": g.replays}
+            "graph_replays": g.replays}, g
 
 
 def main() -> int:
@@ -104,6 +114,9 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--arch", default="llama-3.1-8b")
     ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--by-name", action="store_true",
+                    help="print the eager step's and a replay's device "
+                         "time by kernel name")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -128,7 +141,13 @@ def main() -> int:
     print(json.dumps({"card": card, "src": args.src}), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cuda_build.build(src for m in (K, FK, PK) for src in m.SOURCES.values())
+    mods = [K, FK, PK]
+    try:                         # a tree from before the fused kernels
+        from repro_torch.kernels.fused import kernel as FU
+        mods.append(FU)
+    except ImportError:
+        pass
+    cuda_build.build(src for m in mods for src in m.SOURCES.values())
     batch, ring = 4, 512
     for fmt in args.fmt:
         cfg = arch_config(args.arch)
@@ -148,18 +167,30 @@ def main() -> int:
                 if i >= args.warmup:
                     times.append(1e3 * (time.perf_counter() - t0))
                 toks = nxt.to(device="cuda", dtype=torch.int32)[:, None]
+            eager = device_by_name(
+                torch, lambda: model.decode_step(params, toks, cache),
+                PROFILED_STEPS)
             line = {"arch": args.arch, "fmt": fmt, "kv_quant": args.kv_quant,
                     **quartiles("", times),
-                    "eager_device_ms": eager_device_ms(
-                        torch, lambda: model.decode_step(params, toks, cache),
-                        PROFILED_STEPS)}
+                    "eager_device_ms": (eager["us_per_step"] / 1e3
+                                        if eager["kernels"] else None)}
             graph = getattr(backend_mod, "DecodeGraph", None)
             if graph is not None:
-                line.update(graph_times(
+                fields, replay = graph_times(
                     torch, graph, model, params, toks,
                     model.init_cache(batch, ring), args.warmup + args.steps,
-                    args.warmup))
+                    args.warmup)
+                line.update(fields)
+            by_name = []
+            if args.by_name:
+                by_name.append(("eager", eager))
+                if graph is not None:
+                    by_name.append(("graph", device_by_name(
+                        torch, replay, PROFILED_STEPS)))
         print(json.dumps(line), flush=True)
+        for step_kind, table in by_name:
+            print(json.dumps({"arch": args.arch, "fmt": fmt,
+                              "by_name": step_kind, **table}), flush=True)
         del model, params, cache
         torch.cuda.empty_cache()
     return 0
