@@ -102,7 +102,12 @@ non-zero exit code:
    ``rope_qk`` and ``silu_mul`` bit for bit, ``rms_norm`` within 1e-2
    (bf16) and 1e-5 (f32), one counted launch and one kernel
    node a call, with kernel, plain and, for the norm,
-   ``torch.nn.functional.rms_norm`` times.
+   ``torch.nn.functional.rms_norm`` times; then the Mamba2 decode step's
+   ``ssm_conv_step`` and ``ssd_step`` at every SSM and hybrid serve
+   cell's width (mamba2-2.7b, zamba2-1.2b), batch 1 to 4, in each
+   format's activation and parameter dtypes and in f32, against their
+   plain versions on clones of the same conv cache and state: the
+   output, the conv cache and the state within the same tolerances.
 4. serve: llama-3.1-8b at full width (random weights from
    ``torch.Generator(device="cuda").manual_seed(0)``) under each of the
    five formats, and in bfloat16 with an int8 KV cache (``kv_quant``: 32
@@ -130,7 +135,8 @@ non-zero exit code:
    replay, logits, tokens and cache bit for bit, each step's launch
    counts equal, the graph's kernel nodes by function name equal to the
    eager step's launches (32 paged and 224 quant for llama in int8; 65
-   rms_norm, 32 rope_qk and 32 silu_mul for llama: ``fused_launches``,
+   rms_norm, 32 rope_qk and 32 silu_mul for llama, and a Mamba layer's
+   ssm_conv_step and ssd_step a decode step: ``fused_launches``,
    checked per run and per step), and
    the host time to enqueue a step and its device time from CUDA events,
    eager and replayed.
@@ -1514,14 +1520,21 @@ FUSED_REPLACES = {
         ("rope_qk", "apply_rope of q and of k, "
                     "src/repro/models/layers.py:46"),
         ("silu_mul", "jax.nn.silu(g) * u, src/repro/models/layers.py:236 "
-                     "and the MoE experts' FFN"))}
-#: rms_norm against its plain version, over the whole output: max |diff|
-#: over max |plain|. f32: the same operations, the sum in another order;
-#: bf16: one rounding of (nearly) the same f32 value, an ulp apart.
-#: rope_qk and silu_mul round where their plain ops round, and are held to
-#: them bit for bit (FUSED_EXACT)
+                     "and the MoE experts' FFN"),
+        ("ssm_conv_step", "conv_step, src/repro/models/ssm.py:67"),
+        ("ssd_step", "ssd_decode_step, src/repro/models/ssm.py:154, with "
+                     "the dt, A and gate lines of mamba_block_decode, "
+                     ":249-255"))}
+#: rms_norm and ssd_step against their plain versions, each returned
+#: tensor on its own: its max |diff| over its max |plain|. f32: the same
+#: operations, a sum (the norm's, ssd_step's over the state) in another
+#: order; bf16: one rounding of (nearly) the same f32 value, an ulp apart.
+#: ssd_step's f32 state is held at the f32 tolerance whatever the
+#: activation dtype. rope_qk, silu_mul and ssm_conv_step round where their
+#: plain ops round, and are held to them bit for bit, output and conv
+#: cache (FUSED_EXACT)
 FUSED_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-FUSED_EXACT = ("rope_qk", "silu_mul")
+FUSED_EXACT = ("rope_qk", "silu_mul", "ssm_conv_step")
 #: RoPE's theta in the fused cells (llama-3.1-8b's); the table's values do
 #: not change the kernel's work
 FUSED_THETA = 500000.0
@@ -1532,7 +1545,14 @@ HEADLINE_FUSED = {
     "rope_qk": {"dtype": "bfloat16", "B": 4, "S": 1, "H": 32, "Kv": 8,
                 "hd": 128},
     "silu_mul": {"dtype": "bfloat16", "shape": [4, 14336]},
+    "ssm_conv_step": {"arch": "mamba2-2.7b", "dtype": "bfloat16",
+                      "params": "bfloat16", "B": 4},
+    "ssd_step": {"arch": "mamba2-2.7b", "dtype": "bfloat16",
+                 "params": "bfloat16", "B": 4},
 }
+#: the argument each SSM step kernel updates in place: the conv cache, the
+#: state
+FUSED_STATE = {"ssm_conv_step": 1, "ssd_step": 8}
 
 
 def fused_cells(configs) -> dict:
@@ -1546,13 +1566,16 @@ def fused_cells(configs) -> dict:
     float32 cell); silu_mul at each run's rows over d_ff (dense, vlm,
     audio, the hybrid's shared block), and over each MoE expert stack (E,
     C, d_ff) of the grouped cells (:func:`quant_cells`), in the
-    activation dtype. Returns {name: [cell, ...]}: rms_norm (rows, D,
-    dtype, gamma dtype), rope_qk (B, S, H, Kv, hd, dtype, positions)
-    and silu_mul (shape, dtype)."""
+    activation dtype; ssm_conv_step and ssd_step at each SSM and hybrid
+    run's width, at every decode batch up to its max_batch, in each
+    format's activation and parameter dtypes and in f32. Returns {name:
+    [cell, ...]}: rms_norm (rows, D, dtype, gamma dtype), rope_qk (B, S,
+    H, Kv, hd, dtype, positions), silu_mul (shape, dtype) and the SSM
+    kernels (arch, B, dtype, parameter dtype)."""
     from repro_torch.core.precision import make_policy
     from repro_torch.models.ssm import ssm_dims
-    norms, silu = set(), set()
-    for arch, formats, _, rows in served_rows(configs):
+    norms, silu, ssm = set(), set(), set()
+    for arch, formats, kw, rows in served_rows(configs):
         cfg = configs[arch]
         widths = [cfg.d_model]
         if cfg.family in ("ssm", "hybrid"):
@@ -1562,6 +1585,10 @@ def fused_cells(configs) -> dict:
             act = str(pol.activation_dtype).removeprefix("torch.")
             gam = str(pol.param_dtype).removeprefix("torch.")
             norms |= {(r, D, act, gam) for r in rows for D in widths}
+            if cfg.family in ("ssm", "hybrid"):
+                ssm |= {(arch, B, *dts) for B in range(
+                    1, kw["max_batch"] + 1) for dts in (
+                    (act, gam), ("float32", "float32"))}
             if cfg.d_ff and not cfg.is_moe and cfg.family != "ssm":
                 silu |= {((r, cfg.d_ff), act) for r in rows}
     for (_, E, _, N), caps in quant_cells(configs)[1].items():
@@ -1575,7 +1602,58 @@ def fused_cells(configs) -> dict:
     rope |= {(*c[:5], "float32", c[6]) for c in list(rope)
              if tuple(c[2:5]) == LLAMA_HEADS}
     return {"rms_norm": sorted(norms), "rope_qk": sorted(rope),
-            "silu_mul": sorted(silu)}
+            "silu_mul": sorted(silu), "ssm_conv_step": sorted(ssm),
+            "ssd_step": sorted(ssm)}
+
+
+def _ssm_call(torch, FU, name, cell, randn):
+    """:func:`_fused_call` of an SSM step kernel: the inputs as a Mamba
+    layer's decode step makes them (x, z and dt views of the input
+    projection, x, B and C of the conv output, dt_bias and A_log as
+    ``init_mamba_layer`` draws them, D from 0.5 to 1.5, a random conv
+    cache and state); the
+    calls return (output, the conv cache or the state), which they update
+    in place."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch.serve import arch_config
+    from repro_torch.models.ssm import ssm_dims
+    arch, B, dt, pd = cell
+    cfg = arch_config(arch)
+    d = ssm_dims(cfg)
+    nh, hd, ng, ds = d["nheads"], d["headdim"], d["ngroups"], d["dstate"]
+    C, di, Kw = d["conv_channels"], d["d_inner"], cfg.ssm_conv_width
+    td, tp = getattr(torch, dt), getattr(torch, pd)
+    es, pes = torch.finfo(td).bits // 8, torch.finfo(tp).bits // 8
+    heads = torch.linspace(0, 1, nh, device="cuda")
+
+    def conv_args():
+        zx = randn((B, d["d_in_proj"]), td)
+        return (zx[:, di:di + C], randn((B, Kw - 1, C), td),
+                randn((Kw, C), tp, 0.3), randn((C,), tp, 0.1))
+
+    def ssd_args():
+        zx, xBC = randn((B, d["d_in_proj"]), td), randn((B, C), td)
+        gs = ng * ds
+        return (xBC[:, :di].reshape(B, nh, hd),
+                xBC[:, di:di + gs].reshape(B, ng, ds),
+                xBC[:, di + gs:].reshape(B, ng, ds),
+                zx[:, :di].reshape(B, nh, hd), zx[:, di + C:],
+                torch.log(torch.expm1(1e-3 + 0.099 * heads)).to(tp),
+                torch.log(1 + 15 * heads).to(tp), (0.5 + heads).to(tp),
+                randn((B, nh, hd, ds), torch.float32))
+
+    if name == "ssm_conv_step":
+        make, work = conv_args, cost.ssm_conv_step(B, C, Kw, es, pes)
+        kern = lambda *a: (FU.ssm_conv_step(*a), a[1])  # noqa: E731
+        plain = lambda *a: (FU.ssm_conv_step_plain(*a), a[1])  # noqa: E731
+    else:
+        make, work = ssd_args, cost.ssd_step(B, nh, hd, ng, ds, es, pes)
+        kern = lambda *a: (FU.ssd_step(*a), a[8])  # noqa: E731
+        plain = lambda *a: (FU.ssd_step_plain(*a), a[8])  # noqa: E731
+    sets = [make() for _ in range(_copies(work[0]))]
+    return (kern, plain, None, sets,
+            {"arch": arch, "dtype": dt, "params": pd, "B": B, "C": C,
+             "nh": nh, "hd": hd, "ng": ng, "ds": ds}, work)
 
 
 def _fused_call(torch, FU, name, cell, gen):
@@ -1591,6 +1669,8 @@ def _fused_call(torch, FU, name, cell, gen):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
+    if name in FUSED_STATE:
+        return _ssm_call(torch, FU, name, cell, randn)
     if name == "rms_norm":
         rows, D, dt, gd = cell
         x, gamma = randn((rows, D), td[dt], 3.0), randn((D,), getattr(
@@ -1632,8 +1712,11 @@ def _fused_call(torch, FU, name, cell, gen):
 
 def fused_phase(torch, FU, cells) -> dict:
     """Each fused kernel at every cell of :func:`fused_cells` against its
-    plain version (bit for bit for FUSED_EXACT, else within
-    FUSED_REL_TOL), one launch a call counted and one
+    plain version (bit for bit for FUSED_EXACT, else each returned tensor
+    within its FUSED_REL_TOL; an SSM step kernel and its plain version
+    each on its own clone of the cell's conv cache or state, which is
+    compared too),
+    one launch a call counted and one
     kernel node in a CUDA graph (``check_one_launch``), an expert stack's
     zero rows kept zero; kernel, plain (today's eager ops) and, for
     rms_norm, library (``torch.nn.functional.rms_norm``, a yardstick the
@@ -1648,25 +1731,37 @@ def fused_phase(torch, FU, cells) -> dict:
             kern, plain, lib, sets, fields, (nbytes, flops) = _fused_call(
                 torch, FU, name, cell, gen)
             args = sets[0]
+
+            def fresh():
+                """The first arg set, its state (if any) a clone."""
+                if name not in FUSED_STATE:
+                    return args
+                i = FUSED_STATE[name]
+                return (*args[:i], args[i].clone(), *args[i + 1:])
+
             before = FU.LAUNCHES[name]
-            got = kern(*args)
+            got = kern(*fresh())
             launched_once = FU.LAUNCHES[name] == before + 1
-            ref = plain(*args)
+            ref = plain(*fresh())
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
-            diff = max((a.float() - b.float()).abs().max().item()
-                       for a, b in zip(got, ref))
-            rel = diff / max(max(b.float().abs().max().item() for b in ref),
-                             1e-30)
+            diffs = [(a.float() - b.float()).abs().max().item()
+                     for a, b in zip(got, ref)]
+            rels = [d / max(b.float().abs().max().item(), 1e-30)
+                    for d, b in zip(diffs, ref)]
             zeros_kept = not (name == "silu_mul" and len(fields["shape"]) == 3
                               and got[0][:, fields["shape"][1] // 2:].any())
             bound, by = _bound(nbytes, flops, "float32")
             exact = name in FUSED_EXACT
-            tol = 0.0 if exact else FUSED_REL_TOL[fields["dtype"]]
+            # the output at the activation dtype's tolerance, a state
+            # (always f32) at f32's
+            tols = [0.0 if exact else FUSED_REL_TOL[dt] for dt in
+                    [fields["dtype"]] + ["float32"] * (len(ref) - 1)]
             equal = all(torch.equal(a, b) for a, b in zip(got, ref))
             row = {"phase": "kernel", "name": name, **fields,
-                   "max_abs_err": diff, "max_rel_err": rel, "rel_tol": tol,
+                   "max_abs_err": max(diffs), "max_rel_err": max(rels),
+                   "rel_err_by_output": rels, "rel_tol": tols,
                    "bit_equal": equal,
                    "kernel_ms": timed_ms(torch, kern, sets),
                    "plain_ms": timed_ms(torch, plain, sets),
@@ -1677,9 +1772,10 @@ def fused_phase(torch, FU, cells) -> dict:
                    "cuda_launches_per_call": check_one_launch(
                        torch, name, lambda: kern(*args))}
             emit(row)
-            if not ((equal if exact else rel <= tol) and launched_once
+            within = all(r <= t for r, t in zip(rels, tols))
+            if not ((equal if exact else within) and launched_once
                     and zeros_kept):
-                faults.append(f"{name} at {fields}: rel {rel} (tol {tol}), "
+                faults.append(f"{name} at {fields}: rel {rels} (tol {tols}), "
                               f"bit equal {equal}, counted once "
                               f"{launched_once}, zero rows kept "
                               f"{zeros_kept}")
@@ -1698,20 +1794,21 @@ def fused_launches(cfg) -> tuple:
     once a layer with attention and a gated MLP or MoE FFN, and the
     final norm; audio adds a cross-attention norm a decoder layer and,
     at prefill, its encoder's layers and final norm; hybrid its shared
-    block's two norms, RoPE and activation at each site."""
+    block's two norms, RoPE and activation at each site; a Mamba layer's
+    decode step its conv and state update (its prefill neither)."""
     L = cfg.num_layers
 
-    def per(norms, rope, silu):
-        return {"rms_norm": norms, "rope_qk": rope, "silu_mul": silu}
+    def per(norms, rope, silu, ssm=0):
+        return {"rms_norm": norms, "rope_qk": rope, "silu_mul": silu,
+                "ssm_conv_step": ssm, "ssd_step": ssm}
 
     if cfg.family == "ssm":
-        step = per(2 * L + 1, 0, 0)
-        return step, step
+        return per(2 * L + 1, 0, 0), per(2 * L + 1, 0, 0, L)
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import n_attn_sites
         s = n_attn_sites(cfg)
-        step = per(2 * L + 1 + 2 * s, s, s)
-        return step, step
+        return (per(2 * L + 1 + 2 * s, s, s),
+                per(2 * L + 1 + 2 * s, s, s, L))
     if cfg.family == "audio":
         E = cfg.enc_layers
         return (per(3 * L + 1 + 2 * E + 1, L + E, L + E),
@@ -1831,23 +1928,33 @@ def attention_launches(cfg) -> tuple:
 
 def sampled_power(fn):
     """Run ``fn()`` while ``nvidia-smi`` samples the card's power draw
-    every 100 ms, from the sampler's start to the end of the run; return
-    (fn's result, the samples in W). Fails if the sampler gave no
-    reading."""
+    every 100 ms; return (fn's result, the readings in W). ``fn`` starts
+    after the sampler's first reading, which is dropped: the sampler
+    takes a moment to start, and a run shorter than that (stablelm-1.6b's
+    serve run takes about 0.1 s) would otherwise end before it. The
+    readings are those buffered while ``fn`` ran or, for a run that ends
+    between two readings, the first after its end. Fails if the sampler
+    gives no reading."""
     import os
     ids = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0].strip()
     proc = subprocess.Popen(POWER_SAMPLER + ["-i", ids or "0"],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+    watts = ""
     try:
-        out = fn()              # serve() ends with a device synchronise
+        if proc.stdout.readline():
+            out = fn()          # serve() ends with a device synchronise
+            watts = proc.stdout.readline()
     finally:
         proc.terminate()
-        stdout, stderr = proc.communicate(timeout=60)
-    watts = [float(x) for x in stdout.split()]
+        # proc.stdout, not communicate(): readline may have buffered more
+        # than the line it returned
+        watts += proc.stdout.read()
+        stderr = proc.stderr.read()
+        proc.wait(timeout=60)
     if not watts:
         raise SystemExit(f"the power sampler gave no reading: {stderr!r}")
-    return out, watts
+    return out, [float(x) for x in watts.split()]
 
 
 # llama-3.1-8b's serve phase and the MoE cells: 8 requests, prompts of
@@ -2090,13 +2197,19 @@ GRAPH_PAIRS = [(("llama-3.1-8b", "int8"), ("llama-3.1-8b", "nf4")),
 #: 2453 before the fused kernels (PERF.md section 5) less the 1500 they
 #: must take out at least
 LLAMA_BF16_NODES_MAX = 2453 - 1500
+#: the same for mamba2-2.7b and zamba2-1.2b in bf16: their 2886 and 1843
+#: before the SSM step's two kernels (PERF.md section 5) less the 2000
+#: and 1200 those must take out at least
+MAMBA2_BF16_NODES_MAX = 2886 - 2000
+ZAMBA2_BF16_NODES_MAX = 1843 - 1200
 #: the CUDA kernel functions each kernel module launches, by a part of
 #: their names
 KERNEL_FUNCTIONS = {"quant_matmul": ("qmm_wgmma_kernel", "qmm_tile_kernel"),
                     "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
                     "paged_attention": ("paged_kernel",),
                     "fused": ("rms_norm_kernel", "rope_qk_kernel",
-                              "silu_mul_kernel")}
+                              "silu_mul_kernel", "ssm_conv_step_kernel",
+                              "ssd_step_kernel")}
 
 
 def graph_check(torch, mods, model, params, backend) -> dict:
@@ -2527,16 +2640,23 @@ def serve_phase(torch, mods) -> dict:
             "against_nodes": sum(nb.values()),
             "differ": {f: [na[f], nb[f]] for f in sorted(set(na) | set(nb))
                        if na[f] != nb[f]}})
-    llama = GRAPH_NODES[("llama-3.1-8b", "bfloat16")]
+    ceilings = {"llama-3.1-8b": LLAMA_BF16_NODES_MAX,
+                "mamba2-2.7b": MAMBA2_BF16_NODES_MAX,
+                "zamba2-1.2b": ZAMBA2_BF16_NODES_MAX}
+    nodes = {arch: GRAPH_NODES[(arch, "bfloat16")] for arch in ceilings}
     emit({"phase": "serve", "check": "graph_nodes", "pairs": pairs,
-          "llama_bf16_nodes": sum(llama.values()),
-          "llama_bf16_fused_nodes": sum(
-              n for f, n in llama.items()
-              if any(k in f for k in KERNEL_FUNCTIONS["fused"]))})
-    if sum(llama.values()) > LLAMA_BF16_NODES_MAX:
-        raise SystemExit(f"serve: a llama-3.1-8b bf16 replay has "
-                         f"{sum(llama.values())} kernel nodes, more than "
-                         f"{LLAMA_BF16_NODES_MAX}")
+          **{f"{arch}_bf16_nodes": sum(n.values())
+             for arch, n in nodes.items()},
+          **{f"{arch}_bf16_fused_nodes": sum(
+              k for f, k in n.items()
+              if any(name in f for name in KERNEL_FUNCTIONS["fused"]))
+             for arch, n in nodes.items()},
+          "nodes_max": ceilings})
+    for arch, most in ceilings.items():
+        if sum(nodes[arch].values()) > most:
+            raise SystemExit(f"serve: a {arch} bf16 replay has "
+                             f"{sum(nodes[arch].values())} kernel nodes, "
+                             f"more than {most}")
     return out
 
 

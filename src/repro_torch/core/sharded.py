@@ -90,6 +90,35 @@ def on_shards(fn: Callable, out_placements, *args: Any,
                      redistribute_inputs=True)(*args, **kwargs)
 
 
+def by_table(fn: Callable, dims, *args):
+    """``fn(*args)``; on DTensors on each rank's shards. ``dims`` is a
+    pair of tables, each with one entry per argument and then per output:
+    its rows dim, and its heads (or channels) dim; None for replicated.
+    On a mesh axis that splits the first argument's rows (its dim 0),
+    every argument and output is split on its rows dim; on the ``model``
+    axis, when it divides the first argument's heads, on its heads dim;
+    elsewhere all are replicated."""
+    if not is_sharded(*args):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    rows, heads = dims
+    lead = args[0]
+    mesh = lead.device_mesh
+    pls = [[] for _ in rows]
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, lead.placements)):
+        if isinstance(p, Shard) and p.dim == 0:
+            pick = rows
+        elif name == "model" and lead.shape[heads[0]] % mesh.size(i) == 0:
+            pick = heads
+        else:
+            pick = (None,) * len(rows)
+        for lst, d in zip(pls, pick):
+            lst.append(Replicate() if d is None else Shard(d))
+    outs = pls[len(args):]
+    return on_shards(fn, outs[0] if len(outs) == 1 else tuple(outs), *args,
+                     in_placements=pls[:len(args)])
+
+
 def reduce_partial(t):
     """A DTensor's pending sums reduced (one all-reduce), its other
     placements kept."""

@@ -96,3 +96,30 @@ def silu_mul(n: int, es: int) -> Tuple[int, int]:
     """g and u read and out written, ``n`` elements each at ``es`` bytes;
     a negation, an exp, a sum, a division and a product an element."""
     return 3 * es * n, 5 * n
+
+
+def ssm_conv_step(rows: int, C: int, K: int, es: int,
+                  param_es: int) -> Tuple[int, int]:
+    """One token's depthwise causal conv: x (rows, C) read and y (rows, C)
+    written at ``es`` bytes an element, the cache (rows, K - 1, C) read
+    and written back shifted, the taps (K, C) and the bias (C,) read at
+    ``param_es``; a product and a sum a tap, the bias, and SiLU's
+    negation, exp, sum and division an element."""
+    return (es * (2 * rows * C + 2 * rows * (K - 1) * C)
+            + param_es * (K + 1) * C, (2 * K + 5) * rows * C)
+
+
+def ssd_step(rows: int, nh: int, hd: int, ng: int, ds: int, es: int,
+             param_es: int) -> Tuple[int, int]:
+    """One token's SSD state update and gated output: the f32 state
+    (rows, nh, hd, ds) read and written; x, z and the output g (rows,
+    nh, hd), B and C (rows, ng, ds) and dt (rows, nh) at ``es`` bytes an
+    element; dt_bias, A_log and D (nh,) at ``param_es``. A decay, an
+    input product, a sum, a product with C and its sum a state element;
+    x * dt, x * D, their sum, SiLU's four and the gate's product a row of
+    the state; softplus (five), A's exp and negation, dt * A and its exp
+    a head."""
+    return (4 * 2 * rows * nh * hd * ds
+            + es * (3 * rows * nh * hd + 2 * rows * ng * ds + rows * nh)
+            + param_es * 3 * nh,
+            5 * rows * nh * hd * ds + 8 * rows * nh * hd + 9 * rows * nh)

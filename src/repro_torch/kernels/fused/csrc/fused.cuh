@@ -1,7 +1,8 @@
 // Helpers of the fused elementwise kernels (rms_norm.cu, rope.cu,
-// silu_mul.cu): conversions between the storage types and f32, rounded
-// to nearest even as torch's .to() rounds, and a 16-byte vector of
-// elements for coalesced loads and stores.
+// silu_mul.cu, ssm_conv_step.cu, ssd_step.cu): conversions between the
+// storage types and f32, rounded to nearest even as torch's .to() rounds,
+// a 16-byte vector of elements for coalesced loads and stores, a warp's
+// sum, and SiLU as torch computes it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +49,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// silu(x) = x / (1 + exp(-x)) in f32 with the precise expf and an IEEE
+// division: the bits of torch's F.silu on a float
+__device__ __forceinline__ float silu(float x) {
+  return __fdiv_rn(x, __fadd_rn(1.f, expf(-x)));
 }
 
 }  // namespace fused

@@ -31,9 +31,7 @@ constexpr int kThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ T silu_mul1(T g, T u) {
-  const float x = to_f32(g);
-  const float s = to_f32(from_f32<T>(__fdiv_rn(x, __fadd_rn(1.f,
-                                                            expf(-x)))));
+  const float s = to_f32(from_f32<T>(fused::silu(to_f32(g))));
   return from_f32<T>(__fmul_rn(s, to_f32(u)));
 }
 

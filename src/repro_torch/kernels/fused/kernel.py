@@ -1,6 +1,7 @@
 """The model's fused elementwise passes: RMS normalisation, RoPE over q
-and k, and the gated activation ``silu(g) * u``, each a CUDA C++ kernel
-for Hopper bound with ctypes, beside its plain PyTorch version.
+and k, the gated activation ``silu(g) * u``, and the Mamba2 decode
+step's conv and state update, each a CUDA C++ kernel for Hopper bound
+with ctypes, beside its plain PyTorch version.
 
 No Pallas kernel stands behind them. The reference's ``rms_norm``,
 ``apply_rope`` and ``jax.nn.silu(g) * u`` (``src/repro/models/layers.py``)
@@ -26,6 +27,22 @@ the plain versions' rounding points:
   rounds them.
 - :func:`silu_mul`: g and u of one shape and dtype (bf16 or f32);
   ``silu(g)`` rounded to the dtype, then the product rounded.
+- :func:`ssm_conv_step` (``csrc/ssm_conv_step.cu``): one token's
+  depthwise causal conv, the counterpart of the reference's
+  ``conv_step`` (``src/repro/models/ssm.py:67``); x (B, C), a view of
+  the input projection (any row stride), the layer's conv cache (B,
+  K - 1, C) shifted in place; the K taps summed in f32 in tap order, the
+  bias, SiLU, one rounding.
+- :func:`ssd_step` (``csrc/ssd_step.cu``): one token's SSD state update
+  and gated output, the counterpart of the reference's
+  ``ssd_decode_step`` (``src/repro/models/ssm.py:154``) with the dt, A
+  and gate lines of ``mamba_block_decode`` (:249-255); the f32 state
+  (B, nh, hd, ds) updated in place, ``y = C . h + x * D`` rounded to the
+  activation dtype, ``silu(z)`` rounded, their product rounded.
+
+The reference's decode step has no Pallas kernel either: XLA fuses these
+chains under ``jax.jit(model.decode_step)`` (``src/repro/serving/
+backend.py:451``), where the port ran about 45 eager ops a Mamba layer.
 
 For a tensor on the CPU each returns its plain version. For a CUDA
 tensor it checks device, dtypes, shapes and contiguity, raises on
@@ -55,7 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import op_analysis
-from repro_torch.core.sharded import is_sharded, on_shards
+from repro_torch.core.sharded import by_table, is_sharded, on_shards
 from repro_torch.kernels import cost, cuda_build
 from repro_torch.kernels.cuda_build import I, P, check
 
@@ -65,7 +82,10 @@ HEADER = ("fused.cuh",)
 # name -> library: rms_norm (x, gamma, out, rows, D, eps, x_kind, g_kind,
 # vec); rope (q, k, q_out, k_out, pos, freq, B, S, H, Kv, hd, the
 # strides of q, k and the positions, pos_i64, heads_per_block, is_bf16);
-# silu_mul (g, u, out, n, vec, blocks, is_bf16)
+# silu_mul (g, u, out, n, vec, blocks, is_bf16); ssm_conv_step (x, cache,
+# w, b, y, rows, C, K, x's row stride, x_kind, p_kind); ssd_step (x, B, C,
+# z, dt, dt_bias, A_log, D, h, g, rows, nh, hd, ng, ds, the two outer
+# strides of x, B, C and z and the row stride of dt, x_kind, p_kind)
 SOURCES = {
     "rms_norm": cuda_build.Source(
         "rms_norm", CSRC, (P, P, P, I, I, cuda_build.F, I, I, I), HEADER),
@@ -73,6 +93,11 @@ SOURCES = {
         "rope", CSRC, (P,) * 6 + (I,) * 5 + (L,) * 8 + (I,) * 3, HEADER),
     "silu_mul": cuda_build.Source(
         "silu_mul", CSRC, (P, P, P, L, I, I, I), HEADER),
+    "ssm_conv_step": cuda_build.Source(
+        "ssm_conv_step", CSRC, (P,) * 5 + (I, I, I, L, I, I), HEADER),
+    "ssd_step": cuda_build.Source(
+        "ssd_step", CSRC, (P,) * 10 + (I,) * 5 + (L,) * 9 + (I, I),
+        HEADER),
 }
 NAMES = tuple(SOURCES)
 
@@ -130,6 +155,67 @@ def rope_qk_plain(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
 
 def silu_mul_plain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return F.silu(g) * u
+
+
+def conv_step(x_t: torch.Tensor, conv_cache: torch.Tensor, conv_w,
+              conv_b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token causal conv. x_t (B, C); conv_cache (B, K-1, C), the
+    cached inputs oldest first; conv_w (K, C). The taps summed in f32 in
+    tap order, plus conv_b, SiLU, rounded to x_t's dtype. Returns (output
+    (B, C), the new cache (B, K-1, C))."""
+    window = torch.cat([conv_cache, x_t[:, None, :]], dim=1)
+    acc = torch.zeros(x_t.shape, dtype=torch.float32, device=x_t.device)
+    for k in range(conv_w.shape[0]):
+        acc = acc + window[:, k].float() * conv_w[k].float()
+    return (F.silu(acc + conv_b.float()).to(x_t.dtype),
+            window[:, 1:, :])
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O(1) recurrent update for one token. x (b, nh, hd); dt (b, nh);
+    B, C (b, ng, ds); h (b, nh, hd, ds) f32. Returns (y rounded to x's
+    dtype, the new state)."""
+    nh, ng = x.shape[1], B.shape[1]
+    rep = nh // ng
+    dA = torch.exp(dt * A[None, :])                    # (b, nh)
+    Br = B.repeat_interleave(rep, dim=1)               # (b, nh, ds)
+    Cr = C.repeat_interleave(rep, dim=1)
+    xdt = x.float() * dt[..., None]
+    h_new = h * dA[..., None, None] \
+        + xdt[..., None] * Br[:, :, None, :].float()
+    y = torch.einsum("bghs,bgs->bgh", h_new, Cr.float())
+    y = y + x.float() * D[None, :, None]
+    return y.to(x.dtype), h_new
+
+
+def ssm_conv_step_plain(x: torch.Tensor, conv_cache: torch.Tensor,
+                        conv_w: torch.Tensor,
+                        conv_b: torch.Tensor) -> torch.Tensor:
+    """:func:`conv_step` with the cache shifted in place: it then holds
+    the last K - 1 inputs, x last."""
+    y, shifted = conv_step(x, conv_cache, conv_w, conv_b)
+    conv_cache.copy_(shifted)
+    return y
+
+
+def ssd_step_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                   z: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+                   A_log: torch.Tensor, D: torch.Tensor,
+                   h: torch.Tensor) -> torch.Tensor:
+    """x and z (b, nh, hd), B and C (b, ng, ds), dt (b, nh) in the
+    activation dtype; dt_bias, A_log, D (nh,); the f32 state h (b, nh,
+    hd, ds), updated in place. ``dt = softplus(dt + dt_bias)`` (as
+    ``logaddexp(., 0)``), ``A = -exp(A_log)``, then
+    :func:`ssd_decode_step`; its y times ``silu(z)`` rounded to x's
+    dtype: the gated output (b, nh, hd) that the gate norm takes."""
+    d = dt.float() + dt_bias.float()
+    d = torch.logaddexp(d, torch.zeros_like(d))
+    y, h_new = ssd_decode_step(x, d, -torch.exp(A_log.float()), B, C,
+                               D.float(), h)
+    h.copy_(h_new)
+    return y * F.silu(z.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +391,74 @@ def _silu_on_shards(g, u):
     return on_shards(silu_mul, pl, g, u, in_placements=[pl, pl])
 
 
+def check_ssm_conv_step(x: torch.Tensor, conv_cache: torch.Tensor,
+                        conv_w: torch.Tensor, conv_b: torch.Tensor) -> None:
+    """Raise on anything the ssm_conv_step kernel does not take (any
+    device)."""
+    if x.ndim != 2 or conv_w.ndim != 2 or conv_w.shape[1] != x.shape[1] \
+            or conv_w.shape[0] < 2:
+        raise ValueError(f"expected x (B, C) and taps (K >= 2, C); got "
+                         f"{tuple(x.shape)} and {tuple(conv_w.shape)}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"no ssm_conv_step kernel for x of dtype {x.dtype}; "
+                        f"expected one of {DTYPES}")
+    if conv_w.dtype not in GAMMA_KINDS:
+        raise TypeError(f"no ssm_conv_step kernel for taps of dtype "
+                        f"{conv_w.dtype}; expected one of "
+                        f"{tuple(GAMMA_KINDS)}")
+    (B, C), K = x.shape, conv_w.shape[0]
+    check("conv_cache", conv_cache, x.dtype, (B, K - 1, C), x.device)
+    check("conv_w", conv_w, conv_w.dtype, (K, C), x.device)
+    check("conv_b", conv_b, conv_w.dtype, (C,), x.device)
+    if x.stride(1) != 1:
+        raise ValueError("x needs a contiguous channel axis")
+
+
+def check_ssd_step(x, B, C, z, dt, dt_bias, A_log, D, h) -> None:
+    """Raise on anything the ssd_step kernel does not take (any device)."""
+    if x.ndim != 3 or B.ndim != 3:
+        raise ValueError(f"expected x (b, nh, hd) and B (b, ng, ds); got "
+                         f"{tuple(x.shape)} and {tuple(B.shape)}")
+    b, nh, hd = x.shape
+    ng, ds = B.shape[1], B.shape[2]
+    if x.dtype not in DTYPES:
+        raise TypeError(f"no ssd_step kernel for x of dtype {x.dtype}; "
+                        f"expected one of {DTYPES}")
+    if ng < 1 or nh % ng or ds % 4:
+        raise ValueError(f"no ssd_step kernel for {nh} heads in {ng} "
+                         f"groups with a state of {ds}: the groups must "
+                         f"divide the heads and 4 the state")
+    for name, t, shape in (("x", x, (b, nh, hd)), ("z", z, (b, nh, hd)),
+                           ("B", B, (b, ng, ds)), ("C", C, (b, ng, ds)),
+                           ("dt", dt, (b, nh))):
+        if t.dtype != x.dtype or tuple(t.shape) != shape \
+                or t.device != x.device:
+            raise ValueError(f"{name} of {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}; expected {x.dtype} {shape} on "
+                             f"{x.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last axis")
+    if dt_bias.dtype not in GAMMA_KINDS:
+        raise TypeError(f"no ssd_step kernel for parameters of dtype "
+                        f"{dt_bias.dtype}; expected one of "
+                        f"{tuple(GAMMA_KINDS)}")
+    for name, t in (("dt_bias", dt_bias), ("A_log", A_log), ("D", D)):
+        check(name, t, dt_bias.dtype, (nh,), x.device)
+    check("h", h, torch.float32, (b, nh, hd, ds), x.device)
+
+
+# Where each argument, then the output, of the SSM step kernels is split
+# in the dry run (core.sharded.by_table): (its dim on a mesh axis that
+# splits the rows, its dim on the "model" axis when that divides the
+# heads or channels); None: replicated. The state and the conv cache are
+# updated in place on their shards.
+_CONV_STEP = ((0, 0, None, None, 0),                 # x, cache, w, b -> y
+              (1, 2, 1, 0, 1))
+# x, B, C, z, dt, dt_bias, A_log, D, h -> g
+_SSD_STEP = ((0, 0, 0, 0, 0, None, None, None, 0, 0),
+             (1, None, None, 1, 1, 0, 0, 0, 1, 1))
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
@@ -396,3 +550,70 @@ def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
             silu_mul_plan(n, vec, _sm_count(g.get_device())),
             int(g.dtype == torch.bfloat16))
     return out
+
+
+def ssm_conv_step(x: torch.Tensor, conv_cache: torch.Tensor,
+                  conv_w: torch.Tensor, conv_b: torch.Tensor) -> torch.Tensor:
+    """One token x (B, C) (a view of the input projection: channels
+    contiguous, any row stride) through the depthwise causal conv with
+    the cached inputs (B, K - 1, C), which are shifted in place, taps
+    conv_w (K, C) and bias conv_b (C,) -> (B, C) in x's dtype."""
+    cuda_build.refuse_grad("ssm_conv_step", x, conv_cache, conv_w, conv_b)
+    if x.device.type == "cpu":
+        return ssm_conv_step_plain(x, conv_cache, conv_w, conv_b)
+    if x.device.type != "cuda":
+        if is_sharded(x, conv_cache, conv_w, conv_b):
+            return by_table(ssm_conv_step, _CONV_STEP, x, conv_cache,
+                            conv_w, conv_b)
+        _meta_branch("ssm_conv_step", x)
+        nbytes, flops = cost.ssm_conv_step(
+            x.shape[0], x.shape[1], conv_w.shape[0], x.element_size(),
+            conv_w.element_size())
+        op_analysis.record("ssm_conv_step", flops, nbytes)
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    check_ssm_conv_step(x, conv_cache, conv_w, conv_b)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel():
+        cuda_build.launch(
+            SOURCES["ssm_conv_step"], LAUNCHES, x.data_ptr(),
+            conv_cache.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], conv_w.shape[0],
+            x.stride(0), int(x.dtype == torch.bfloat16),
+            GAMMA_KINDS[conv_w.dtype])
+    return y
+
+
+def ssd_step(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             z: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+             A_log: torch.Tensor, D: torch.Tensor,
+             h: torch.Tensor) -> torch.Tensor:
+    """One token's SSD update of the f32 state h (b, nh, hd, ds), in
+    place, and its gated output (b, nh, hd) in x's dtype (see
+    :func:`ssd_step_plain`). x, z (b, nh, hd), B, C (b, ng, ds) and dt
+    (b, nh) may be views of the conv output and the input projection:
+    their last axis contiguous, the others any stride."""
+    cuda_build.refuse_grad("ssd_step", x, B, C, z, dt, dt_bias, A_log, D,
+                           h)
+    if x.device.type == "cpu":
+        return ssd_step_plain(x, B, C, z, dt, dt_bias, A_log, D, h)
+    if x.device.type != "cuda":
+        if is_sharded(x, B, C, z, dt, dt_bias, A_log, D, h):
+            return by_table(ssd_step, _SSD_STEP, x, B, C, z, dt, dt_bias,
+                            A_log, D, h)
+        _meta_branch("ssd_step", x)
+        nbytes, flops = cost.ssd_step(*x.shape, *B.shape[1:],
+                                      x.element_size(), A_log.element_size())
+        op_analysis.record("ssd_step", flops, nbytes)
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    check_ssd_step(x, B, C, z, dt, dt_bias, A_log, D, h)
+    if h.data_ptr() % 16:
+        raise ValueError("h must be 16-byte aligned")
+    g = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel():
+        cuda_build.launch(
+            SOURCES["ssd_step"], LAUNCHES, *(t.data_ptr() for t in (
+                x, B, C, z, dt, dt_bias, A_log, D, h, g)),
+            *x.shape, *B.shape[1:], *x.stride()[:2], *B.stride()[:2],
+            *C.stride()[:2], *z.stride()[:2], dt.stride(0),
+            int(x.dtype == torch.bfloat16), GAMMA_KINDS[A_log.dtype])
+    return g

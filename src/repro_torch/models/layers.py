@@ -12,8 +12,8 @@ norm, RoPE of q and k, and the gated activation run through the fused
 kernels on the card (``repro_torch.kernels.fused``), one launch each.
 
 Where the reference builds new arrays, the cache functions here write
-into the cache tensors in place (:func:`write_rows`, :func:`write_layer`;
-on DTensors, in the dry run, shard by shard).
+into the cache tensors in place (:func:`write_rows`; on
+DTensors, in the dry run, shard by shard).
 """
 from __future__ import annotations
 
@@ -187,18 +187,6 @@ def write_rows(slot: torch.Tensor, *pairs) -> None:
     rows = torch.arange(dst.shape[0], device=dst.device)
     for dst, value in pairs:
         dst[rows, slot] = value.to(dst.dtype)
-
-
-def write_layer(dst: torch.Tensor, i: int, value: torch.Tensor) -> None:
-    """dst[i] = value, in place (one layer of a stacked cache); on
-    DTensors (the dry run) shard by shard."""
-    if is_sharded(dst, value):
-        def local(d, v):
-            d[i] = v
-
-        _write_shards(local, dst, 0, value)
-        return
-    dst[i] = value
 
 
 def _write_rows_local(dst, slot, value) -> None:

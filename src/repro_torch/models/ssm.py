@@ -8,9 +8,15 @@ in the reference). Decode is the O(1) recurrent update of one token.
 :func:`forward_seq` and :func:`decode_step` run a stack of these blocks,
 for the SSM family and, with the shared attention block hooked in after
 its layers, for the hybrid (:mod:`repro_torch.models.hybrid`).
-The reference has no Pallas kernel on this path, so these are plain
-torch ops; the two projections of a block, ``w_in`` and ``w_out``, go
-through :func:`repro_torch.quant.apply.linear_apply` and so reach the
+The reference has no Pallas kernel on this path. Prefill runs plain
+torch ops; a decode step runs its conv and its state update as two
+hand-written kernels (:func:`~repro_torch.kernels.fused.kernel.
+ssm_conv_step`, :func:`~repro_torch.kernels.fused.kernel.ssd_step`), which
+update the layer's conv cache and state in place, and its norms through
+the ``rms_norm`` kernel. :func:`conv_step` and :func:`ssd_decode_step`
+(out of place) are those kernels' plain versions. The two projections of
+a block, ``w_in`` and ``w_out``, go through
+:func:`repro_torch.quant.apply.linear_apply` and so reach the
 int8/nf4 kernels under those formats.
 
 The rounding points are the reference's: the conv and the scan run in
@@ -36,8 +42,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.core.sharded import gather_last, is_sharded, on_shards
-from repro_torch.models.layers import rms_norm, write_layer
+from repro_torch.core.sharded import by_table, gather_last, is_sharded
+# conv_step and ssd_decode_step (out of place) are the plain versions
+# of the decode step's ssm_conv_step and ssd_step
+from repro_torch.kernels.fused.kernel import (  # noqa: F401
+    conv_step, ssd_decode_step, ssd_step, ssm_conv_step)
+from repro_torch.models.layers import rms_norm
 from repro_torch.quant.apply import linear_apply
 
 #: the SSD scan's chunk length, the reference's; a sequence it does not
@@ -82,16 +92,6 @@ def causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
     for i in range(K):
         out = out + pad[:, i:i + S, :].float() * conv_w[i].float()
     return F.silu(out + conv_b.float()).to(xBC.dtype)
-
-
-def conv_step(x_t: torch.Tensor, conv_cache: torch.Tensor, conv_w,
-              conv_b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-token causal conv. x_t (B, C); conv_cache (B, K-1, C). Returns
-    (output (B, C), the new cache (B, K-1, C))."""
-    window = torch.cat([conv_cache, x_t[:, None, :]], dim=1)
-    out = torch.einsum("bkc,kc->bc", window.float(), conv_w.float())
-    return (F.silu(out + conv_b.float()).to(x_t.dtype),
-            window[:, 1:, :])
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -162,63 +162,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.reshape(b, S, nh, hd).to(x.dtype), h.float()
 
 
-# Where each argument, then each output, of the SSM's ops is split in the
-# dry run: (its dim on a mesh axis that splits the rows, its dim on the
-# "model" axis when that divides the heads or channels); None: replicated.
+# Where each argument, then each output, of the SSM's prefill ops is
+# split in the dry run (core.sharded.by_table): (its dim on a mesh axis
+# that splits the rows, its dim on the "model" axis when that divides the
+# heads or channels); None: replicated.
 _CONV = ((0, None, None, 0),                   # xBC, conv_w, conv_b -> y
          (2, 1, 0, 2))
-_CONV_STEP = ((0, 0, None, None, 0, 0),        # x_t, cache, w, b -> x_t,
-              (1, 2, 1, 0, 1, 2))              # cache
-_SSD_STEP = ((0, 0, None, 0, 0, None, 0, 0, 0),    # x dt A B C D h -> y h
-             (1, 1, 0, None, None, 0, 1, 1, 1))
 _SSD = ((0, 0, None, 0, 0, None, 0, 0, 0),         # x dt A B C D h0 -> y h
         (2, 2, 0, None, None, 0, 1, 2, 1))
-
-
-def _sharded(fn, dims, *args):
-    """``fn(*args)``; on DTensors (the dry run) on each rank's shards, as
-    ``dims`` (one of the tables above) places them. On a mesh axis that
-    splits the first argument's rows, every argument and output is split
-    on its rows dim; on the ``model`` axis, when it divides the first
-    argument's heads (or channels), on its heads dim; elsewhere all are
-    replicated."""
-    if not is_sharded(*args):
-        return fn(*args)
-    from torch.distributed.tensor import Replicate, Shard
-    rows, heads = dims
-    lead = args[0]
-    mesh = lead.device_mesh
-    pls = [[] for _ in rows]
-    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, lead.placements)):
-        if isinstance(p, Shard) and p.dim == 0:
-            pick = rows
-        elif name == "model" and lead.shape[heads[0]] % mesh.size(i) == 0:
-            pick = heads
-        else:
-            pick = (None,) * len(rows)
-        for lst, d in zip(pls, pick):
-            lst.append(Replicate() if d is None else Shard(d))
-    outs = pls[len(args):]
-    return on_shards(fn, outs[0] if len(outs) == 1 else tuple(outs), *args,
-                     in_placements=pls[:len(args)])
-
-
-def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                    h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """O(1) recurrent update for one token. x (b, nh, hd); dt (b, nh);
-    B, C (b, ng, ds); h (b, nh, hd, ds) f32."""
-    nh, ng = x.shape[1], B.shape[1]
-    rep = nh // ng
-    dA = torch.exp(dt * A[None, :])                    # (b, nh)
-    Br = B.repeat_interleave(rep, dim=1)               # (b, nh, ds)
-    Cr = C.repeat_interleave(rep, dim=1)
-    xdt = x.float() * dt[..., None]
-    h_new = h * dA[..., None, None] \
-        + xdt[..., None] * Br[:, :, None, :].float()
-    y = torch.einsum("bghs,bgs->bgh", h_new, Cr.float())
-    y = y + x.float() * D[None, :, None]
-    return y.to(x.dtype), h_new
 
 
 def _heads(xBC: torch.Tensor, d: Dict[str, int], lead):
@@ -264,12 +215,12 @@ def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         xBC, 1, idx.clamp(0, S - 1)[:, :, None].expand(-1, -1,
                                                         xBC.shape[-1]))
     tail = tail * valid[:, :, None].to(tail.dtype)
-    xs, Bs, Cs = _heads(_sharded(causal_conv, _CONV, xBC, p["conv_w"],
+    xs, Bs, Cs = _heads(by_table(causal_conv, _CONV, xBC, p["conv_w"],
                                  p["conv_b"]), d, (b, S))
     dt = _softplus(dt.float() + p["dt_bias"].float()) \
         * seq_mask[..., None].float()
     A = -torch.exp(p["A_log"].float())
-    y, h = _sharded(ssd_chunked, _SSD, xs, dt, A, Bs, Cs, p["D"].float(),
+    y, h = by_table(ssd_chunked, _SSD, xs, dt, A, Bs, Cs, p["D"].float(),
                     h0)
     out = _gated_out(p, y.reshape(b, S, d["d_inner"]), z, policy)
     return res + out, h, tail
@@ -279,23 +230,22 @@ def mamba_block_decode(p: Dict[str, Any], x: torch.Tensor,
                        cfg: ModelConfig, policy: PrecisionPolicy,
                        h: torch.Tensor, conv_cache: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token Mamba2 step. x (B, D); h (B, nh, hd, ds);
-    conv_cache (B, K-1, conv_channels). Returns (out, h, conv cache)."""
+    """One-token Mamba2 step. x (B, D); h (B, nh, hd, ds) f32;
+    conv_cache (B, K-1, conv_channels). h and conv_cache are updated in
+    place (a layer's views of the stacked cache). Returns (out, h, conv
+    cache)."""
     d = ssm_dims(cfg)
+    b = x.shape[0]
     res = x
     xn = rms_norm(x, p["norm"])
     zxbcdt = linear_apply(p["w_in"], xn, policy)
     z, xBC, dt = _split_in_proj(zxbcdt, cfg)
-    xBC, conv_cache = _sharded(conv_step, _CONV_STEP, xBC, conv_cache,
-                               p["conv_w"], p["conv_b"])
-    b = x.shape[0]
+    xBC = ssm_conv_step(xBC, conv_cache, p["conv_w"], p["conv_b"])
     xs, Bs, Cs = _heads(xBC, d, (b,))
-    dt = _softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-    y, h = _sharded(ssd_decode_step, _SSD_STEP, xs, dt, A, Bs, Cs,
-                    p["D"].float(), h)
-    out = _gated_out(p, y.reshape(b, d["d_inner"]), z, policy)
-    return res + out, h, conv_cache
+    g = ssd_step(xs, Bs, Cs, z.reshape(b, d["nheads"], d["headdim"]), dt,
+                 p["dt_bias"], p["A_log"], p["D"], h)
+    y = rms_norm(g.reshape(b, d["d_inner"]), p["gate_norm"])
+    return res + linear_apply(p["w_out"], y, policy), h, conv_cache
 
 
 #: ``after_layer(i, x) -> x``: what a stack runs after its layer i (the
@@ -335,11 +285,8 @@ def decode_step(layers, x2d: torch.Tensor, cache: Dict[str, Any],
     :func:`forward_seq`) is updated in place, ``pos`` advanced by one.
     Returns the hidden state (B, D)."""
     for i, lp in enumerate(layers):
-        x2d, h, conv = mamba_block_decode(lp, x2d, cfg, policy,
-                                          cache["ssm_state"][i],
-                                          cache["conv"][i])
-        write_layer(cache["ssm_state"], i, h)
-        write_layer(cache["conv"], i, conv)
+        x2d = mamba_block_decode(lp, x2d, cfg, policy, cache["ssm_state"][i],
+                                 cache["conv"][i])[0]
         if after_layer is not None:
             x2d = after_layer(i, x2d)
     cache["pos"].add_(1)

@@ -23,6 +23,10 @@ from repro_torch.kernels import cost  # noqa: E402
 from repro_torch.kernels.fused import kernel as K  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
+#: the three kernels this file holds (``tests/test_torch_ssm_step.py``
+#: holds the Mamba2 step's two)
+NAMES = ("rms_norm", "rope_qk", "silu_mul")
+SSM_NAMES = ("ssm_conv_step", "ssd_step")
 HEAD_DIMS = (64, 96, 120, 128)
 THETA = 500000.0
 F32_TOL = 2e-5          # tests/test_torch_model.py's f32 layer tolerance
@@ -233,7 +237,7 @@ def test_a_train_step_records_each_fused_call(remat):
                            {"tokens": toks, "labels": toks}, remat=remat)
         torch.autograd.grad(total, leaves, allow_unused=True)
     L, r = cfg.num_layers, 2 if remat else 1
-    assert {n: c.cost.kernels.get(n) for n in K.NAMES} == {
+    assert {n: c.cost.kernels.get(n) for n in NAMES} == {
         "rms_norm": 2 * L * r + 1, "rope_qk": L * r, "silu_mul": L * r}
 
 
@@ -340,7 +344,7 @@ def test_a_step_records_each_fused_call(arch, fmt, prefill):
     final norm), L rope_qk and L silu_mul, whatever the format."""
     cfg, calls = _kernel_calls(arch, fmt, prefill)
     L = cfg.num_layers
-    assert {n: calls.get(n) for n in K.NAMES} == {
+    assert {n: calls.get(n) for n in NAMES} == {
         "rms_norm": 2 * L + 1, "rope_qk": L, "silu_mul": L}
 
 
@@ -348,14 +352,14 @@ def test_a_step_records_each_fused_call(arch, fmt, prefill):
 def test_ssm_and_hybrid_steps_record_their_norms(arch):
     """Mamba2: a layer's norm and its gate norm, and the final norm;
     zamba2 adds its shared block's two norms, RoPE and activation at each
-    site."""
+    site; each Mamba layer's conv and state update."""
     from repro_torch.models.hybrid import n_attn_sites
     cfg, calls = _kernel_calls(arch)
     L = cfg.num_layers
     sites = n_attn_sites(cfg) if cfg.family == "hybrid" else 0
-    assert {n: calls.get(n, 0) for n in K.NAMES} == {
+    assert {n: calls.get(n, 0) for n in NAMES + SSM_NAMES} == {
         "rms_norm": 2 * L + 1 + 2 * sites, "rope_qk": sites,
-        "silu_mul": sites}
+        "silu_mul": sites, "ssm_conv_step": L, "ssd_step": L}
 
 
 @pytest.mark.parametrize("kind", ["decode", "prefill"])
@@ -372,7 +376,7 @@ def test_dry_run_on_a_fake_mesh_records_them_shard_by_shard(kind):
                             mesh=((2, 4), ("data", "model")))
     L = cfg.num_layers
     assert rec["ok"]
-    assert {n: c.kernels.get(n) for n in K.NAMES} == {
+    assert {n: c.kernels.get(n) for n in NAMES} == {
         "rms_norm": 2 * L + 1, "rope_qk": L, "silu_mul": L}
 
 
@@ -594,4 +598,5 @@ def test_cuda_graph_replay_is_the_eager_calls_bit_for_bit():
         cuda_build.add_counted(added)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(outs, want)), i
-        assert K.LAUNCHES == {"rms_norm": 1, "rope_qk": 1, "silu_mul": 1}
+        assert K.LAUNCHES == {"rms_norm": 1, "rope_qk": 1, "silu_mul": 1,
+                              "ssm_conv_step": 0, "ssd_step": 0}
